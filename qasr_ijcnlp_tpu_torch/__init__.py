@@ -1,0 +1,23 @@
+"""qasr_ijcnlp_tpu_torch: the PyTorch / CUDA port of qasr_ijcnlp_tpu.
+
+The Whisper request path (PCM -> log-mel -> encoder -> greedy decode ->
+text) in PyTorch, with the JAX package's TPU kernels rewritten by hand for
+Hopper (``csrc/``).  The package imports torch and numpy and never JAX or
+the JAX package, which stays beside it as the reference.
+"""
+
+__version__ = "0.1.0"
+
+from .audio import (  # noqa: F401
+    CHUNK_LENGTH,
+    HOP_LENGTH,
+    N_FFT,
+    N_FRAMES,
+    N_SAMPLES,
+    SAMPLE_RATE,
+    log_mel_spectrogram,
+    mel_filters,
+    pad_or_trim,
+)
+from .decode import DecodingOptions, DecodingResult, decode, detect_language  # noqa: F401
+from .models.registry import WhisperModel  # noqa: F401

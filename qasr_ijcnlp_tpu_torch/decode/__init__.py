@@ -1,0 +1,361 @@
+"""Decoding API: options, results, language detection and decode().
+
+Port of ``qasr_ijcnlp_tpu/decode/__init__.py`` (greedy and temperature
+sampling).  Beam search, best-of, speculative drafts and the int8 cross
+cache are not ported yet and raise ``NotImplementedError``; none of them
+falls back to another path.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field, replace
+from typing import Dict, Iterable, List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from ..audio import CHUNK_LENGTH
+from ..models import whisper as model
+from ..tokenizer import Tokenizer, get_tokenizer
+from ..utils import compression_ratio
+from . import loop as _loop
+from .filters import build_config
+
+
+@dataclass(frozen=True)
+class DecodingOptions:
+    """Mirror of the reference options (whisper decoding.py)."""
+
+    task: str = "transcribe"
+    language: Optional[str] = None
+
+    temperature: float = 0.0
+    sample_len: Optional[int] = None
+    best_of: Optional[int] = None
+    beam_size: Optional[int] = None
+    patience: Optional[float] = None
+
+    length_penalty: Optional[float] = None
+
+    prompt: Optional[Union[str, List[int]]] = None
+    prefix: Optional[Union[str, List[int]]] = None
+
+    suppress_tokens: Optional[Union[str, Iterable[int]]] = "-1"
+    suppress_blank: bool = True
+
+    without_timestamps: bool = False
+    max_initial_timestamp: Optional[float] = 1.0
+
+    # On CUDA "fp16" selects bfloat16; float32 elsewhere.
+    fp16: bool = True
+
+    kv_int8: bool = False
+    draft: Optional[object] = None
+    prompt_bucket: Optional[int] = None
+
+
+@dataclass(frozen=True)
+class DecodingResult:
+    audio_features: Optional[torch.Tensor]
+    language: str
+    language_probs: Optional[Dict[str, float]] = None
+    tokens: List[int] = field(default_factory=list)
+    text: str = ""
+    avg_logprob: float = np.nan
+    no_speech_prob: float = np.nan
+    temperature: float = np.nan
+    compression_ratio: float = np.nan
+
+
+def _compute_dtype(fp16: bool, device: torch.device) -> torch.dtype:
+    if fp16 and device.type == "cuda":
+        return torch.bfloat16
+    return torch.float32
+
+
+def _audio_features(model_obj, mel: torch.Tensor, fp16: bool) -> torch.Tensor:
+    dims = model_obj.dims
+    if tuple(mel.shape[-2:]) == (dims.n_audio_ctx, dims.n_audio_state):
+        return mel  # already encoded
+    return model.encoder_apply(
+        model_obj.module.encoder, mel, dims, _compute_dtype(fp16, mel.device)
+    )
+
+
+def detect_language(
+    model_obj, mel, tokenizer: Optional[Tokenizer] = None
+) -> Tuple[np.ndarray, List[Dict[str, float]]]:
+    """Most probable language token + per-language probabilities."""
+    if tokenizer is None:
+        tokenizer = get_tokenizer(
+            model_obj.is_multilingual, num_languages=model_obj.num_languages
+        )
+    if (
+        tokenizer.language is None
+        or tokenizer.language_token not in tokenizer.sot_sequence
+    ):
+        raise ValueError(
+            "This model doesn't have language tokens so it can't perform lang id"
+        )
+    mel = torch.as_tensor(mel).to(model_obj.device)
+    single = mel.dim() == 2
+    if single:
+        mel = mel[None]
+    xa = _audio_features(model_obj, mel, fp16=True)
+
+    x = torch.full((xa.shape[0], 1), tokenizer.sot, dtype=torch.long, device=xa.device)
+    logits = model.decoder_apply(model_obj.module.decoder, x, xa, model_obj.dims)[:, 0]
+    mask = torch.zeros(model_obj.dims.n_vocab, dtype=torch.bool, device=xa.device)
+    mask[list(tokenizer.all_language_tokens)] = True
+    logits = logits.masked_fill(~mask, float("-inf"))
+    language_tokens = logits.argmax(-1).cpu().numpy()
+    probs = torch.softmax(logits, dim=-1).cpu().numpy()
+    language_probs = [
+        {
+            c: float(probs[i, j])
+            for j, c in zip(tokenizer.all_language_tokens, tokenizer.all_language_codes)
+        }
+        for i in range(mel.shape[0])
+    ]
+    if single:
+        return language_tokens[0], language_probs[0]
+    return language_tokens, language_probs
+
+
+def _cut_at_eot(seq: np.ndarray, sample_begin: int, eot: int) -> List[int]:
+    """Sampled-region tokens up to (excluding) the first eot."""
+    s = seq[sample_begin:]
+    hits = np.nonzero(s == eot)[0]
+    return s[: hits[0]].tolist() if hits.size else s.tolist()
+
+
+class DecodingTask:
+    """Host-side planner: resolves options to a loop config, runs the loop,
+    post-processes to DecodingResults."""
+
+    def __init__(self, model_obj, options: DecodingOptions):
+        self.model = model_obj
+        language = options.language or "en"
+        self.tokenizer = get_tokenizer(
+            model_obj.is_multilingual,
+            num_languages=model_obj.num_languages,
+            language=language,
+            task=options.task,
+        )
+        self.options = self._verify_options(options)
+
+        self.n_ctx: int = model_obj.dims.n_text_ctx
+        self.sample_len: int = options.sample_len or model_obj.dims.n_text_ctx // 2
+
+        self.sot_sequence = self.tokenizer.sot_sequence
+        if self.options.without_timestamps:
+            self.sot_sequence = self.tokenizer.sot_sequence_including_notimestamps
+
+        self.initial_tokens: Tuple[int, ...] = self._get_initial_tokens()
+        self.sample_begin: int = len(self.initial_tokens)
+        self.sot_index: int = self.initial_tokens.index(self.tokenizer.sot)
+
+        max_initial_timestamp_index = None
+        if not options.without_timestamps and options.max_initial_timestamp:
+            precision = CHUNK_LENGTH / model_obj.dims.n_audio_ctx
+            max_initial_timestamp_index = round(
+                options.max_initial_timestamp / precision
+            )
+
+        filters = build_config(
+            self.tokenizer,
+            model_obj.dims.n_vocab,
+            self.sample_begin,
+            self._get_suppress_tokens() if options.suppress_tokens else (),
+            options.suppress_blank,
+            options.without_timestamps,
+            max_initial_timestamp_index,
+        )
+        n_vocab = model_obj.dims.n_vocab
+        no_speech = self.tokenizer.no_speech
+        self.loop_cfg = _loop.LoopConfig(
+            dims=model_obj.dims,
+            filters=filters,
+            sample_begin=self.sample_begin,
+            sot_index=self.sot_index,
+            sample_len=self.sample_len,
+            eot=self.tokenizer.eot,
+            timestamp_begin=min(self.tokenizer.timestamp_begin, n_vocab),
+            no_speech=no_speech if no_speech is not None and no_speech < n_vocab else None,
+            compute_dtype=_compute_dtype(options.fp16, model_obj.device),
+        )
+
+    def _verify_options(self, options: DecodingOptions) -> DecodingOptions:
+        if options.beam_size is not None and options.best_of is not None:
+            raise ValueError("beam_size and best_of can't be given together")
+        if options.temperature == 0 and options.best_of is not None:
+            raise ValueError("best_of with greedy sampling (T=0) is not compatible")
+        if options.patience is not None and options.beam_size is None:
+            raise ValueError("patience requires beam_size to be given")
+        if options.length_penalty is not None and not (
+            0 <= options.length_penalty <= 1
+        ):
+            raise ValueError("length_penalty (alpha) should be a value between 0 and 1")
+        for name, item in (("beam_size", "Beam search"), ("best_of", "Beam search"),
+                           ("draft", "Decode services"), ("kv_int8", "int8 cross K/V")):
+            if getattr(options, name):
+                raise NotImplementedError(
+                    f"{name} is not ported yet: ROADMAP.md queue 1, '{item}'"
+                )
+        return options
+
+    def _get_initial_tokens(self) -> Tuple[int, ...]:
+        tokens = list(self.sot_sequence)
+
+        if prefix := self.options.prefix:
+            prefix_tokens = (
+                self.tokenizer.encode(" " + prefix.strip())
+                if isinstance(prefix, str)
+                else prefix
+            )
+            if self.sample_len is not None:
+                max_prefix_len = self.n_ctx // 2 - self.sample_len
+                prefix_tokens = prefix_tokens[-max_prefix_len:]
+            tokens = tokens + list(prefix_tokens)
+
+        if prompt := self.options.prompt:
+            prompt_tokens = (
+                self.tokenizer.encode(" " + prompt.strip())
+                if isinstance(prompt, str)
+                else list(prompt)
+            )
+            prompt_tokens = prompt_tokens[-(self.n_ctx // 2 - 1) :]
+            if bucket := self.options.prompt_bucket:
+                keep = (len(prompt_tokens) // bucket) * bucket
+                prompt_tokens = prompt_tokens[-keep:] if keep else []
+            if prompt_tokens:
+                tokens = [self.tokenizer.sot_prev] + prompt_tokens + tokens
+        if len(tokens) > self.n_ctx:
+            raise ValueError(
+                f"initial tokens (sot sequence + prefix/prompt) are "
+                f"{len(tokens)} long, exceeding the decoder context "
+                f"{self.n_ctx}; shorten prefix/prompt or pass a sample_len "
+                f"below n_text_ctx//2 so the prefix budget is positive"
+            )
+        return tuple(tokens)
+
+    def _get_suppress_tokens(self) -> Tuple[int, ...]:
+        suppress_tokens = self.options.suppress_tokens
+        if isinstance(suppress_tokens, str):
+            suppress_tokens = [int(t) for t in suppress_tokens.split(",")]
+        if -1 in suppress_tokens:
+            suppress_tokens = [t for t in suppress_tokens if t >= 0]
+            suppress_tokens.extend(self.tokenizer.non_speech_tokens)
+        elif suppress_tokens is None or len(suppress_tokens) == 0:
+            suppress_tokens = []
+        else:
+            # copy: never mutate the caller's options
+            suppress_tokens = list(suppress_tokens)
+
+        suppress_tokens.extend(
+            [
+                self.tokenizer.transcribe,
+                self.tokenizer.translate,
+                self.tokenizer.sot,
+                self.tokenizer.sot_prev,
+                self.tokenizer.sot_lm,
+            ]
+        )
+        if self.tokenizer.no_speech is not None:
+            suppress_tokens.append(self.tokenizer.no_speech)
+        return tuple(sorted(set(t for t in suppress_tokens if t < self.model.dims.n_vocab)))
+
+    def run(self, mel: torch.Tensor,
+            generator: Optional[torch.Generator] = None) -> List[DecodingResult]:
+        tokenizer = self.tokenizer
+        n_audio = mel.shape[0]
+        opts = self.options
+
+        audio_features = _audio_features(self.model, mel, opts.fp16)
+
+        languages = [opts.language] * n_audio
+        language_probs = None
+        init = np.tile(np.asarray(self.initial_tokens, np.int64), (n_audio, 1))
+        if opts.language is None or opts.task == "lang_id":
+            lang_tokens, language_probs = detect_language(
+                self.model, audio_features, tokenizer
+            )
+            languages = [max(p, key=p.get) for p in language_probs]
+            if opts.language is None:
+                init[:, self.sot_index + 1] = np.asarray(lang_tokens)
+        if opts.task == "lang_id":
+            return [
+                DecodingResult(
+                    audio_features=audio_features[i],
+                    language=languages[i],
+                    language_probs=language_probs[i],
+                )
+                for i in range(n_audio)
+            ]
+
+        decoder = self.model.decoder_for(self.loop_cfg.compute_dtype)
+        buf, _, sum_lp, no_speech = _loop.greedy_decode(
+            decoder,
+            self.loop_cfg,
+            audio_features,
+            torch.from_numpy(init).to(audio_features.device),
+            float(opts.temperature),
+            generator,
+        )
+        # one device -> host copy for the whole batch
+        buf = buf.cpu().numpy()
+        sum_lp = sum_lp.cpu().numpy()
+        no_speech = no_speech.cpu().numpy()
+
+        eot = tokenizer.eot
+        tokens = [_cut_at_eot(buf[i], self.sample_begin, eot) for i in range(n_audio)]
+        texts = [tokenizer.decode(t).strip() for t in tokens]
+        avg_logprobs = [float(sum_lp[i]) / (len(t) + 1) for i, t in enumerate(tokens)]
+        return [
+            DecodingResult(
+                audio_features=audio_features[i],
+                language=languages[i],
+                tokens=tokens[i],
+                text=texts[i],
+                avg_logprob=avg_logprobs[i],
+                no_speech_prob=float(no_speech[i]),
+                temperature=opts.temperature,
+                compression_ratio=compression_ratio(texts[i]),
+            )
+            for i in range(n_audio)
+        ]
+
+
+def _get_task(model_obj, options: DecodingOptions) -> DecodingTask:
+    """Reuse tasks across calls with identical options (the filter masks are
+    vocab-sized); list-valued prompts are unhashable and build fresh."""
+    cache = model_obj._task_cache
+    try:
+        task = cache.get(options)
+    except TypeError:
+        return DecodingTask(model_obj, options)
+    if task is None:
+        task = DecodingTask(model_obj, options)
+        if len(cache) < 64:
+            cache[options] = task
+    return task
+
+
+@torch.inference_mode()
+def decode(
+    model_obj,
+    mel,
+    options: DecodingOptions = DecodingOptions(),
+    generator: Optional[torch.Generator] = None,
+    **kwargs,
+) -> Union[DecodingResult, List[DecodingResult]]:
+    """Decode 30-second mel segment(s) (reference decoding.py decode).
+
+    ``generator`` drives temperature sampling on the model's device."""
+    mel = torch.as_tensor(mel).to(model_obj.device)
+    if single := mel.dim() == 2:
+        mel = mel[None]
+    if kwargs:
+        options = replace(options, **kwargs)
+    result = _get_task(model_obj, options).run(mel, generator)
+    return result[0] if single else result

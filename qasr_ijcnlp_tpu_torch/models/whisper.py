@@ -1,0 +1,397 @@
+"""Whisper encoder/decoder in PyTorch.
+
+Port of ``qasr_ijcnlp_tpu/models/whisper.py``.  The modules carry the
+reference (OpenAI) state-dict names (``encoder.blocks.{i}.attn.query.weight``,
+``decoder.token_embedding.weight``, ...) so official checkpoints load with
+``load_state_dict``; the forward passes are plain functions over those
+modules, mirroring the JAX functions name for name.
+
+Mixed precision is a policy, as in the reference: activations in the compute
+dtype (bfloat16 on CUDA when ``fp16``), LayerNorm, softmax and logits in
+fp32.  Attention uses the 4th-root scaling on q and k.
+
+The encoder always runs the kernel path of ``ops/``: the conv stem emits the
+trunk input at the tile-padded length Tp = round_up(n_audio_ctx, 128) (1536
+for 1500 frames), every block runs as the attention + finish kernels with
+keys >= n_audio_ctx masked, and the padded rows are sliced off before
+``ln_post``.  On CPU tensors the same ops run their plain versions.  The
+decoder is plain PyTorch (``torch.matmul``), as the JAX package left it to
+XLA.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops import gelu, layer_norm, linear, round_up
+from ..ops.conv_stem import fused_conv_stem
+from ..ops.encoder_block import fused_encoder_block
+from .dims import ModelDimensions
+
+
+def sinusoids(length: int, channels: int, max_timescale: float = 10000) -> np.ndarray:
+    """Sinusoidal position embeddings (reference model.py sinusoids)."""
+    if channels % 2:
+        raise ValueError("channels must be even")
+    log_timescale_increment = math.log(max_timescale) / (channels // 2 - 1)
+    inv_timescales = np.exp(-log_timescale_increment * np.arange(channels // 2))
+    scaled_time = np.arange(length)[:, None] * inv_timescales[None, :]
+    return np.concatenate(
+        [np.sin(scaled_time), np.cos(scaled_time)], axis=1
+    ).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# Modules (parameter containers with the reference names)
+# ---------------------------------------------------------------------------
+
+
+class MultiHeadAttention(nn.Module):
+    def __init__(self, n_state: int, n_head: int):
+        super().__init__()
+        self.n_head = n_head
+        self.query = nn.Linear(n_state, n_state)
+        self.key = nn.Linear(n_state, n_state, bias=False)
+        self.value = nn.Linear(n_state, n_state)
+        self.out = nn.Linear(n_state, n_state)
+
+
+class ResidualAttentionBlock(nn.Module):
+    def __init__(self, n_state: int, n_head: int, cross_attention: bool = False):
+        super().__init__()
+        self.attn = MultiHeadAttention(n_state, n_head)
+        self.attn_ln = nn.LayerNorm(n_state)
+        self.cross_attn = MultiHeadAttention(n_state, n_head) if cross_attention else None
+        self.cross_attn_ln = nn.LayerNorm(n_state) if cross_attention else None
+        n_mlp = n_state * 4
+        self.mlp = nn.Sequential(
+            nn.Linear(n_state, n_mlp), nn.GELU(), nn.Linear(n_mlp, n_state)
+        )
+        self.mlp_ln = nn.LayerNorm(n_state)
+
+
+class AudioEncoder(nn.Module):
+    def __init__(self, n_mels: int, n_ctx: int, n_state: int, n_head: int,
+                 n_layer: int):
+        super().__init__()
+        self.conv1 = nn.Conv1d(n_mels, n_state, kernel_size=3, padding=1)
+        self.conv2 = nn.Conv1d(n_state, n_state, kernel_size=3, stride=2, padding=1)
+        self.register_buffer(
+            "positional_embedding", torch.from_numpy(sinusoids(n_ctx, n_state))
+        )
+        self.blocks = nn.ModuleList(
+            ResidualAttentionBlock(n_state, n_head) for _ in range(n_layer)
+        )
+        self.ln_post = nn.LayerNorm(n_state)
+
+
+class TextDecoder(nn.Module):
+    def __init__(self, n_vocab: int, n_ctx: int, n_state: int, n_head: int,
+                 n_layer: int):
+        super().__init__()
+        self.token_embedding = nn.Embedding(n_vocab, n_state)
+        self.positional_embedding = nn.Parameter(torch.empty(n_ctx, n_state))
+        self.blocks = nn.ModuleList(
+            ResidualAttentionBlock(n_state, n_head, cross_attention=True)
+            for _ in range(n_layer)
+        )
+        self.ln = nn.LayerNorm(n_state)
+
+
+class Whisper(nn.Module):
+    def __init__(self, dims: ModelDimensions):
+        super().__init__()
+        self.dims = dims
+        self.encoder = AudioEncoder(
+            dims.n_mels, dims.n_audio_ctx, dims.n_audio_state, dims.n_audio_head,
+            dims.n_audio_layer,
+        )
+        self.decoder = TextDecoder(
+            dims.n_vocab, dims.n_text_ctx, dims.n_text_state, dims.n_text_head,
+            dims.n_text_layer,
+        )
+
+
+# ---------------------------------------------------------------------------
+# Initialization (the JAX package's distributions, torch.Generator bits)
+# ---------------------------------------------------------------------------
+
+
+def init_params(generator: torch.Generator, dims: ModelDimensions) -> Dict[str, torch.Tensor]:
+    """Random-init state dict with the JAX package's distributions: nn.Linear
+    and Conv1d U(+-1/sqrt(fan_in)) for weights and biases, unit LayerNorms,
+    token embeddings N(0, 0.02), decoder positions N(0, 0.01), sinusoidal
+    encoder positions.  Generated on the CPU, so a seed gives the same
+    weights on every device."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def uniform(shape, bound):
+        return (torch.rand(shape, generator=generator) * 2 - 1) * bound
+
+    def lin(prefix, d_in, d_out, bias=True):
+        bound = 1.0 / math.sqrt(d_in)
+        sd[f"{prefix}.weight"] = uniform((d_out, d_in), bound)
+        if bias:
+            sd[f"{prefix}.bias"] = uniform((d_out,), bound)
+
+    def ln(prefix, d):
+        sd[f"{prefix}.weight"] = torch.ones(d)
+        sd[f"{prefix}.bias"] = torch.zeros(d)
+
+    def block(prefix, d, cross):
+        attns = ("attn", "cross_attn") if cross else ("attn",)
+        for a in attns:
+            lin(f"{prefix}.{a}.query", d, d)
+            lin(f"{prefix}.{a}.key", d, d, bias=False)
+            lin(f"{prefix}.{a}.value", d, d)
+            lin(f"{prefix}.{a}.out", d, d)
+            ln(f"{prefix}.{a}_ln", d)
+        lin(f"{prefix}.mlp.0", d, 4 * d)
+        lin(f"{prefix}.mlp.2", 4 * d, d)
+        ln(f"{prefix}.mlp_ln", d)
+
+    d = dims.n_audio_state
+    for name, c_in in (("conv1", dims.n_mels), ("conv2", d)):
+        bound = 1.0 / math.sqrt(c_in * 3)
+        sd[f"encoder.{name}.weight"] = uniform((d, c_in, 3), bound)
+        sd[f"encoder.{name}.bias"] = uniform((d,), bound)
+    sd["encoder.positional_embedding"] = torch.from_numpy(
+        sinusoids(dims.n_audio_ctx, d)
+    )
+    for i in range(dims.n_audio_layer):
+        block(f"encoder.blocks.{i}", d, cross=False)
+    ln("encoder.ln_post", d)
+
+    dt_ = dims.n_text_state
+    sd["decoder.token_embedding.weight"] = (
+        torch.randn((dims.n_vocab, dt_), generator=generator) * 0.02
+    )
+    sd["decoder.positional_embedding"] = (
+        torch.randn((dims.n_text_ctx, dt_), generator=generator) * 0.01
+    )
+    for i in range(dims.n_text_layer):
+        block(f"decoder.blocks.{i}", dt_, cross=True)
+    ln("decoder.ln", dt_)
+    return sd
+
+
+# ---------------------------------------------------------------------------
+# Core ops
+# ---------------------------------------------------------------------------
+
+
+def _split_heads(x, n_head: int):
+    b, t, d = x.shape
+    return x.reshape(b, t, n_head, d // n_head).transpose(1, 2)
+
+
+def _merge_heads(x):
+    b, h, t, dh = x.shape
+    return x.transpose(1, 2).reshape(b, t, h * dh)
+
+
+def _attend(qh, kh, vh, mask=None):
+    """softmax(qh kh^T + mask) vh on pre-split, pre-scaled heads; the logits
+    and the softmax in fp32."""
+    logits = (qh @ kh.transpose(-1, -2)).float()
+    if mask is not None:
+        logits = logits + mask
+    w = torch.softmax(logits, dim=-1).to(qh.dtype)
+    return _merge_heads(w @ vh)
+
+
+def attention(q, k, v, n_head: int, mask=None, t_real: Optional[int] = None):
+    """Multi-head attention with 4th-root scaling; softmax in fp32.
+
+    q: (B, Tq, D), k/v: (B, Tk, D); ``mask`` additive, broadcastable to
+    (B, H, Tq, Tk); keys >= ``t_real`` never receive weight."""
+    scale = (q.shape[-1] // n_head) ** -0.25
+    if t_real is not None and t_real != k.shape[1]:
+        keep = torch.arange(k.shape[1], device=k.device) < t_real
+        pad = torch.zeros(k.shape[1], device=k.device).masked_fill(~keep, float("-inf"))
+        mask = pad if mask is None else mask + pad
+    return _attend(
+        _split_heads(q, n_head) * scale, _split_heads(k, n_head) * scale,
+        _split_heads(v, n_head), mask,
+    )
+
+
+def _self_attn(a, x, n_head: int, mask=None):
+    q, k, v = linear(x, a.query), linear(x, a.key), linear(x, a.value)
+    return linear(attention(q, k, v, n_head, mask), a.out)
+
+
+def _mlp(mlp, x):
+    return linear(gelu(linear(x, mlp[0])), mlp[2])
+
+
+# ---------------------------------------------------------------------------
+# Encoder
+# ---------------------------------------------------------------------------
+
+
+def encoder_apply(encoder: AudioEncoder, mel, dims: ModelDimensions,
+                  compute_dtype=torch.float32):
+    """Audio encoder forward: (B, n_mels, 2 n_audio_ctx) -> (B, n_audio_ctx, D)."""
+    T = dims.n_audio_ctx
+    if mel.shape[-1] != 2 * T:
+        raise ValueError(f"expected {2 * T} mel frames, got {mel.shape[-1]}")
+    x = fused_conv_stem(encoder, mel, round_up(T, 128), compute_dtype)
+    return transformer_trunk(encoder, x, dims, t_real=T)
+
+
+def transformer_trunk(encoder: AudioEncoder, x, dims: ModelDimensions,
+                      t_real: Optional[int] = None):
+    """Encoder blocks + ``ln_post`` on an embedded (B, T, D) input.  The
+    stack runs at the tile-padded length; pass ``t_real`` when ``x`` arrives
+    padded already.  Padded rows mix with real ones only as attention keys,
+    where they are masked, and are sliced off at the end."""
+    T = t_real if t_real is not None else x.shape[1]
+    Tp = round_up(T, 128)
+    if x.shape[1] != Tp:
+        x = F.pad(x, (0, 0, 0, Tp - x.shape[1]))
+    for block in encoder.blocks:
+        x = fused_encoder_block(x, block, dims.n_audio_head, T)
+    return layer_norm(x[:, :T], encoder.ln_post)
+
+
+# ---------------------------------------------------------------------------
+# Decoder
+# ---------------------------------------------------------------------------
+
+
+def _causal_mask(T: int, device):
+    keep = torch.arange(T, device=device)[:, None] >= torch.arange(T, device=device)[None, :]
+    return torch.zeros(T, T, device=device).masked_fill(~keep, float("-inf"))
+
+
+def decoder_apply(decoder: TextDecoder, tokens, xa, dims: ModelDimensions,
+                  compute_dtype=torch.float32):
+    """Teacher-forced decoder: tokens (B, T), xa (B, Ta, D) -> fp32 logits
+    (B, T, vocab)."""
+    T = tokens.shape[1]
+    n_head = dims.n_text_head
+    x = decoder.token_embedding.weight[tokens] + decoder.positional_embedding[:T]
+    x = x.to(compute_dtype)
+    xa = xa.to(compute_dtype)
+    causal = _causal_mask(T, x.device)
+    for bp in decoder.blocks:
+        x = x + _self_attn(bp.attn, layer_norm(x, bp.attn_ln), n_head, causal)
+        q = linear(layer_norm(x, bp.cross_attn_ln), bp.cross_attn.query)
+        k = linear(xa, bp.cross_attn.key)
+        v = linear(xa, bp.cross_attn.value)
+        x = x + linear(attention(q, k, v, n_head), bp.cross_attn.out)
+        x = x + _mlp(bp.mlp, layer_norm(x, bp.mlp_ln))
+    x = layer_norm(x, decoder.ln)
+    return (x @ decoder.token_embedding.weight.to(x.dtype).t()).float()
+
+
+def init_kv_cache(
+    dims: ModelDimensions, batch: int, dtype=torch.float32, device="cpu",
+    cross_batch: Optional[int] = None, ctx: Optional[int] = None,
+    cross_int8: bool = False,
+) -> Dict:
+    """KV cache for incremental decoding: one buffer per layer.
+
+    Self K/V are (B, H, ctx, Dh) with ``ctx`` bounded by the caller to the
+    reachable length; ``decoder_step`` writes them in place (the JAX cache is
+    immutable and returned anew).  Cross K/V are filled once per audio by
+    :func:`precompute_cross_kv`, stored head-split and the key pre-scaled, so
+    no decode step re-lays them out.  ``idx`` is the host-side write offset.
+    """
+    if cross_int8:
+        raise NotImplementedError(
+            "int8 cross K/V (kv_int8) is not ported yet: ROADMAP.md queue 1, "
+            "'int8 cross K/V'"
+        )
+    if cross_batch is not None and cross_batch != batch:
+        raise NotImplementedError(
+            "grouped cross attention (beam / best-of) is not ported yet: "
+            "ROADMAP.md queue 1, 'Beam search'"
+        )
+    L, H = dims.n_text_layer, dims.n_text_head
+    Dh = dims.n_text_state // H
+    T = min(ctx or dims.n_text_ctx, dims.n_text_ctx)
+    z = lambda: torch.zeros(batch, H, T, Dh, dtype=dtype, device=device)
+    return {
+        "self_k": [z() for _ in range(L)],
+        "self_v": [z() for _ in range(L)],
+        "cross_k": [None] * L,
+        "cross_v": [None] * L,
+        "idx": 0,
+    }
+
+
+def precompute_cross_kv(decoder: TextDecoder, xa, cache: Dict,
+                        n_head: Optional[int] = None) -> Dict:
+    """Project the encoder output to every layer's cross K/V once."""
+    dtype = cache["self_k"][0].dtype
+    H = n_head if n_head is not None else cache["self_k"][0].shape[1]
+    xa = xa.to(dtype)
+    scale = (xa.shape[-1] // H) ** -0.25
+    ks, vs = [], []
+    for bp in decoder.blocks:
+        ks.append((_split_heads(linear(xa, bp.cross_attn.key), H) * scale).contiguous())
+        vs.append(_split_heads(linear(xa, bp.cross_attn.value), H).contiguous())
+    return {**cache, "cross_k": ks, "cross_v": vs}
+
+
+def decoder_step(
+    decoder: TextDecoder, tokens, cache: Dict, dims: ModelDimensions,
+    compute_dtype=torch.float32, offsets=None,
+) -> Tuple[torch.Tensor, Dict]:
+    """Incremental decoder forward over ``tokens`` (B, T_new) at cache
+    position ``cache['idx']``: (fp32 logits (B, T_new, vocab), updated cache).
+
+    The first call may pass the whole prompt; later calls one token."""
+    if offsets is not None:
+        raise NotImplementedError(
+            "per-row offsets (speculative decode) are not ported yet: "
+            "ROADMAP.md queue 1, 'Decode services'"
+        )
+    B, T_new = tokens.shape
+    H = dims.n_text_head
+    Tmax = cache["self_k"][0].shape[2]
+    offset = int(cache["idx"])
+    if offset + T_new > Tmax:
+        raise ValueError(f"kv cache of {Tmax} positions is full")
+    dev = tokens.device
+    q_pos = offset + torch.arange(T_new, device=dev)
+    keep = torch.arange(Tmax, device=dev)[None, :] <= q_pos[:, None]
+    mask = torch.zeros(T_new, Tmax, device=dev).masked_fill(~keep, float("-inf"))
+    pos = decoder.positional_embedding[offset:offset + T_new]
+    x = (decoder.token_embedding.weight[tokens] + pos).to(compute_dtype)
+    scale = (dims.n_text_state // H) ** -0.25
+    for l, bp in enumerate(decoder.blocks):
+        xn = layer_norm(x, bp.attn_ln)
+        q = linear(xn, bp.attn.query)
+        # in-place cache append (the JAX step returns a new buffer)
+        cache["self_k"][l][:, :, offset:offset + T_new] = _split_heads(
+            linear(xn, bp.attn.key), H)
+        cache["self_v"][l][:, :, offset:offset + T_new] = _split_heads(
+            linear(xn, bp.attn.value), H)
+        a = _attend(_split_heads(q, H) * scale, cache["self_k"][l] * scale,
+                    cache["self_v"][l], mask)
+        x = x + linear(a, bp.attn.out)
+        qc = linear(layer_norm(x, bp.cross_attn_ln), bp.cross_attn.query)
+        ca = _attend(_split_heads(qc, H) * scale, cache["cross_k"][l],
+                     cache["cross_v"][l])
+        x = x + linear(ca, bp.cross_attn.out)
+        x = x + _mlp(bp.mlp, layer_norm(x, bp.mlp_ln))
+    x = layer_norm(x, decoder.ln)
+    logits = (x @ decoder.token_embedding.weight.to(x.dtype).t()).float()
+    return logits, {**cache, "idx": offset + T_new}
+
+
+def is_multilingual(dims: ModelDimensions) -> bool:
+    return dims.n_vocab >= 51865
+
+
+def num_languages(dims: ModelDimensions) -> int:
+    return dims.n_vocab - 51765 - int(is_multilingual(dims))

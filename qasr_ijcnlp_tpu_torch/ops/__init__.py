@@ -1,0 +1,43 @@
+"""Hand-written Hopper kernels of the encoder path and their plain versions.
+
+Each module pairs one kernel wrapper with a plain PyTorch version of the
+same function.  The wrapper takes the plain version only for tensors on the
+CPU; for CUDA tensors it launches the kernel (``csrc/``, built by
+:mod:`qasr_ijcnlp_tpu_torch._kernels`) or raises.  Each wrapper counts its
+launches in a plain module-level int.
+
+* :mod:`.melfront` — STFT + mel frontend (K1)
+* :mod:`.conv_stem` — two-conv encoder stem (K2)
+* :mod:`.encoder_block` — LN + QKV + masked attention (K4) and
+  out-proj + LN + MLP (K5)
+"""
+
+import torch
+import torch.nn.functional as F
+
+
+def round_up(x: int, m: int) -> int:
+    """Smallest multiple of ``m`` that is >= ``x`` (kernel tile padding)."""
+    return (x + m - 1) // m * m
+
+
+def layer_norm(x, ln, eps: float = 1e-5):
+    """LayerNorm in fp32 whatever the activation dtype; result in x.dtype."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, keepdim=True, unbiased=False)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    return (y * ln.weight.float() + ln.bias.float()).to(x.dtype)
+
+
+def linear(x, lin):
+    """x @ W^T + b with the nn.Linear parameters cast to x.dtype per call."""
+    y = x @ lin.weight.to(x.dtype).t()
+    if lin.bias is not None:
+        y = y + lin.bias.to(x.dtype)
+    return y
+
+
+def gelu(x):
+    """Exact-erf GELU computed in fp32, result in x.dtype."""
+    return F.gelu(x.float()).to(x.dtype)

@@ -1,0 +1,155 @@
+"""Fused encoder transformer block: attention half (K4) and finish half (K5).
+
+Replaces, in ``qasr_ijcnlp_tpu/ops/encoder_block.py``, ``_attn_kernel``
+(fp32 LN -> Q/K/V projections, q and k scaled by dh^-0.25 -> masked softmax
+attention) and ``_finish_kernel`` (x + attn Wo + bo -> LN -> fc -> exact GELU
+-> proj -> residual).  Both work on the model's own row-major (B, Tp, D)
+tensor; keys at positions >= ``t_real`` are masked and query rows past it
+compute values the caller slices away.
+
+On the H100 (``csrc/encoder_block.cu``) the attention is an online-softmax
+kernel per (64-query tile, head, batch item) that never writes the (T, T)
+logits and skips key tiles past ``t_real``; the projections and the MLP are
+SIMT fp32-accumulating GEMMs with fused epilogues.  Both halves are bound by
+FMA throughput on the CUDA cores until the GEMMs move to wgmma.
+
+Weights are read in the nn.Linear layout (out, in) of the port's modules and
+cast to the activation dtype per call, as the reference casts its fp32
+parameters per op; LN and softmax stay fp32.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import _kernels
+from . import gelu, layer_norm, linear
+
+DH = 64  # the CUDA attention kernel's head width (every Whisper size)
+
+attn_launches = 0
+finish_launches = 0
+
+
+def _scale(dh: int, dtype) -> float:
+    """dh^-0.25 rounded to the compute dtype, as the reference kernels use it."""
+    return float(torch.tensor(dh ** -0.25, dtype=dtype))
+
+
+def _plain_attn_ln(x, ln, attn, n_head: int, t_real: int):
+    """Plain PyTorch LN + QKV + masked softmax attention (before the
+    out-projection): (B, Tp, D) -> (B, Tp, D)."""
+    B, Tp, D = x.shape
+    dt = x.dtype
+    dh = D // n_head
+    scale = _scale(dh, dt)
+    h = layer_norm(x, ln)
+    q = linear(h, attn.query) * scale
+    k = linear(h, attn.key) * scale
+    v = linear(h, attn.value)
+    split = lambda z: z.reshape(B, Tp, n_head, dh).transpose(1, 2)
+    logits = (split(q) @ split(k).transpose(-1, -2)).float()
+    if t_real != Tp:
+        keep = torch.arange(Tp, device=x.device) < t_real
+        logits = logits.masked_fill(~keep, float("-inf"))
+    w = torch.softmax(logits, dim=-1).to(dt)
+    return (w @ split(v)).transpose(1, 2).reshape(B, Tp, D)
+
+
+def _plain_finish(x, attn_out, block):
+    """Plain PyTorch out-projection + residual, LN + MLP + residual."""
+    r = x + linear(attn_out, block.attn.out)
+    t = gelu(linear(layer_norm(r, block.mlp_ln), block.mlp[0]))
+    return r + linear(t, block.mlp[2])
+
+
+def _check_block_input(name, x, n_head, t_real):
+    if x.dim() != 3 or x.dtype not in _kernels.DTYPE_CODES:
+        raise ValueError(f"{name}: expected (B, Tp, D) float32/bfloat16, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    D = x.shape[-1]
+    if D % n_head or D // n_head != DH:
+        raise ValueError(f"{name}: the kernel needs head width {DH}, got "
+                         f"D={D}, n_head={n_head}")
+    if not 1 <= t_real <= x.shape[1]:
+        raise ValueError(f"{name}: t_real={t_real} outside [1, {x.shape[1]}]")
+
+
+def fused_attention_ln(x, ln, attn, n_head: int, t_real: int):
+    """LN + QKV projection + softmax(QK^T)V over ``n_head`` heads, stopping
+    before the output projection: (B, Tp, D) -> (B, Tp, D).
+
+    ``ln`` is the block's ``attn_ln`` (nn.LayerNorm) and ``attn`` its
+    attention module (``query``/``key``/``value`` nn.Linear)."""
+    if not x.is_cuda:
+        return _plain_attn_ln(x, ln, attn, n_head, t_real)
+    global attn_launches
+    _check_block_input("fused_attention_ln", x, n_head, t_real)
+    B, Tp, D = x.shape
+    dt = x.dtype
+    wqkv = torch.cat(
+        [attn.query.weight, attn.key.weight, attn.value.weight]
+    ).to(dt).contiguous()
+    bqkv = torch.cat(
+        [attn.query.bias, torch.zeros_like(attn.query.bias), attn.value.bias]
+    ).to(dt).contiguous()
+    g = ln.weight.float().contiguous()
+    b = ln.bias.float().contiguous()
+    h = torch.empty_like(x)
+    qkv = x.new_empty(B, Tp, 3 * D)
+    out = torch.empty_like(x)
+    _kernels.check_cuda("fused_attention_ln", x, wqkv, bqkv, h, qkv, out, dtype=dt)
+    _kernels.check_cuda("fused_attention_ln", x, g, b)
+    _kernels.library().call(
+        "qasr_attention", x.device, _kernels.DTYPE_CODES[dt],
+        x.data_ptr(), g.data_ptr(), b.data_ptr(), wqkv.data_ptr(),
+        bqkv.data_ptr(), _scale(D // n_head, dt), h.data_ptr(), qkv.data_ptr(),
+        out.data_ptr(), B, Tp, D, n_head, t_real,
+    )
+    attn_launches += 1
+    return out
+
+
+def fused_block_finish(x, attn_out, block):
+    """x + attn_out Wo + bo, then LN + fc + exact GELU + proj + residual:
+    (B, Tp, D) -> (B, Tp, D)."""
+    if not x.is_cuda:
+        return _plain_finish(x, attn_out, block)
+    global finish_launches
+    dt = x.dtype
+    if x.dim() != 3 or dt not in _kernels.DTYPE_CODES or attn_out.shape != x.shape:
+        raise ValueError("fused_block_finish: expected matching (B, Tp, D) "
+                         "float32/bfloat16 inputs")
+    B, Tp, D = x.shape
+    M = B * Tp
+    fc, proj, wo = block.mlp[0], block.mlp[2], block.attn.out
+    F = fc.weight.shape[0]
+    w = lambda p: p.to(dt).contiguous()
+    ws = [w(wo.weight), w(wo.bias), w(fc.weight), w(fc.bias), w(proj.weight),
+          w(proj.bias)]
+    g = block.mlp_ln.weight.float().contiguous()
+    b = block.mlp_ln.bias.float().contiguous()
+    attn_out = attn_out.contiguous()
+    r = torch.empty_like(x)
+    h = torch.empty_like(x)
+    t = x.new_empty(B, Tp, F)
+    out = torch.empty_like(x)
+    _kernels.check_cuda("fused_block_finish", x, attn_out, *ws, r, h, t, out,
+                        dtype=dt)
+    _kernels.check_cuda("fused_block_finish", x, g, b)
+    _kernels.library().call(
+        "qasr_finish", x.device, _kernels.DTYPE_CODES[dt],
+        x.data_ptr(), attn_out.data_ptr(), ws[0].data_ptr(), ws[1].data_ptr(),
+        g.data_ptr(), b.data_ptr(), ws[2].data_ptr(), ws[3].data_ptr(),
+        ws[4].data_ptr(), ws[5].data_ptr(), r.data_ptr(), h.data_ptr(),
+        t.data_ptr(), out.data_ptr(), M, D, F,
+    )
+    finish_launches += 1
+    return out
+
+
+def fused_encoder_block(x, block, n_head: int, t_real: int):
+    """One whole encoder block: (B, Tp, D) -> (B, Tp, D).  ``block`` is the
+    port's ResidualAttentionBlock (reference state-dict names)."""
+    attn_out = fused_attention_ln(x, block.attn_ln, block.attn, n_head, t_real)
+    return fused_block_finish(x, attn_out, block)

@@ -1,0 +1,126 @@
+"""Port decode() (qasr_ijcnlp_tpu_torch/decode/) vs JAX decode(), and the
+slice as a whole: PCM -> log-mel -> encoder -> greedy decode -> text.
+
+Greedy decode at f32 must be token-exact and text-equal, with and without
+timestamps.  A subprocess checks that the port runs a request without
+importing JAX or the JAX package.
+"""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from qasr_ijcnlp_tpu import audio as jaudio
+from qasr_ijcnlp_tpu.decode import DecodingOptions as JOptions, decode as jdecode
+from qasr_ijcnlp_tpu.models.registry import WhisperModel as JModel
+import qasr_ijcnlp_tpu_torch as port
+from tests.torch_port_common import DIMS, jax_params, torch_model
+
+EOT = 50257
+BENCH = dict(language="en", without_timestamps=True, sample_len=12,
+             suppress_tokens=[EOT], suppress_blank=False)
+
+
+@pytest.fixture(scope="module")
+def models():
+    params = jax_params(0)
+    jm = JModel(jax.tree.map(jnp.asarray, params), DIMS)
+    return jm, torch_model(params)
+
+
+@pytest.fixture(scope="module")
+def pcm():
+    return (np.random.default_rng(8).standard_normal((2, 1000 * 160)) * 0.2).astype(
+        np.float32)
+
+
+def _tokens(results):
+    return [r.tokens for r in results], [r.text for r in results]
+
+
+@pytest.mark.parametrize("opts", [
+    dict(BENCH),
+    dict(language="en", sample_len=10),  # timestamp rules on
+], ids=["without_timestamps", "with_timestamps"])
+def test_decode_token_exact_vs_jax(models, opts):
+    jm, tm = models
+    mel = np.random.default_rng(9).standard_normal((2, 80, 1000)).astype(np.float32)
+    ref = jdecode(jm, jnp.asarray(mel), JOptions(fp16=False, **opts))
+    ours = port.decode(tm, mel, port.DecodingOptions(fp16=False, **opts))
+    assert _tokens(ours) == _tokens(ref)
+    for a, b in zip(ours, ref):
+        assert a.avg_logprob == pytest.approx(b.avg_logprob, abs=1e-4)
+        assert a.no_speech_prob == pytest.approx(b.no_speech_prob, abs=1e-5)
+
+
+def test_slice_pcm_to_text_matches_jax(models, pcm):
+    jm, tm = models
+    ref = jdecode(jm, jaudio.log_mel_spectrogram(pcm), JOptions(**BENCH))
+    ours = port.decode(tm, port.log_mel_spectrogram(pcm), port.DecodingOptions(**BENCH))
+    assert _tokens(ours) == _tokens(ref)
+    assert all(len(r.tokens) == BENCH["sample_len"] for r in ours)
+
+
+def test_detect_language_matches_jax(models):
+    jm, tm = models
+    mel = np.random.default_rng(10).standard_normal((2, 80, 1000)).astype(np.float32)
+    ref_tok, ref_probs = jm.detect_language(jnp.asarray(mel))
+    tok, probs = tm.detect_language(mel)
+    np.testing.assert_array_equal(tok, np.asarray(ref_tok))
+    for a, b in zip(probs, ref_probs):
+        assert a.keys() == b.keys()
+        np.testing.assert_allclose([a[k] for k in a], [b[k] for k in a], atol=1e-5)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(beam_size=2), dict(best_of=2, temperature=0.5), dict(kv_int8=True),
+    dict(draft=object()),
+], ids=["beam_size", "best_of", "kv_int8", "draft"])
+def test_unported_options_raise(models, kw):
+    _, tm = models
+    mel = np.zeros((1, 80, 1000), np.float32)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        port.decode(tm, mel, port.DecodingOptions(language="en", **kw))
+
+
+def test_sampling_is_seeded_by_generator(models):
+    _, tm = models
+    mel = np.random.default_rng(11).standard_normal((2, 80, 1000)).astype(np.float32)
+    opts = port.DecodingOptions(temperature=0.8, **BENCH)
+    a = port.decode(tm, mel, opts, generator=torch.Generator().manual_seed(3))
+    b = port.decode(tm, mel, opts, generator=torch.Generator().manual_seed(3))
+    assert _tokens(a) == _tokens(b)
+
+
+def test_port_runs_without_jax():
+    code = textwrap.dedent("""
+        import sys
+        import numpy as np, torch
+        import qasr_ijcnlp_tpu_torch as port
+        from qasr_ijcnlp_tpu_torch.models.dims import ModelDimensions
+        from qasr_ijcnlp_tpu_torch.models.whisper import init_params
+        dims = ModelDimensions(80, 500, 128, 2, 1, 51865, 48, 128, 2, 1)
+        m = port.WhisperModel.from_state_dict(
+            init_params(torch.Generator().manual_seed(0), dims), dims)
+        pcm = np.zeros(1000 * 160, np.float32)
+        r = port.decode(m, port.log_mel_spectrogram(pcm), language="en",
+                        sample_len=4, without_timestamps=True)
+        assert len(r.tokens) <= 4
+        bad = [k for k in sys.modules
+               if k == "jax" or k.startswith(("jax.", "qasr_ijcnlp_tpu."))
+               or k == "qasr_ijcnlp_tpu"]
+        assert not bad, bad
+        print("ok")
+    """)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
