@@ -1,9 +1,10 @@
 """qasr_ijcnlp_tpu_torch: the PyTorch / CUDA port of qasr_ijcnlp_tpu.
 
 The Whisper request path (PCM -> log-mel -> encoder -> greedy decode ->
-text) in PyTorch, with the JAX package's TPU kernels rewritten by hand for
-Hopper (``csrc/``).  The package imports torch and numpy and never JAX or
-the JAX package, which stays beside it as the reference.
+text) for every family size, tiny to large-v3, in PyTorch, with the JAX
+package's TPU kernels rewritten by hand for Hopper (``csrc/``).  The
+package imports torch and numpy and never JAX or the JAX package, which
+stays beside it as the reference.
 """
 
 __version__ = "0.1.0"

@@ -5,7 +5,8 @@ degrades to ``None``.  A missing ``nvcc``, a failed compile or a missing
 symbol raises, because a CUDA tensor that reached a kernel wrapper has no
 other path to take.
 
-One ``nvcc`` call compiles every ``csrc/*.cu`` for ``sm_90a`` into
+Every ``csrc/*.cu`` is compiled for ``sm_90a`` by its own ``nvcc``, all
+started together, and one more ``nvcc`` links the objects into
 ``csrc/build/libqasr_kernels_<hash>.so``, where the hash covers the sources
 and the flags, so an edited kernel rebuilds and an unchanged one loads from
 disk.  The library has a plain C interface (no PyTorch headers, so it builds
@@ -32,7 +33,7 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P = ctypes.c_void_p
@@ -43,6 +44,7 @@ _SIGNATURES = {
     "qasr_conv_stem": [_I] + [_P] * 8 + [_I] * 6 + [_P],
     "qasr_attention": [_I] + [_P] * 5 + [_F] + [_P] * 3 + [_I] * 5 + [_P],
     "qasr_finish": [_I] + [_P] * 14 + [_I] * 3 + [_P],
+    "qasr_packed_attention": [_I] + [_P] * 4 + [_I] * 6 + [_P],
     "qasr_log_mel": [_P] * 6 + [_I] * 4 + [_P],
 }
 
@@ -52,10 +54,10 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 class KernelLibrary:
     """The compiled library plus what its build printed."""
 
-    def __init__(self, path: str, command: List[str], build_seconds: float,
+    def __init__(self, path: str, commands: List[List[str]], build_seconds: float,
                  build_log: str):
         self.path = path
-        self.command = command
+        self.commands = commands
         self.build_seconds = build_seconds
         self.build_log = build_log
         self._lib = ctypes.CDLL(path)
@@ -106,24 +108,35 @@ def build() -> KernelLibrary:
     """Compile (or reuse) the library for the current sources."""
     target = os.path.join(BUILD_DIR, f"libqasr_kernels_{source_hash()}.so")
     units = [p for p in _sources() if p.endswith(".cu")]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", target, *units]
+    nvcc = _nvcc()
+    objs = [os.path.basename(u)[:-3] + ".o" for u in units]
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", u, "-o", o] for u, o in zip(units, objs)]
+    link = [nvcc, "-shared", "-o", target, *objs]
     if os.path.isfile(target):
-        return KernelLibrary(target, cmd, 0.0, "(cached build)")
+        return KernelLibrary(target, compiles + [link], 0.0, "(cached build)")
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd[cmd.index("-o") + 1] = tmp
+    work = tempfile.mkdtemp(dir=BUILD_DIR)
+    tmp = os.path.join(work, os.path.basename(target))
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen(cmd, cwd=work, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in compiles]
+    logs = [p.communicate()[0] for p in procs]  # waits for every compile
+    failed = [(cmd, log) for cmd, p, log in zip(compiles, procs, logs) if p.returncode]
+    if not failed:
+        linked = subprocess.run([*link[:3], tmp, *objs], cwd=work,
+                                capture_output=True, text=True)
+        logs.append(linked.stdout + linked.stderr)
+        if linked.returncode:
+            failed = [(link, logs[-1])]
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
+    if failed:
+        shutil.rmtree(work, ignore_errors=True)
+        cmd, log = failed[0]
+        raise RuntimeError(f"nvcc failed: {' '.join(cmd)}\n{log}")
     os.replace(tmp, target)  # atomic: a concurrent loader never sees half a file
-    cmd[cmd.index("-o") + 1] = target
-    return KernelLibrary(target, cmd, seconds, proc.stdout + proc.stderr)
+    shutil.rmtree(work, ignore_errors=True)
+    return KernelLibrary(target, compiles + [link], seconds, "".join(logs))
 
 
 _LOCK = threading.Lock()

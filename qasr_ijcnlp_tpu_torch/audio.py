@@ -116,9 +116,11 @@ def log_mel_spectrogram(
     audio: Union[np.ndarray, torch.Tensor],
     n_mels: int = 80,
     padding: int = 0,
-    device: Optional[Union[str, torch.device]] = None,
+    device: Optional[Union[str, torch.device]] = "cuda",
 ) -> torch.Tensor:
-    """Log-mel spectrogram of 16 kHz PCM, shape (..., n_mels, n_frames).
+    """Log-mel spectrogram of 16 kHz PCM, shape (..., n_mels, n_frames), on
+    ``device``: the card unless the caller asks for the CPU (``None`` keeps
+    a tensor where it lies).  ``n_mels`` is 80, or 128 for large-v3.
 
     Batched calls clamp each item's dynamic range by its own max, matching
     the reference's per-clip computation."""

@@ -1,29 +1,27 @@
-// Fused encoder block: the attention half (K4) and the finish half (K5).
+// Fused encoder block: the attention half (K4) and the finish half (K5, K6).
 //
 // qasr_attention replaces qasr_ijcnlp_tpu/ops/encoder_block.py `_attn_kernel`:
 // fp32 LN(x) -> Q/K/V projections (q, k scaled by dh^-0.25; the key has no
 // bias) -> softmax(QK^T + mask for keys >= t_real) V.  Three launches: LN,
-// one QKV GEMM against the concatenated (3D, D) weight, and an online-softmax
-// attention kernel per (query tile, head, batch item) that never writes the
+// one QKV GEMM against the concatenated (3D, D) weight, and the online-softmax
+// attention core of attention.cuh (shared with K8), which never writes the
 // (T, T) logits.  Bound on the H100: the attention core, 4 * B * H * t_real *
 // Tp * 64 FLOP on SIMT FMAs fed from shared memory; keys past t_real are
 // skipped whole (their weight is exactly 0), which saves the 36 padded keys
 // of every 1536-row tile.
 //
-// qasr_finish replaces `_finish_kernel`: x + attn Wo + bo -> LN -> fc ->
+// qasr_finish replaces `_finish_kernel` (K5, D <= 512) and
+// `_finish_kernel_ftiled` (K6, D > 512): x + attn Wo + bo -> LN -> fc ->
 // exact GELU -> proj -> + residual, as three GEMM launches with fused
-// epilogues plus the shared LN kernel.  Bound: the fc/proj GEMMs
-// (2 * 2 * B * Tp * D * 4D FLOP) on SIMT fp32 FMAs.
-#include "common.cuh"
+// epilogues plus the shared LN kernel.  The GEMM tile does not depend on D,
+// and proj sums all of F in fp32 before its one rounding, which is what K6's
+// streamed fp32 accumulator does, so one kernel serves both.  Bound: the
+// out-proj, fc and proj GEMMs (18 * B * Tp * D^2 FLOP) on SIMT fp32 FMAs.
+#include "attention.cuh"
 
 using namespace qasr;
 
 namespace {
-
-constexpr int DH = 64;     // head width (every Whisper size)
-constexpr int AQ = 64;     // query rows per block
-constexpr int AK = 32;     // keys per shared-memory tile
-constexpr int ATHREADS = 256;
 
 // QKV epilogue: column n of the fused (3D) output is segment n / D
 // (0 = q, 1 = k, 2 = v).  q = (T(acc) + bq) * scale, k = T(acc) * scale,
@@ -43,93 +41,6 @@ struct QkvEp {
   }
 };
 
-// One block = AQ query rows of one head of one batch item.  Thread layout:
-// row r = tid / 4 owns one query row; its four threads (`part`) split the
-// AK keys of a tile for QK^T (8 each) and the 64 output columns for PV
-// (16 each, interleaved so shared reads are conflict-free).  Running max and
-// denominator follow the online-softmax recurrence; p is rounded to T before
-// both the PV product and the denominator, as the TPU kernel does.
-template <typename T>
-__global__ void __launch_bounds__(ATHREADS)
-attn_core_kernel(const T* __restrict__ qkv, T* __restrict__ out, int Tp, int D, int t_real) {
-  __shared__ float Qs[AQ][DH + 1];
-  __shared__ float Ks[AK][DH + 1];
-  __shared__ float Vs[AK][DH];
-  __shared__ float Ps[AQ][AK + 1];
-
-  const int q0 = blockIdx.x * AQ, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, r = tid >> 2, part = tid & 3;
-  const size_t ld = 3 * (size_t)D;
-  const T* base = qkv + (size_t)b * Tp * ld;
-
-  for (int i = tid; i < AQ * DH; i += ATHREADS) {
-    const int rr = i / DH, c = i % DH, t = q0 + rr;
-    Qs[rr][c] = t < Tp ? to_f(base[t * ld + h * DH + c]) : 0.f;
-  }
-
-  float o[16];
-#pragma unroll
-  for (int c = 0; c < 16; ++c) o[c] = 0.f;
-  float m_run = -INFINITY, l_run = 0.f;
-  const int n_tiles = (t_real + AK - 1) / AK;
-
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * AK;
-    __syncthreads();  // Q loaded / previous tile's Ks, Vs, Ps consumed
-    for (int i = tid; i < AK * DH; i += ATHREADS) {
-      const int rr = i / DH, c = i % DH, t = k0 + rr;
-      const bool ok = t < Tp;
-      Ks[rr][c] = ok ? to_f(base[t * ld + D + h * DH + c]) : 0.f;
-      Vs[rr][c] = ok ? to_f(base[t * ld + 2 * D + h * DH + c]) : 0.f;
-    }
-    __syncthreads();
-
-    float s[8];
-    float mt = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int kk = part * 8 + j;
-      float acc = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < DH; ++d) acc = fmaf(Qs[r][d], Ks[kk][d], acc);
-      s[j] = (k0 + kk < t_real) ? acc : -INFINITY;
-      mt = fmaxf(mt, s[j]);
-    }
-    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
-    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
-    // Tile 0 always holds key 0 < t_real, so m_new is finite from the start.
-    const float m_new = fmaxf(m_run, mt);
-    const float alpha = expf(m_run - m_new);
-    float ls = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float p = rnd<T>(expf(s[j] - m_new));
-      Ps[r][part * 8 + j] = p;
-      ls += p;
-    }
-    ls += __shfl_xor_sync(0xffffffffu, ls, 1);
-    ls += __shfl_xor_sync(0xffffffffu, ls, 2);
-    l_run = l_run * alpha + ls;
-    m_run = m_new;
-#pragma unroll
-    for (int c = 0; c < 16; ++c) o[c] *= alpha;
-    __syncthreads();
-#pragma unroll 4
-    for (int j = 0; j < AK; ++j) {
-      const float p = Ps[r][j];
-#pragma unroll
-      for (int c = 0; c < 16; ++c) o[c] = fmaf(p, Vs[j][part + 4 * c], o[c]);
-    }
-  }
-
-  const int t = q0 + r;
-  if (t < Tp) {
-    T* orow = out + ((size_t)b * Tp + t) * D + h * DH;
-#pragma unroll
-    for (int c = 0; c < 16; ++c) orow[part + 4 * c] = from_f<T>(o[c] / l_run);
-  }
-}
-
 template <typename T>
 int run_attention(const T* x, const float* g, const float* beta, const T* wqkv,
                   const T* bqkv, float scale, T* h, T* qkv, T* out, int B, int Tp, int D,
@@ -138,9 +49,11 @@ int run_attention(const T* x, const float* g, const float* beta, const T* wqkv,
   QASR_TRY(launch_layer_norm<T>(x, g, beta, h, M, D, s));
   QASR_TRY(launch_gemm(M, 3 * D, D, 1, RowMajor<T>{h, D}, WeightNK<T>{wqkv, D},
                        QkvEp<T>{bqkv, qkv, D, scale}, s));
-  dim3 grid((Tp + AQ - 1) / AQ, n_head, B);
-  attn_core_kernel<T><<<grid, ATHREADS, 0, s>>>(qkv, out, Tp, D, t_real);
-  return (int)cudaGetLastError();
+  // q, k and v are the three D-wide column segments of each qkv row.
+  const int ld = 3 * D;
+  QASR_TRY((launch_attn_core<T, 1>(qkv, ld, qkv + D, ld, qkv + 2 * D, ld, out, D, B, Tp, Tp,
+                                   n_head, t_real, s)));
+  return 0;
 }
 
 // r = x + (T(attn Wo) + bo)

@@ -31,8 +31,10 @@ class WhisperModel:
 
     @classmethod
     def from_state_dict(cls, state_dict: Dict[str, torch.Tensor], dims: ModelDimensions,
-                        device: Union[str, torch.device] = "cpu",
+                        device: Union[str, torch.device] = "cuda",
                         name: str = "custom") -> "WhisperModel":
+        """The model on ``device``: the card unless the caller asks for the
+        CPU."""
         with torch.device("meta"):
             module = _model.Whisper(dims)
         module.load_state_dict(state_dict, strict=True, assign=True)

@@ -8,15 +8,19 @@ modules, mirroring the JAX functions name for name.
 
 Mixed precision is a policy, as in the reference: activations in the compute
 dtype (bfloat16 on CUDA when ``fp16``), LayerNorm, softmax and logits in
-fp32.  Attention uses the 4th-root scaling on q and k.
+fp32.  Attention uses the 4th-root scaling on q and k, with the factor
+rounded to the compute dtype first, as JAX rounds it (``scaled_heads``).
 
-The encoder always runs the kernel path of ``ops/``: the conv stem emits the
-trunk input at the tile-padded length Tp = round_up(n_audio_ctx, 128) (1536
-for 1500 frames), every block runs as the attention + finish kernels with
-keys >= n_audio_ctx masked, and the padded rows are sliced off before
-``ln_post``.  On CPU tensors the same ops run their plain versions.  The
-decoder is plain PyTorch (``torch.matmul``), as the JAX package left it to
-XLA.
+The encoder takes the reference's kernel dispatch (its flash-enabled form):
+the conv stem kernel emits the trunk input at the tile-padded length
+Tp = round_up(n_audio_ctx, 128) (1536 for 1500 frames).  Up to D = 1024
+(tiny to medium) every block then runs as the attention + finish kernels
+(``_trunk_uses_fused_blocks``); above it (large-v3) the block is plain
+PyTorch around the packed attention kernel (K8) of ``attention``.  Keys
+>= n_audio_ctx are masked throughout, and the padded rows are sliced off
+before ``ln_post``.  On CPU tensors the same ops run their plain versions.
+The decoder is plain PyTorch (``torch.matmul``), as the JAX package left it
+to XLA.
 """
 
 from __future__ import annotations
@@ -29,9 +33,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import gelu, layer_norm, linear, round_up
+from ..ops import gelu, head_scale, layer_norm, linear, round_up
 from ..ops.conv_stem import fused_conv_stem
-from ..ops.encoder_block import fused_encoder_block
+from ..ops.encoder_block import fused_block_applicable, fused_encoder_block
+from ..ops.flash import flash_attention_packed, packed_applicable
 from .dims import ModelDimensions
 
 
@@ -191,6 +196,12 @@ def _split_heads(x, n_head: int):
     return x.reshape(b, t, n_head, d // n_head).transpose(1, 2)
 
 
+def scaled_heads(x, n_head: int):
+    """(B, T, D) -> (B, H, T, dh) heads times dh^-0.25 rounded to x's dtype,
+    equal bit for bit to JAX's ``_split_heads(x, n_head) * scale``."""
+    return _split_heads(x, n_head) * head_scale(x.shape[-1] // n_head, x.dtype)
+
+
 def _merge_heads(x):
     b, h, t, dh = x.shape
     return x.transpose(1, 2).reshape(b, t, h * dh)
@@ -210,21 +221,36 @@ def attention(q, k, v, n_head: int, mask=None, t_real: Optional[int] = None):
     """Multi-head attention with 4th-root scaling; softmax in fp32.
 
     q: (B, Tq, D), k/v: (B, Tk, D); ``mask`` additive, broadcastable to
-    (B, H, Tq, Tk); keys >= ``t_real`` never receive weight."""
-    scale = (q.shape[-1] // n_head) ** -0.25
+    (B, H, Tq, Tk); keys >= ``t_real`` never receive weight.
+
+    Long unmasked queries (the encoder's) take the packed attention kernel
+    (K8) where the heads pack, as the reference's flash path does; short
+    ones (decoder prompts and steps) stay plain.  A long query whose heads
+    do not pack is the 4D kernel's (K7) case, not ported: it raises on CUDA
+    tensors and runs plain on the CPU, as the reference does with its
+    kernels off."""
+    if mask is None and q.shape[1] >= 512:
+        if packed_applicable(n_head, q.shape[-1]):
+            scale = head_scale(q.shape[-1] // n_head, q.dtype)
+            tr = t_real if t_real is not None else k.shape[1]
+            return flash_attention_packed(q * scale, k * scale, v, n_head, tr)
+        if q.is_cuda:
+            raise NotImplementedError(
+                f"attention over {n_head} heads of width {q.shape[-1] // n_head} "
+                "needs the 4D flash kernel, which is not ported yet: "
+                "ROADMAP.md queue 2, K7"
+            )
     if t_real is not None and t_real != k.shape[1]:
         keep = torch.arange(k.shape[1], device=k.device) < t_real
         pad = torch.zeros(k.shape[1], device=k.device).masked_fill(~keep, float("-inf"))
         mask = pad if mask is None else mask + pad
-    return _attend(
-        _split_heads(q, n_head) * scale, _split_heads(k, n_head) * scale,
-        _split_heads(v, n_head), mask,
-    )
+    return _attend(scaled_heads(q, n_head), scaled_heads(k, n_head),
+                   _split_heads(v, n_head), mask)
 
 
-def _self_attn(a, x, n_head: int, mask=None):
+def _self_attn(a, x, n_head: int, mask=None, t_real: Optional[int] = None):
     q, k, v = linear(x, a.query), linear(x, a.key), linear(x, a.value)
-    return linear(attention(q, k, v, n_head, mask), a.out)
+    return linear(attention(q, k, v, n_head, mask, t_real), a.out)
 
 
 def _mlp(mlp, x):
@@ -242,22 +268,49 @@ def encoder_apply(encoder: AudioEncoder, mel, dims: ModelDimensions,
     T = dims.n_audio_ctx
     if mel.shape[-1] != 2 * T:
         raise ValueError(f"expected {2 * T} mel frames, got {mel.shape[-1]}")
+    # The reference runs its stem kernels where ``ops.conv_stem.
+    # stem_applicable`` holds (K2 up to D = 512, K3 up to 1024) and XLA's
+    # convolutions otherwise (large-v3).  The port has no plain stem on the
+    # card's path, so every size runs the same stem kernel, which takes any
+    # D and n_mels and emits the trunk input already padded to Tp.
     x = fused_conv_stem(encoder, mel, round_up(T, 128), compute_dtype)
     return transformer_trunk(encoder, x, dims, t_real=T)
 
 
+def _trunk_uses_fused_blocks(dims: ModelDimensions, t_pad: Optional[int] = None) -> bool:
+    """The reference's choice between the fused block kernels and the
+    unfused block, in the form it takes off the TPU (fused in f32 and bf16
+    alike).  ``t_pad`` is the padded length the kernels will see.  Large
+    (D = 1280) stays unfused: the reference measured its fused block no
+    faster than the packed-attention path there."""
+    if t_pad is None:
+        t_pad = round_up(dims.n_audio_ctx, 128)
+    return (
+        t_pad >= 512
+        and dims.n_audio_state <= 1024
+        and fused_block_applicable(dims.n_audio_head, dims.n_audio_state, t_pad)
+    )
+
+
 def transformer_trunk(encoder: AudioEncoder, x, dims: ModelDimensions,
                       t_real: Optional[int] = None):
-    """Encoder blocks + ``ln_post`` on an embedded (B, T, D) input.  The
-    stack runs at the tile-padded length; pass ``t_real`` when ``x`` arrives
-    padded already.  Padded rows mix with real ones only as attention keys,
-    where they are masked, and are sliced off at the end."""
+    """Encoder blocks + ``ln_post`` on an embedded (B, T, D) input.  Pass
+    ``t_real`` when ``x`` arrives padded already.  The stack runs at the
+    tile-padded length where a kernel consumes the padding: padded rows mix
+    with real ones only as attention keys, where they are masked, and are
+    sliced off at the end."""
+    n_head = dims.n_audio_head
     T = t_real if t_real is not None else x.shape[1]
     Tp = round_up(T, 128)
+    fused = _trunk_uses_fused_blocks(dims, Tp)
     if x.shape[1] != Tp:
         x = F.pad(x, (0, 0, 0, Tp - x.shape[1]))
-    for block in encoder.blocks:
-        x = fused_encoder_block(x, block, dims.n_audio_head, T)
+    for bp in encoder.blocks:
+        if fused:
+            x = fused_encoder_block(x, bp, n_head, T)
+        else:
+            x = x + _self_attn(bp.attn, layer_norm(x, bp.attn_ln), n_head, t_real=T)
+            x = x + _mlp(bp.mlp, layer_norm(x, bp.mlp_ln))
     return layer_norm(x[:, :T], encoder.ln_post)
 
 
@@ -334,10 +387,9 @@ def precompute_cross_kv(decoder: TextDecoder, xa, cache: Dict,
     dtype = cache["self_k"][0].dtype
     H = n_head if n_head is not None else cache["self_k"][0].shape[1]
     xa = xa.to(dtype)
-    scale = (xa.shape[-1] // H) ** -0.25
     ks, vs = [], []
     for bp in decoder.blocks:
-        ks.append((_split_heads(linear(xa, bp.cross_attn.key), H) * scale).contiguous())
+        ks.append(scaled_heads(linear(xa, bp.cross_attn.key), H).contiguous())
         vs.append(_split_heads(linear(xa, bp.cross_attn.value), H).contiguous())
     return {**cache, "cross_k": ks, "cross_v": vs}
 
@@ -367,7 +419,7 @@ def decoder_step(
     mask = torch.zeros(T_new, Tmax, device=dev).masked_fill(~keep, float("-inf"))
     pos = decoder.positional_embedding[offset:offset + T_new]
     x = (decoder.token_embedding.weight[tokens] + pos).to(compute_dtype)
-    scale = (dims.n_text_state // H) ** -0.25
+    scale = head_scale(dims.n_text_state // H, cache["self_k"][0].dtype)
     for l, bp in enumerate(decoder.blocks):
         xn = layer_norm(x, bp.attn_ln)
         q = linear(xn, bp.attn.query)
@@ -376,12 +428,11 @@ def decoder_step(
             linear(xn, bp.attn.key), H)
         cache["self_v"][l][:, :, offset:offset + T_new] = _split_heads(
             linear(xn, bp.attn.value), H)
-        a = _attend(_split_heads(q, H) * scale, cache["self_k"][l] * scale,
+        a = _attend(scaled_heads(q, H), cache["self_k"][l] * scale,
                     cache["self_v"][l], mask)
         x = x + linear(a, bp.attn.out)
         qc = linear(layer_norm(x, bp.cross_attn_ln), bp.cross_attn.query)
-        ca = _attend(_split_heads(qc, H) * scale, cache["cross_k"][l],
-                     cache["cross_v"][l])
+        ca = _attend(scaled_heads(qc, H), cache["cross_k"][l], cache["cross_v"][l])
         x = x + linear(ca, bp.cross_attn.out)
         x = x + _mlp(bp.mlp, layer_norm(x, bp.mlp_ln))
     x = layer_norm(x, decoder.ln)

@@ -7,9 +7,10 @@ CPU; for CUDA tensors it launches the kernel (``csrc/``, built by
 launches in a plain module-level int.
 
 * :mod:`.melfront` — STFT + mel frontend (K1)
-* :mod:`.conv_stem` — two-conv encoder stem (K2)
+* :mod:`.conv_stem` — two-conv encoder stem (K2, and K3 at 512 < D <= 1024)
 * :mod:`.encoder_block` — LN + QKV + masked attention (K4) and
-  out-proj + LN + MLP (K5)
+  out-proj + LN + MLP (K5, and K6 at D > 512)
+* :mod:`.flash` — attention on packed (B, T, D) heads (K8)
 """
 
 import torch
@@ -19,6 +20,15 @@ import torch.nn.functional as F
 def round_up(x: int, m: int) -> int:
     """Smallest multiple of ``m`` that is >= ``x`` (kernel tile padding)."""
     return (x + m - 1) // m * m
+
+
+def head_scale(d_head: int, dtype) -> float:
+    """The attention factor d_head^-0.25 rounded to ``dtype``.
+
+    JAX multiplies a bf16 array by a Python float after rounding the float
+    to bf16 (weak typing); PyTorch would multiply in fp32 and round once.
+    Rounding the factor first makes the two products equal bit for bit."""
+    return float(torch.tensor(d_head ** -0.25, dtype=dtype))
 
 
 def layer_norm(x, ln, eps: float = 1e-5):

@@ -1,8 +1,13 @@
-"""Encoder conv stem (K2): mel -> conv1 -> GELU -> conv2(s2) -> GELU -> +pos.
+"""Encoder conv stem (K2, K3): mel -> conv1 -> GELU -> conv2(s2) -> GELU -> +pos.
 
-Replaces ``qasr_ijcnlp_tpu/ops/conv_stem.py`` ``_stem_kernel``, which emits
-the transformer trunk's input directly: row-major (B, t_pad, D), position
-embeddings added, padding rows zeroed.
+Replaces ``qasr_ijcnlp_tpu/ops/conv_stem.py`` ``_stem_kernel`` (K2, D <= 512)
+and ``_stem_kernel_chunked`` (K3, 512 < D <= 1024), which emit the
+transformer trunk's input directly: row-major (B, t_pad, D), position
+embeddings added, padding rows zeroed.  The TPU cut time into 256-row chunks
+above D = 512 only because the whole-axis activations passed 16 MB of VMEM;
+the port's implicit-GEMM tile does not depend on D, so one kernel serves
+both ranges, and also D = 1280 (large-v3), whose stem the reference leaves
+to XLA.
 
 On the H100 (``csrc/conv_stem.cu``) each convolution is one implicit GEMM
 whose tile loads read mel (or y1) at the tap offsets; the TPU kernel's

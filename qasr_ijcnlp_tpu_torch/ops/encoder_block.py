@@ -1,11 +1,20 @@
-"""Fused encoder transformer block: attention half (K4) and finish half (K5).
+"""Fused encoder transformer block: attention half (K4) and finish half
+(K5 at D <= 512, K6 at D > 512).
 
 Replaces, in ``qasr_ijcnlp_tpu/ops/encoder_block.py``, ``_attn_kernel``
 (fp32 LN -> Q/K/V projections, q and k scaled by dh^-0.25 -> masked softmax
-attention) and ``_finish_kernel`` (x + attn Wo + bo -> LN -> fc -> exact GELU
--> proj -> residual).  Both work on the model's own row-major (B, Tp, D)
-tensor; keys at positions >= ``t_real`` are masked and query rows past it
-compute values the caller slices away.
+attention), ``_finish_kernel`` and ``_finish_kernel_ftiled`` (x + attn Wo +
+bo -> LN -> fc -> exact GELU -> proj -> residual).  All work on the model's
+own row-major (B, Tp, D) tensor; keys at positions >= ``t_real`` are masked
+and query rows past it compute values the caller slices away.
+
+The TPU needed a second finish kernel above D = 512 only because the
+(D, 4D) MLP weights no longer fit VMEM: K6 streams them in FT-column blocks
+and carries the proj sum in fp32 across the blocks.  ``qasr_finish`` already
+sums proj over all of F in fp32 and rounds once, at the same points, and its
+GEMM tile does not depend on D, so the same kernel is K6's counterpart at
+D = 768 and 1024.  It stores the GELU intermediate t (B, Tp, 4D) in device
+memory (201 MB in f32 at medium, B = 8); keeping t on chip is later work.
 
 On the H100 (``csrc/encoder_block.cu``) the attention is an online-softmax
 kernel per (64-query tile, head, batch item) that never writes the (T, T)
@@ -20,10 +29,12 @@ parameters per op; LN and softmax stay fp32.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from .. import _kernels
-from . import gelu, layer_norm, linear
+from . import gelu, head_scale, layer_norm, linear
 
 DH = 64  # the CUDA attention kernel's head width (every Whisper size)
 
@@ -31,9 +42,23 @@ attn_launches = 0
 finish_launches = 0
 
 
-def _scale(dh: int, dtype) -> float:
-    """dh^-0.25 rounded to the compute dtype, as the reference kernels use it."""
-    return float(torch.tensor(dh ** -0.25, dtype=dtype))
+def fused_block_applicable(n_head: int, d_model: int, t_pad: int,
+                           mlp_width: Optional[int] = None) -> bool:
+    """The reference's gate for the fused block (``fused_block_applicable``
+    with its ``attn_applicable``), so the encoder dispatch decides as the
+    reference's does.  Its clauses are the TPU kernels' tiles: heads of 128
+    lanes or pairs of 64, a padded length in 512-row tiles, and above
+    D = 512 an MLP width in the F-tiled finish's column blocks (1024 up to
+    D = 1024, else 512)."""
+    F = 4 * d_model if mlp_width is None else mlp_width
+    d_head = d_model // n_head if d_model % n_head == 0 else 0
+    return (
+        d_model <= 1280
+        and d_model % 128 == 0
+        and (d_head == 128 or (d_head == 64 and n_head % 2 == 0))
+        and t_pad % 512 == 0
+        and (d_model <= 512 or F % (1024 if d_model <= 1024 else 512) == 0)
+    )
 
 
 def _plain_attn_ln(x, ln, attn, n_head: int, t_real: int):
@@ -42,7 +67,7 @@ def _plain_attn_ln(x, ln, attn, n_head: int, t_real: int):
     B, Tp, D = x.shape
     dt = x.dtype
     dh = D // n_head
-    scale = _scale(dh, dt)
+    scale = head_scale(dh, dt)
     h = layer_norm(x, ln)
     q = linear(h, attn.query) * scale
     k = linear(h, attn.key) * scale
@@ -103,7 +128,7 @@ def fused_attention_ln(x, ln, attn, n_head: int, t_real: int):
     _kernels.library().call(
         "qasr_attention", x.device, _kernels.DTYPE_CODES[dt],
         x.data_ptr(), g.data_ptr(), b.data_ptr(), wqkv.data_ptr(),
-        bqkv.data_ptr(), _scale(D // n_head, dt), h.data_ptr(), qkv.data_ptr(),
+        bqkv.data_ptr(), head_scale(D // n_head, dt), h.data_ptr(), qkv.data_ptr(),
         out.data_ptr(), B, Tp, D, n_head, t_real,
     )
     attn_launches += 1

@@ -1,9 +1,9 @@
 """Byte-pair encoding engine over tiktoken-format rank files.
 
 Port of ``qasr_ijcnlp_tpu/tokenizer/bpe.py`` (pure-Python merges; the C++
-merge core of the JAX package is not carried over).  The rank tables are read
-by file path from the JAX package's ``tokenizer/assets`` directory, which the
-port does not import.
+merge core of the JAX package is not carried over).  The rank tables are the
+port's own copies in ``tokenizer/assets``, byte-identical to the JAX
+package's (a test holds them so).
 
 ``regex`` (for the GPT-2 split pattern) is imported inside
 :meth:`Encoding.encode`: decoding token ids to text needs no split pattern,
@@ -17,10 +17,7 @@ import functools
 import os
 from typing import Dict, List, Optional
 
-ASSETS_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "qasr_ijcnlp_tpu", "tokenizer", "assets",
-)
+ASSETS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets")
 
 # The GPT-2 split pattern used by both Whisper encodings.
 PAT_STR = r"""'s|'t|'re|'ve|'m|'ll|'d| ?\p{L}+| ?\p{N}+| ?[^\s\p{L}\p{N}]+|\s+(?!\S)|\s+"""

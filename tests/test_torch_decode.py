@@ -63,7 +63,8 @@ def test_decode_token_exact_vs_jax(models, opts):
 def test_slice_pcm_to_text_matches_jax(models, pcm):
     jm, tm = models
     ref = jdecode(jm, jaudio.log_mel_spectrogram(pcm), JOptions(**BENCH))
-    ours = port.decode(tm, port.log_mel_spectrogram(pcm), port.DecodingOptions(**BENCH))
+    ours = port.decode(tm, port.log_mel_spectrogram(pcm, device="cpu"),
+                       port.DecodingOptions(**BENCH))
     assert _tokens(ours) == _tokens(ref)
     assert all(len(r.tokens) == BENCH["sample_len"] for r in ours)
 
@@ -108,9 +109,9 @@ def test_port_runs_without_jax():
         from qasr_ijcnlp_tpu_torch.models.whisper import init_params
         dims = ModelDimensions(80, 500, 128, 2, 1, 51865, 48, 128, 2, 1)
         m = port.WhisperModel.from_state_dict(
-            init_params(torch.Generator().manual_seed(0), dims), dims)
+            init_params(torch.Generator().manual_seed(0), dims), dims, "cpu")
         pcm = np.zeros(1000 * 160, np.float32)
-        r = port.decode(m, port.log_mel_spectrogram(pcm), language="en",
+        r = port.decode(m, port.log_mel_spectrogram(pcm, device="cpu"), language="en",
                         sample_len=4, without_timestamps=True)
         assert len(r.tokens) <= 4
         bad = [k for k in sys.modules

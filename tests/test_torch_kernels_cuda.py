@@ -7,23 +7,31 @@ run this file without the JAX-side conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
-Tolerances are chip_smoke.py's: f32 atol 1e-4 (two fp32 summation orders),
-bf16 atol 0.08 + 2^-7 |x| (tests/test_encoder_block.py's bf16 bound plus
-two bf16 ulps), mel atol 2e-4 (tests/test_ops.py).
+Tolerances are chip_smoke.py's: f32 atol 1e-4 (two fp32 summation orders);
+bf16 twice the plain bf16 version's own distance from the plain version in
+f32 on the same bf16-valued inputs; mel atol 2e-4 (tests/test_ops.py).  The
+rounding probes (chip_smoke.py ``k4_probe``, ``k8_probe``) must come out
+exact.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from chip_smoke import NOISE_FACTOR, k4_probe, k8_probe
+
 from qasr_ijcnlp_tpu_torch.models.dims import ModelDimensions, tiny_dims
 from qasr_ijcnlp_tpu_torch.models.registry import WhisperModel
+from qasr_ijcnlp_tpu_torch.models import whisper as tmodel
 from qasr_ijcnlp_tpu_torch.models.whisper import init_params
-from qasr_ijcnlp_tpu_torch.ops import conv_stem, encoder_block, melfront
+from qasr_ijcnlp_tpu_torch.ops import conv_stem, encoder_block, flash, melfront
 
 pytestmark = pytest.mark.cuda
 
 SMALL = ModelDimensions(80, 500, 128, 2, 2, 51865, 48, 128, 2, 2)
+# Medium's width (K3's stem and K6's finish) at one layer; 128 mels for the
+# large-v3 stem shape.
+WIDE = ModelDimensions(128, 1500, 1024, 16, 1, 51866, 48, 1024, 16, 1)
 DTYPES = [torch.float32, torch.bfloat16]
 
 
@@ -43,21 +51,35 @@ def model(request, cuda_dev):
     return WhisperModel.from_state_dict(sd, dims, cuda_dev)
 
 
-def _close(k, p, dtype):
+@pytest.fixture(scope="module")
+def wide(cuda_dev):
+    sd = init_params(torch.Generator().manual_seed(2), WIDE)
+    return WhisperModel.from_state_dict(sd, WIDE, cuda_dev)
+
+
+def _close(k, p, plain32):
+    """Kernel output ``k`` against its plain version's ``p``; in bf16 within
+    NOISE_FACTOR times the distance of ``p`` from ``plain32()``, the plain
+    version in f32 on the same bf16-valued inputs."""
     assert k.shape == p.shape and k.dtype == p.dtype
     assert torch.isfinite(k).all()
-    diff = (k.float() - p.float()).abs()
-    if dtype == torch.float32:
-        assert float(diff.max()) <= 1e-4, float(diff.max())
+    err = float((k.float() - p.float()).abs().max())
+    if k.dtype == torch.float32:
+        assert err <= 1e-4, err
     else:
-        assert float((diff - 0.08 - 2.0 ** -7 * p.float().abs()).max()) <= 0
+        noise = float((p.float() - plain32().float()).abs().max())
+        assert err <= NOISE_FACTOR * noise, (err, noise)
 
 
 def _x(model, seed, dtype, batch=2):
-    Tp = (model.dims.n_audio_ctx + 127) // 128 * 128
+    """Random trunk rows; the padding rows past n_audio_ctx are one repeated
+    row, as the trunk leaves them."""
+    T = model.dims.n_audio_ctx
+    Tp = (T + 127) // 128 * 128
     g = torch.Generator(device="cuda").manual_seed(seed)
-    return torch.randn(batch, Tp, model.dims.n_audio_state, generator=g,
-                       device="cuda").to(dtype)
+    x = torch.randn(batch, Tp, model.dims.n_audio_state, generator=g, device="cuda")
+    x[:, T:] = x[:, T:T + 1]
+    return x.to(dtype)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -69,7 +91,8 @@ def test_conv_stem_kernel(model, dtype):
     before = conv_stem.launches
     k = conv_stem.fused_conv_stem(enc, mel, Tp, dtype)
     assert conv_stem.launches == before + 1
-    _close(k, conv_stem._plain_stem(enc, mel, Tp, dtype), dtype)
+    _close(k, conv_stem._plain_stem(enc, mel, Tp, dtype),
+           lambda: conv_stem._plain_stem(enc, mel, Tp, torch.float32))
     assert float(k[:, T:].float().abs().max()) == 0.0
 
 
@@ -82,7 +105,8 @@ def test_attention_kernel(model, dtype, pad):
     before = encoder_block.attn_launches
     k = encoder_block.fused_attention_ln(x, blk.attn_ln, blk.attn, H, t_real)
     assert encoder_block.attn_launches == before + 1
-    _close(k, encoder_block._plain_attn_ln(x, blk.attn_ln, blk.attn, H, t_real), dtype)
+    plain = lambda x: encoder_block._plain_attn_ln(x, blk.attn_ln, blk.attn, H, t_real)
+    _close(k, plain(x), lambda: plain(x.float()))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -92,7 +116,8 @@ def test_finish_kernel(model, dtype):
     before = encoder_block.finish_launches
     k = encoder_block.fused_block_finish(x, a, blk)
     assert encoder_block.finish_launches == before + 1
-    _close(k, encoder_block._plain_finish(x, a, blk), dtype)
+    _close(k, encoder_block._plain_finish(x, a, blk),
+           lambda: encoder_block._plain_finish(x.float(), a.float(), blk))
 
 
 @pytest.mark.parametrize("seconds", [1.1, 30.0])
@@ -133,5 +158,83 @@ def test_decode_on_card_matches_cpu(model):
         np.float32)
     opts = port.DecodingOptions(language="en", sample_len=8, fp16=False)
     ours = port.decode(model, port.log_mel_spectrogram(pcm, device="cuda"), opts)
-    ref = port.decode(cpu, port.log_mel_spectrogram(pcm), opts)
+    ref = port.decode(cpu, port.log_mel_spectrogram(pcm, device="cpu"), opts)
     assert [r.tokens for r in ours] == [r.tokens for r in ref]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_conv_stem_kernel_d1024(wide, dtype):
+    """K3's width (D = 1024) with 128 mel bins, rows >= 1500 exactly 0."""
+    enc = wide.module.encoder
+    mel = torch.randn(2, 128, 3000, generator=torch.Generator(device="cuda").manual_seed(5),
+                      device="cuda")
+    before = conv_stem.launches
+    k = conv_stem.fused_conv_stem(enc, mel, 1536, dtype)
+    assert conv_stem.launches == before + 1
+    _close(k, conv_stem._plain_stem(enc, mel, 1536, dtype),
+           lambda: conv_stem._plain_stem(enc, mel, 1536, torch.float32))
+    assert float(k[:, 1500:].float().abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_attention_and_finish_kernels_d1024(wide, dtype):
+    """K4 with 16 heads and the finish at K6's width (D = 1024)."""
+    x, a = _x(wide, 6, dtype), _x(wide, 7, dtype)
+    blk = wide.module.encoder.blocks[0]
+    before = (encoder_block.attn_launches, encoder_block.finish_launches)
+    k_attn = encoder_block.fused_attention_ln(x, blk.attn_ln, blk.attn, 16, 1500)
+    k_fin = encoder_block.fused_block_finish(x, a, blk)
+    assert (encoder_block.attn_launches, encoder_block.finish_launches) == \
+        (before[0] + 1, before[1] + 1)
+    plain = lambda x: encoder_block._plain_attn_ln(x, blk.attn_ln, blk.attn, 16, 1500)
+    _close(k_attn, plain(x), lambda: plain(x.float()))
+    _close(k_fin, encoder_block._plain_finish(x, a, blk),
+           lambda: encoder_block._plain_finish(x.float(), a.float(), blk))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("tq,tk,t_real", [(1536, 1536, 1500), (1536, 1536, 1536),
+                                          (300, 700, 650), (700, 300, 300)],
+                         ids=["t_real<Tk", "t_real==Tk", "Tq<Tk", "Tq>Tk"])
+def test_packed_attention_kernel(cuda_dev, dtype, tq, tk, t_real):
+    """K8 against its plain version, 20 heads of 64 (large-v3's width)."""
+    g = torch.Generator(device="cuda").manual_seed(tq + tk)
+    q, k, v = (torch.randn(2, t, 1280, generator=g, device="cuda") for t in (tq, tk, tk))
+    k[:, t_real:], v[:, t_real:] = k[:, -1:], v[:, -1:]  # padding: one repeated row
+    q, k, v = (q * 0.3).to(dtype), (k * 0.3).to(dtype), v.to(dtype)
+    before = flash.launches
+    out = flash.flash_attention_packed(q, k, v, 20, t_real)
+    assert flash.launches == before + 1
+    plain = lambda *qkv: flash._plain_attention_packed(*qkv, 20, t_real)
+    _close(out, plain(q, k, v), lambda: plain(q.float(), k.float(), v.float()))
+
+
+def test_packed_attention_ignores_padding_values(cuda_dev):
+    g = torch.Generator(device="cuda").manual_seed(9)
+    q, k, v = (torch.randn(1, 512, 128, generator=g, device="cuda") for _ in range(3))
+    a = flash.flash_attention_packed(q, k, v, 2, 500)
+    k[:, 500:], v[:, 500:] = float("inf"), float("nan")
+    b = flash.flash_attention_packed(q, k, v, 2, 500)
+    assert torch.equal(a, b)
+
+
+def test_unpackable_long_attention_raises_on_card(cuda_dev):
+    """Three 64-wide heads with 512 queries are the 4D kernel's (K7) case."""
+    x = torch.randn(1, 512, 192, device="cuda")
+    with pytest.raises(NotImplementedError, match="K7"):
+        tmodel.attention(x, x, x, 3)
+
+
+@pytest.mark.parametrize("shape", [(128, 2, 512, 500), (1024, 16, 1536, 1500),
+                                   (1280, 20, 1536, 1500)],
+                         ids=["D128", "medium", "large-v3"])
+def test_rounding_probes_exact(cuda_dev, shape):
+    """K4's softmax denominator sums the bf16-rounded p, K8's the fp32 p;
+    on the probes the two rules are a bf16 ulp apart, and each kernel must
+    give its own rule's output exactly (padding keys of the K8 probe have
+    the largest logit, so a dropped mask fails too)."""
+    D, H, Tp, t_real = shape
+    x, ln, attn, want = k4_probe(cuda_dev, D, H, Tp, t_real)
+    assert torch.equal(encoder_block.fused_attention_ln(x, ln, attn, H, t_real), want)
+    q, k, v, want = k8_probe(cuda_dev, H, 128, Tp, t_real)
+    assert torch.equal(flash.flash_attention_packed(q, k, v, H, t_real), want)

@@ -33,15 +33,24 @@ def test_batched_mel_matches_jax_per_item_clamp():
     pcm[0] *= 0.5
     pcm[1] *= 1e-3
     ref = np.asarray(jaudio.log_mel_spectrogram(pcm))
-    ours = audio.log_mel_spectrogram(pcm)
+    ours = audio.log_mel_spectrogram(pcm, device="cpu")
     assert tuple(ours.shape) == ref.shape == (2, 80, 400)
+    np.testing.assert_allclose(ours.numpy(), ref, atol=2e-4, rtol=1e-4)
+
+
+def test_128_bin_mel_matches_jax():
+    """large-v3's frontend: 128 mel bins through the same path."""
+    pcm = np.random.default_rng(6).standard_normal((2, 16000 * 3)).astype(np.float32) * 0.3
+    ref = np.asarray(jaudio.log_mel_spectrogram(pcm, n_mels=128))
+    ours = audio.log_mel_spectrogram(pcm, n_mels=128, device="cpu")
+    assert tuple(ours.shape) == ref.shape == (2, 128, 300)
     np.testing.assert_allclose(ours.numpy(), ref, atol=2e-4, rtol=1e-4)
 
 
 def test_int16_pcm_and_padding_match_jax():
     pcm = (np.random.default_rng(5).standard_normal(16000 * 2) * 3000).astype(np.int16)
     ref = np.asarray(jaudio.log_mel_spectrogram(pcm, padding=16000))
-    ours = audio.log_mel_spectrogram(pcm, padding=16000)
+    ours = audio.log_mel_spectrogram(pcm, padding=16000, device="cpu")
     np.testing.assert_allclose(ours.numpy(), ref, atol=2e-4, rtol=1e-4)
 
 

@@ -77,6 +77,34 @@ def test_attention_matches_jax(t_real):
     np.testing.assert_allclose(ours.numpy(), ref, atol=2e-5)
 
 
+def test_attention_bf16_heads_scaled_as_jax(monkeypatch):
+    """bf16 q and k heads, scaled by dh^-0.25, equal JAX's bit for bit.
+
+    JAX rounds the Python-float factor to bf16 before the product; PyTorch
+    would multiply in fp32 and round once, which moves about 2.5% of the
+    values by one ulp.  Checked on the heads that attention() feeds to the
+    softmax, not on its output: the two frameworks sum bf16 products in
+    different orders, so the output is not bit-comparable."""
+    rng = np.random.default_rng(12)
+    q, k, v = (rng.standard_normal((2, 48, 128)).astype(np.float32) for _ in range(3))
+    ref = {name: np.asarray((jmodel._split_heads(jnp.asarray(a, jnp.bfloat16), 2)
+                             * (64 ** -0.25)).astype(jnp.float32))
+           for name, a in (("q", q), ("k", k))}
+    seen = {}
+    attend = tmodel._attend
+
+    def spy(qh, kh, vh, mask=None):
+        seen["q"], seen["k"] = qh, kh
+        return attend(qh, kh, vh, mask)
+
+    monkeypatch.setattr(tmodel, "_attend", spy)
+    bf16 = lambda a: torch.from_numpy(a).to(torch.bfloat16)
+    tmodel.attention(bf16(q), bf16(k), bf16(v), 2)
+    for name in ("q", "k"):
+        assert seen[name].dtype == torch.bfloat16
+        np.testing.assert_array_equal(seen[name].float().numpy(), ref[name], err_msg=name)
+
+
 def test_decoder_apply_matches_jax(models, features):
     params, m = models
     tokens = np.array([[50258, 50259, 50359, 220, 1000], [50258, 50260, 50359, 11, 7]])
