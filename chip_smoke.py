@@ -5,7 +5,8 @@
 
 Drives the port's request path (qasr_ijcnlp_tpu_torch) at the full width of
 three Whisper sizes, with random weights from a seed and seeded synthetic
-30-s PCM:
+30-s PCM, through its three decode-loop paths (the fp cross cache, the int8
+cross cache of ``kv_int8`` and the opt-in fused step):
 
 1. device lines: the card's name and power limit, torch/CUDA versions,
    whether ``regex`` imports;
@@ -15,21 +16,31 @@ three Whisper sizes, with random weights from a seed and seeded synthetic
 3. **tiny** (4 + 4 layers, D 384): per kernel (K1 mel, K2 stem, K4
    attention, K5 finish) at B=8 (mel (8, 80, 3000), trunk (8, 1536, 384),
    t_real 1500), kernel vs its plain PyTorch version on the card in f32 and
-   bf16 (K1 is f32 only, as in the reference); then 16 requests end to end in
+   bf16 (K1 is f32 only, as in the reference); the int8 cross attention
+   (K9) at B=16, 6 heads, and the fused decoder layer (K10) at B=16 and
+   B=64 and at base's width (D 512, B=8); then 16 requests end to end in
    f32 (every kernel must launch, K8 never; two requests must give exactly
    the CPU plain path's tokens), bf16 token agreement, and wall time at B=16
    and B=64, with one more batch split into its stages (log-mel, encoder,
-   decode);
+   decode); then one counted f32 batch of 16 with ``kv_int8`` (K9 exactly
+   4 x 64 times), and the fused step (``set_fused_decoder_step(True)``) at
+   B=16 and B=64 (K10 exactly 4 x 63 times per batch, requests 0 and 1
+   teacher-forced against the CPU plain path within K10's f32 parity
+   tolerance, times and stages in f32 and bf16);
 4. **medium** (24 + 24 layers, D 1024, full depth): the stem at D 1024 (K3),
    K4 with 16 heads, the finish at D 1024 (K6) and the whole 24-layer trunk
    (8, 1536, 1024) against their plain versions; then a batch of 8 end to
    end in f32 and bf16 (wall time and stages), where the stem, K4 and the
    finish must launch and K8 never;
 5. **large-v3** (32 + 32 layers, D 1280, 128 mels, vocab 51866, full depth):
-   K1 at 128 mels, the stem at D 1280, and K8 on (8, 1536, 1280) with 20
-   heads and t_real 1500 (timed beside ``scaled_dot_product_attention`` as
-   its library yardstick); then a batch of 8 end to end, where K1 and the
-   stem must launch, K8 exactly 32 times, K4 and the finish never.
+   K1 at 128 mels, the stem at D 1280, K8 on (8, 1536, 1280) with 20 heads
+   and t_real 1500 (timed beside ``scaled_dot_product_attention`` as its
+   library yardstick), and K9 at B=8, 20 heads, for one query row (a step)
+   and four (the prompt); then a batch of 8 end to end, where K1 and the
+   stem must launch, K8 exactly 32 times, K4 and the finish never; then the
+   same batch with ``kv_int8`` in f32 and bf16 (K9 exactly 32 x 64 times),
+   request 0 teacher-forced against the CPU plain int8 path, int8 vs fp
+   token agreement and avg_logprob gap, times and stages.
    In every kernel phase the padding rows of the trunk inputs are one
    repeated row, as the trunk leaves them, and bf16 is held to twice the
    plain bf16 version's own distance from f32 (``compare``).  Two rounding
@@ -38,11 +49,11 @@ three Whisper sizes, with random weights from a seed and seeded synthetic
 6. for medium and large-v3, request 0's f32 tokens are checked against the
    CPU plain path (log-mel, encoder and decoder on the CPU), teacher-forced
    on the card's tokens: at every step the card's token must be the CPU's
-   argmax or within 1e-4 of its top logit; the smallest top-2 margin is
-   printed;
-7. prints the per-kernel JSON line (every ported kernel with its launches,
-   times, error and bound), the card line, then ``{"ok": true, "device":
-   ...}`` as the last line.
+   argmax or within a stated tie of its top logit; the smallest top-2
+   margin is printed;
+7. prints the whole script's seconds, the per-kernel JSON line (every
+   ported kernel with its launches, times, error and bound), the card line,
+   then ``{"ok": true, "device": ...}`` as the last line.
 
 Launch counts are read from each path's own f32 batch, with every counter
 set to 0 just before it.  Any failure raises (non-zero exit) and nothing is
@@ -79,6 +90,19 @@ NOISE_FACTOR = 2.0
 # Teacher-forced token check: the card's token may trail the CPU's top
 # logit by this much (near-ties of random-weight logits).
 TOKEN_TIE = 1e-4
+# ... on the fused step: its f32 parity tolerance against the unfused step
+# (tests/test_decoder_step_kernel.py), which the CPU plain path runs.
+FUSED_TOKEN_TIE = 5e-4
+# ... on the int8 cross cache: the card and the CPU project the cross K/V in
+# different fp32 summation orders, and a value that lands near a rounding
+# midpoint of its code can round the other way.  One flipped code moves one
+# dequantized value by a whole scale step (max |x| / 127, ~1% of its row's
+# largest value), where the fp path differs by ~1e-6 relative: the top
+# logit may move by up to ~1e-2.
+INT8_TOKEN_TIE = 1e-2
+# int8 vs fp avg_logprob per request: the JAX package's own bound
+# (tests/test_ops.py test_decode_with_kv_int8_runs_and_is_close).
+INT8_LOGPROB_GAP = 0.15
 # H100 SXM datasheet peaks: fp32 on the CUDA cores, bf16
 # dense on the tensor cores, HBM3 bandwidth.
 PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}
@@ -213,6 +237,20 @@ def packed_work(B, Tq, Tk, D, H, t_real, s):
     # query rows past t_real are the encoder's padding, which the caller drops
     flops = 4 * B * H * min(Tq, t_real) * t_real * (D // H)
     return flops, s * (2 * B * Tq * D + 2 * B * Tk * D)
+
+
+def int8_work(B, H, R, t_real):
+    # codes and scales of the positions < t_real, fp32 q in and out
+    flops = 4 * B * H * R * t_real * 64
+    return flops, 2 * B * H * t_real * (64 + 4) + 8 * B * R * H * 64
+
+
+def step_work(B, D, t_self, Ta, s):
+    # the layer's weights (14 D^2) and biases (11 D) once, fp32 LN
+    # parameters, x in and out, the self cache's t_self - 1 old positions
+    # read and the fresh one written and read, the cross K/V
+    flops = 2 * B * 14 * D * D + 4 * B * D * (t_self + Ta)
+    return flops, s * (14 * D * D + 11 * D) + 24 * D + s * B * D * (2 * t_self + 2 + 2 * Ta)
 
 
 def geometry(dims):
@@ -487,6 +525,97 @@ def large_kernel_phase(model, dev):
         del q, k, v
     q, k, v, want = k8_probe(dev, H, 128, Tp, T)
     check_probe("K8", flash.flash_attention_packed(q, k, v, H, T), want, T)
+    # K9 at the decoder's geometry: a step (one query row) and the prompt (four)
+    return int8_phase(res, "K9", B, dims.n_text_head, dev, SEED + 9, row_counts=(1, 4))
+
+
+def int8_phase(res, kid, B, H, dev, seed, row_counts=(1,)):
+    """K9 against its plain version in f32 (its arithmetic is fp32 whatever
+    the compute dtype) for each query row count in ``rows``, recorded under
+    ``kid`` (one row, a decode step) and ``kid + "_prompt"`` (four rows).
+    Beside it, SDPA over the f32 fp cross cache is timed as the fp path's
+    cross-attention, which the int8 path replaces (not the same function,
+    so not its library yardstick: K9 has none)."""
+    import torch.nn.functional as F
+
+    from qasr_ijcnlp_tpu_torch.ops import decode_attn
+
+    rng = np.random.default_rng(seed)
+    T, D = 1500, H * 64
+    k, v = randn(rng, (B, T, D), dev), randn(rng, (B, T, D), dev)
+    k8, sk = decode_attn.quantize_kv(k, H)
+    v8, sv = decode_attn.quantize_kv(v, H)
+    heads = lambda z: z.view(B, -1, H, 64).transpose(1, 2)
+    kh, vh = (heads(k) * 64 ** -0.25).contiguous(), heads(v).contiguous()
+    for R in row_counts:
+        q = randn(rng, (B, R, D), dev)
+        qh = (heads(q) * 64 ** -0.25).contiguous()
+        r = compare(
+            f"{kid} int8 cross attention B={B} {H} heads R={R}", "f32",
+            lambda: decode_attn.int8_cross_attention(q, k8, sk, v8, sv, H, T),
+            lambda: decode_attn.int8_cross_attention_plain(q, k8, sk, v8, sv, H, T),
+            int8_work(B, H, R, T))
+        r["fp_path_sdpa_ms"] = cuda_ms(
+            lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=1.0))
+        log(f"{kid} R={R}: the fp path's cross-attention (SDPA over the f32 cache of "
+            f"{2 * B * T * D * 4 / 1e6:.1f} MB) {r['fp_path_sdpa_ms']:.4f} ms")
+        res[kid if R == 1 else f"{kid}_prompt"] = {"f32": r}
+    return res
+
+
+def step_phase(res, kid, block_for, B, dev, seed, ctx=80, idx=66, Ta=1500):
+    """K10 against its plain version in f32 and bf16 at one decoder layer's
+    last step of a 64-token decode (self positions 0..idx of ``ctx``, Ta
+    audio positions): the layer output, then the fresh k/v it wrote at idx.
+    Beside it, the port's unfused layer (``models.whisper.decoder_layer``)
+    is timed on the same inputs as the path it replaces (K10 has no library
+    yardstick)."""
+    from qasr_ijcnlp_tpu_torch.models.whisper import decoder_layer
+    from qasr_ijcnlp_tpu_torch.ops import decoder_step
+
+    rng = np.random.default_rng(seed)
+    blk32 = block_for(torch.float32)
+    D = blk32.attn.query.weight.shape[0]
+    H = D // 64
+    x32 = randn(rng, (B, D), dev)
+    sk32, sv32 = randn(rng, (B, H, ctx, 64), dev), randn(rng, (B, H, ctx, 64), dev)
+    ck32, cv32 = randn(rng, (B, H, Ta, 64), dev, 64 ** -0.25), randn(rng, (B, H, Ta, 64), dev)
+    mask = torch.zeros(1, ctx, device=dev).masked_fill(
+        torch.arange(ctx, device=dev) > idx, float("-inf"))
+    for dt, key in dtypes():
+        packed, ln = decoder_step.pack_layer(blk32, dt)
+        x, sk, sv, ck, cv = (t.to(dt) for t in (x32, sk32, sv32, ck32, cv32))
+        # each run writes the fresh k/v into its own copy of the self cache
+        inputs = {"kernel": (x, packed, ln, ck, cv), "plain": (x, packed, ln, ck, cv),
+                  "plain32": (x.float(), packed.float(), ln, ck.float(), cv.float())}
+        caches = {"kernel": (sk.clone(), sv.clone()), "plain": (sk.clone(), sv.clone()),
+                  "plain32": (sk.float(), sv.float())}
+
+        def run(fn, name):
+            x_, packed_, ln_, ck_, cv_ = inputs[name]
+            return fn(x_, packed_, ln_, *caches[name], ck_, cv_, idx, H)
+
+        r = compare(
+            f"{kid} fused decoder layer D{D} B={B}", key,
+            lambda: run(decoder_step.fused_decoder_layer_step, "kernel"),
+            lambda: run(decoder_step.fused_decoder_layer_step_plain, "plain"),
+            step_work(B, D, idx + 1, Ta, elem_size(key)),
+            plain32_fn=lambda: run(decoder_step.fused_decoder_layer_step_plain, "plain32"))
+        fresh = lambda name: torch.cat([c[:, :, idx].float() for c in caches[name]])
+        err = float((fresh("kernel") - fresh("plain")).abs().max())
+        limit = TOL["f32"] if key == "f32" else NOISE_FACTOR * float(
+            (fresh("plain") - fresh("plain32")).abs().max())
+        if err > limit:
+            raise AssertionError(f"{kid} {key}: the fresh k/v written at idx are {err} "
+                                 f"from the plain version's, outside {limit:.3e}")
+        cache = {"self_k": [sk.clone()], "self_v": [sv.clone()], "cross_k": [ck],
+                 "cross_v": [cv]}
+        blk = block_for(dt)
+        r["unfused_layer_ms"] = cuda_ms(
+            lambda: decoder_layer(blk, x[:, None], cache, 0, idx, mask, H, Ta))
+        log(f"{kid} {key}: fresh k/v max_abs_err {err:.3e} (tol {limit:.3e}); the port's "
+            f"unfused layer on the same inputs {r['unfused_layer_ms']:.4f} ms")
+        res.setdefault(kid, {})[key] = r
     return res
 
 
@@ -505,13 +634,14 @@ def synthetic_pcm(n, seed, samples=480000):
     return out
 
 
-def options(port, fp16):
-    return port.DecodingOptions(fp16=fp16, suppress_tokens=[EOT], **BENCH_OPTIONS)
+def options(port, fp16, kv_int8=False):
+    return port.DecodingOptions(fp16=fp16, suppress_tokens=[EOT], kv_int8=kv_int8,
+                                **BENCH_OPTIONS)
 
 
-def run_requests(port, model, pcm, fp16):
+def run_requests(port, model, pcm, fp16, kv_int8=False):
     mel = port.log_mel_spectrogram(pcm, n_mels=model.dims.n_mels, device=model.device)
-    return port.decode(model, mel, options(port, fp16))
+    return port.decode(model, mel, options(port, fp16, kv_int8))
 
 
 def check_results(results, n, dims):
@@ -525,7 +655,7 @@ def check_results(results, n, dims):
             raise AssertionError("bad audio features")
 
 
-def stage_times(port, model, pcm, fp16):
+def stage_times(port, model, pcm, fp16, label, kv_int8=False):
     """Host-clock ms of each stage of one warm request batch: PCM (host) to
     log-mel, encoder, and decode (cross K/V, prompt, greedy loop, results),
     each ended by a synchronize."""
@@ -540,78 +670,112 @@ def stage_times(port, model, pcm, fp16):
         feats = encoder_apply(model.module.encoder, mel, model.dims, dt)
     torch.cuda.synchronize()
     marks.append(time.perf_counter())
-    port.decode(model, feats, options(port, fp16))
+    port.decode(model, feats, options(port, fp16, kv_int8))
     torch.cuda.synchronize()
     marks.append(time.perf_counter())
     ms = [(b - a) * 1000 for a, b in zip(marks, marks[1:])]
-    log(f"{model.name} stages B={pcm.shape[0]} {'bf16' if fp16 else 'f32'}: mel "
+    log(f"{label} stages B={pcm.shape[0]} {'bf16' if fp16 else 'f32'}: mel "
         f"{ms[0]:.1f} ms, encoder {ms[1]:.1f} ms, decode {ms[2]:.1f} ms")
     return ms
 
 
-def time_batch(port, model, pcm, fp16, repeats=3):
-    run_requests(port, model, pcm, fp16)  # warm-up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(repeats):
-        run_requests(port, model, pcm, fp16)
-    torch.cuda.synchronize()
-    dt = (time.perf_counter() - t0) / repeats
-    return dt, pcm.shape[0] * 30.0 / dt
+def timed_batches(port, model, pcm, label, smi, repeats=3, kv_int8=False):
+    """Wall time per batch (host clock around ``repeats`` warm batches ended
+    by a synchronize) and the stages of one more, in bf16 and f32."""
+    for fp16 in (True, False):
+        run_requests(port, model, pcm, fp16, kv_int8)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(repeats):
+            run_requests(port, model, pcm, fp16, kv_int8)
+        torch.cuda.synchronize()
+        sec = (time.perf_counter() - t0) / repeats
+        log(f"{label} end to end B={pcm.shape[0]} {'bf16' if fp16 else 'f32'}: "
+            f"{sec * 1000:.1f} ms/batch, {pcm.shape[0] * 30.0 / sec:.1f} audio-s/s ({smi})")
+        stage_times(port, model, pcm, fp16, label, kv_int8)
 
 
 def counters():
-    from qasr_ijcnlp_tpu_torch.ops import conv_stem, encoder_block, flash, melfront
+    from qasr_ijcnlp_tpu_torch.ops import (
+        conv_stem, decode_attn, decoder_step, encoder_block, flash, melfront,
+    )
 
     return {"mel": (melfront, "launches"), "stem": (conv_stem, "launches"),
             "attn": (encoder_block, "attn_launches"),
-            "finish": (encoder_block, "finish_launches"), "packed": (flash, "launches")}
+            "finish": (encoder_block, "finish_launches"), "packed": (flash, "launches"),
+            "int8": (decode_attn, "launches"), "step": (decoder_step, "launches")}
 
 
 # Launches a batch must show: None is "at least once", a number exact.  The
 # fused trunk (tiny to medium) never runs K8; large-v3's unfused trunk runs
-# K8 once per layer and never the fused block.
-FUSED_EXPECT = {"mel": None, "stem": None, "attn": None, "finish": None, "packed": 0}
+# K8 once per layer and never the fused block.  The fp decode loop runs
+# neither decode kernel; the int8 cache runs K9 once per layer in the prompt
+# pass and in each of the sample_len - 1 steps; the fused step runs K10 once
+# per layer in each step (the prompt pass stays unfused).
+FUSED_EXPECT = {"mel": None, "stem": None, "attn": None, "finish": None, "packed": 0,
+                "int8": 0, "step": 0}
 
 
 def large_expect(dims):
-    return {"mel": None, "stem": None, "attn": 0, "finish": 0,
-            "packed": dims.n_audio_layer}
+    return {**FUSED_EXPECT, "attn": 0, "finish": 0, "packed": dims.n_audio_layer}
 
 
-def counted_run(port, model, pcm, expect):
+def int8_expect(expect, dims):
+    return {**expect, "int8": dims.n_text_layer * BENCH_OPTIONS["sample_len"]}
+
+
+def fused_step_expect(dims):
+    return {**FUSED_EXPECT, "step": dims.n_text_layer * (BENCH_OPTIONS["sample_len"] - 1)}
+
+
+def counted_run(port, model, pcm, expect, label, kv_int8=False):
     """One f32 batch with every launch counter set to 0 just before it;
     ``expect`` maps a counter to an exact count, or None for "at least 1"."""
     cs = counters()
     for mod, attr in cs.values():
         setattr(mod, attr, 0)
-    res = run_requests(port, model, pcm, fp16=False)
+    res = run_requests(port, model, pcm, fp16=False, kv_int8=kv_int8)
     torch.cuda.synchronize()
     launches = {k: getattr(mod, attr) for k, (mod, attr) in cs.items()}
-    log(f"main-path launches ({model.name}, f32, {pcm.shape[0]} requests):",
+    log(f"main-path launches ({label}, f32, {pcm.shape[0]} requests):",
         json.dumps(launches))
     for k, want in expect.items():
         got = launches[k]
         if (want is None and got == 0) or (want is not None and got != want):
-            raise AssertionError(f"{model.name}: {k} launched {got} times, expected "
+            raise AssertionError(f"{label}: {k} launched {got} times, expected "
                                  f"{'at least 1' if want is None else want}")
     return res, launches
 
 
-def teacher_forced_check(port, cpu_model, pcm0, card_result):
-    """Request 0 on the CPU plain path, teacher-forced on the card's tokens."""
+def cpu_features(port, cpu_model, pcm0):
+    """Request 0's encoder output on the CPU plain path."""
+    from qasr_ijcnlp_tpu_torch.models.whisper import encoder_apply
+
+    dims = cpu_model.dims
+    with torch.inference_mode():
+        mel = port.log_mel_spectrogram(pcm0[None], n_mels=dims.n_mels, device="cpu")
+        return encoder_apply(cpu_model.module.encoder, mel, dims)
+
+
+def teacher_forced_check(port, cpu_model, xa, card_result, label, tie=TOKEN_TIE,
+                         int8_cache=None):
+    """One request on the CPU plain path (encoder output ``xa``),
+    teacher-forced on the card's tokens: the decoder over the fp cross K/V,
+    or over ``int8_cache`` (the CPU's own int8 cross cache) in one
+    incremental pass."""
     from qasr_ijcnlp_tpu_torch.decode import DecodingTask
     from qasr_ijcnlp_tpu_torch.decode.filters import apply_filters
-    from qasr_ijcnlp_tpu_torch.models.whisper import decoder_apply, encoder_apply
+    from qasr_ijcnlp_tpu_torch.models.whisper import decoder_apply, decoder_step
 
     dims = cpu_model.dims
     task = DecodingTask(cpu_model, options(port, False))
+    feat_err = float((card_result.audio_features.float().cpu() - xa[0]).abs().max())
+    toks = torch.tensor([list(task.initial_tokens) + list(card_result.tokens)])
     with torch.inference_mode():
-        mel = port.log_mel_spectrogram(pcm0[None], n_mels=dims.n_mels, device="cpu")
-        xa = encoder_apply(cpu_model.module.encoder, mel, dims)
-        feat_err = float((card_result.audio_features.float().cpu() - xa[0]).abs().max())
-        toks = list(task.initial_tokens) + list(card_result.tokens)
-        logits = decoder_apply(cpu_model.module.decoder, torch.tensor([toks]), xa, dims)[0]
+        if int8_cache is None:
+            logits = decoder_apply(cpu_model.module.decoder, toks, xa, dims)[0]
+        else:
+            logits = decoder_step(cpu_model.module.decoder, toks, dict(int8_cache), dims)[0][0]
     sb = task.sample_begin
     last = prev = torch.tensor([-1])
     min_margin, worst = math.inf, 0.0
@@ -622,19 +786,64 @@ def teacher_forced_check(port, cpu_model, pcm0, card_result):
         min_margin = min(min_margin, float(top2[0] - top2[1]))
         behind = float(top2[0] - f[tok])
         worst = max(worst, behind)
-        if behind > TOKEN_TIE:
-            raise AssertionError(f"{cpu_model.name}: step {i}, card token {tok} is "
-                                 f"{behind:.3e} below the CPU's top logit")
+        if behind > tie:
+            raise AssertionError(f"{label}: step {i}, card token {tok} is "
+                                 f"{behind:.3e} below the CPU's top logit (tie {tie:g})")
         prev, last = last, torch.tensor([tok])
-    log(f"{cpu_model.name}: request 0 f32 tokens pass the CPU teacher-forced check "
-        f"({len(card_result.tokens)} steps; card token behind the CPU top logit by at "
-        f"most {worst:.3e}; smallest top-2 margin {min_margin:.3e}; encoder output "
-        f"max |card - CPU| {feat_err:.3e})")
+    log(f"{label}: f32 tokens pass the CPU teacher-forced check ({len(card_result.tokens)} "
+        f"steps; card token behind the CPU top logit by at most {worst:.3e}, tie {tie:g}; "
+        f"smallest top-2 margin {min_margin:.3e}; encoder output max |card - CPU| "
+        f"{feat_err:.3e})")
     return min_margin
 
 
-def family_path(port, dims_name, dims, dev, smi, expect, kernel_phase):
-    """Kernel phases and end to end for one size."""
+def token_agreement(a, b):
+    same = sum(x == y for r, s in zip(a, b) for x, y in zip(r.tokens, s.tokens))
+    return same, sum(len(r.tokens) for r in a)
+
+
+def large_int8_path(port, gpu, cpu, pcm, res_fp, xa, smi):
+    """large-v3 with ``kv_int8``: one counted f32 batch, request 0 against the
+    CPU plain int8 path (its encoder output ``xa`` from the fp check), int8
+    vs fp agreement, then bf16, times and stages."""
+    from qasr_ijcnlp_tpu_torch.models.whisper import init_kv_cache, precompute_cross_kv
+
+    dims, B = gpu.dims, pcm.shape[0]
+    label = "large-v3 int8"
+    res8, launches = counted_run(port, gpu, pcm, int8_expect(large_expect(dims), dims),
+                                 label, kv_int8=True)
+    check_results(res8, B, dims)
+    with torch.inference_mode():
+        cpu_cache = precompute_cross_kv(
+            cpu.module.decoder, xa, init_kv_cache(dims, 1, cross_int8=True))
+        card_cache = precompute_cross_kv(
+            gpu.module.decoder, res8[0].audio_features[None].float(),
+            init_kv_cache(dims, 1, device=gpu.device, ctx=16, cross_int8=True))
+    pairs = [(a.cpu(), b) for key in ("cross_k8", "cross_v8")
+             for a, b in zip(card_cache[key], cpu_cache[key])]
+    flips = sum(int((a != b).sum()) for a, b in pairs)
+    off = max(int((a.int() - b.int()).abs().max()) for a, b in pairs)
+    log(f"{label}: request 0's cross K/V codes differ between card and CPU at {flips} of "
+        f"{sum(a.numel() for a, _ in pairs)} (at most {off} apart)")
+    teacher_forced_check(port, cpu, xa, res8[0], f"{label} request 0", INT8_TOKEN_TIE,
+                         int8_cache=cpu_cache)
+    same, total = token_agreement(res8, res_fp)
+    gap = max(abs(a.avg_logprob - b.avg_logprob) for a, b in zip(res8, res_fp))
+    log(f"{label} vs fp (f32): token agreement {same}/{total} = {same / total:.4f}; "
+        f"largest avg_logprob gap {gap:.4f} (bound {INT8_LOGPROB_GAP})")
+    if gap > INT8_LOGPROB_GAP:
+        raise AssertionError(f"{label}: avg_logprob moved by {gap} from the fp path")
+    res16 = run_requests(port, gpu, pcm, fp16=True, kv_int8=True)
+    check_results(res16, B, dims)
+    same, total = token_agreement(res8, res16)
+    log(f"{label}: bf16 vs f32 token agreement {same}/{total} = {same / total:.4f}")
+    timed_batches(port, gpu, pcm, label, smi, repeats=2, kv_int8=True)
+    return launches
+
+
+def family_path(port, dims_name, dims, dev, smi, expect, kernel_phase, int8_path=None):
+    """Kernel phases and end to end for one size; ``int8_path`` drives the
+    same batch with the int8 cross cache."""
     from qasr_ijcnlp_tpu_torch.models.whisper import init_params
 
     t0 = time.perf_counter()
@@ -647,94 +856,114 @@ def family_path(port, dims_name, dims, dev, smi, expect, kernel_phase):
         kres = kernel_phase(gpu, dev)
 
     pcm = synthetic_pcm(B_KERNEL, SEED + 7, dims.n_audio_ctx * 320)
-    res32, launches = counted_run(port, gpu, pcm, expect)
+    res32, launches = counted_run(port, gpu, pcm, expect, dims_name)
     check_results(res32, B_KERNEL, dims)
-    margin = teacher_forced_check(port, cpu, pcm[0], res32[0])
+    xa = cpu_features(port, cpu, pcm[0])
+    teacher_forced_check(port, cpu, xa, res32[0], f"{dims_name} request 0")
     res16 = run_requests(port, gpu, pcm, fp16=True)
     check_results(res16, B_KERNEL, dims)
-    same = sum(a == b for r, s in zip(res32, res16) for a, b in zip(r.tokens, s.tokens))
-    total = sum(len(r.tokens) for r in res32)
+    same, total = token_agreement(res32, res16)
     log(f"{dims_name}: bf16 vs f32 token agreement {same}/{total} = {same / total:.4f}")
     log(f"{dims_name}: request 0 text: {res32[0].text[:120]!r}")
-    for fp16 in (True, False):
-        sec, rate = time_batch(port, gpu, pcm, fp16, repeats=2)
-        log(f"{dims_name} end to end B={B_KERNEL} {'bf16' if fp16 else 'f32'}: "
-            f"{sec * 1000:.1f} ms/batch, {rate:.1f} audio-s/s ({smi})")
-        stage_times(port, gpu, pcm, fp16)
+    timed_batches(port, gpu, pcm, dims_name, smi, repeats=2)
+    paths = {dims_name: launches}
+    if int8_path is not None:
+        paths[f"{dims_name} int8"] = int8_path(port, gpu, cpu, pcm, res32, xa, smi)
     del gpu, cpu, sd, res32, res16
     gc.collect()
     torch.cuda.empty_cache()
-    return kres, launches, margin
+    return kres, paths
 
 
-def main():
-    t_start = time.perf_counter()
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke.py: torch.cuda.is_available() is False; this "
-                         "check runs only on an NVIDIA GPU")
-    import qasr_ijcnlp_tpu_torch as port
-    from qasr_ijcnlp_tpu_torch.models.dims import dims_for, tiny_dims
+def base_block_for(dev):
+    """A decoder block at base's width (D 512, 8 heads), seeded default
+    init, in f32 and with its Linear weights cast once to bf16."""
+    import copy
+
+    from qasr_ijcnlp_tpu_torch.models.whisper import ResidualAttentionBlock
+
+    torch.manual_seed(SEED + 3)
+    blocks = {torch.float32: ResidualAttentionBlock(512, 8, cross_attention=True)
+              .to(dev).requires_grad_(False)}
+    blocks[torch.bfloat16] = copy.deepcopy(blocks[torch.float32])
+    for mod in blocks[torch.bfloat16].modules():
+        if isinstance(mod, torch.nn.Linear):
+            mod.to(torch.bfloat16)
+    return blocks.__getitem__
+
+
+def tiny_path(port, dims, dev, smi):
+    """tiny: kernel phases (K1, K2, K4, K5, K9, K10), then the fp path, the
+    int8 path and the fused-step path end to end."""
     from qasr_ijcnlp_tpu_torch.models.whisper import init_params
+    from qasr_ijcnlp_tpu_torch.ops import decoder_step
 
-    # TF32 off for every plain fp32 product and convolution on the card.
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda", 0)
-
-    smi = device_lines()
-    build_kernels()
-
-    # == tiny ===================================================================
-    dims = tiny_dims()
     sd = init_params(torch.Generator().manual_seed(SEED), dims)
-    gpu_model = port.WhisperModel.from_state_dict(sd, dims, dev, name="tiny (random)")
-    cpu_model = port.WhisperModel.from_state_dict(sd, dims, "cpu", name="tiny (random)")
-
+    gpu = port.WhisperModel.from_state_dict(sd, dims, dev, name="tiny (random)")
+    cpu = port.WhisperModel.from_state_dict(sd, dims, "cpu", name="tiny (random)")
     with torch.inference_mode():
-        kres = tiny_kernel_phase(gpu_model, dev)
+        kres = tiny_kernel_phase(gpu, dev)
+        int8_phase(kres, "K9_tiny", 16, dims.n_text_head, dev, SEED + 4)
+        block_for = lambda dt: gpu.decoder_for(dt).blocks[0]
+        step_phase(kres, "K10", block_for, 16, dev, SEED + 5)
+        step_phase(kres, "K10_b64", block_for, 64, dev, SEED + 6)
+        step_phase(kres, "K10_d512", base_block_for(dev), 8, dev, SEED + 8)
 
     pcm16 = synthetic_pcm(16, SEED)
-    res32, tiny_launches = counted_run(port, gpu_model, pcm16, FUSED_EXPECT)
+    pcm64 = np.concatenate([pcm16] * 4)
+    res32, launches = counted_run(port, gpu, pcm16, FUSED_EXPECT, "tiny")
     check_results(res32, 16, dims)
-
-    cpu_res = run_requests(port, cpu_model, pcm16[:2], fp16=False)
+    cpu_res = run_requests(port, cpu, pcm16[:2], fp16=False)
     for i in range(2):
         if cpu_res[i].tokens != res32[i].tokens:
             raise AssertionError(f"request {i}: GPU f32 tokens differ from the CPU "
                                  f"plain path:\n{res32[i].tokens}\n{cpu_res[i].tokens}")
     log("f32 tokens identical to the CPU plain path for requests 0, 1")
     log("request 0 text:", repr(res32[0].text[:120]))
-
-    res16 = run_requests(port, gpu_model, pcm16, fp16=True)
+    res16 = run_requests(port, gpu, pcm16, fp16=True)
     check_results(res16, 16, dims)
-    same = sum(a == b for r, s in zip(res32, res16) for a, b in zip(r.tokens, s.tokens))
-    total = sum(len(r.tokens) for r in res32)
+    same, total = token_agreement(res32, res16)
     log(f"bf16 vs f32 token agreement: {same}/{total} = {same / total:.4f}")
-    pcm64 = np.concatenate([pcm16] * 4)
-    for B, pcm in ((16, pcm16), (64, pcm64)):
-        for fp16 in (True, False):
-            sec, rate = time_batch(port, gpu_model, pcm, fp16)
-            log(f"end to end B={B} {'bf16' if fp16 else 'f32'}: {sec * 1000:.1f} ms/batch, "
-                f"{rate:.1f} audio-s/s ({smi})")
-            stage_times(port, gpu_model, pcm, fp16)
-    del gpu_model, cpu_model, sd
+    for pcm in (pcm16, pcm64):
+        timed_batches(port, gpu, pcm, "tiny", smi)
+    paths = {"tiny": launches}
+
+    res8, paths["tiny int8"] = counted_run(port, gpu, pcm16, int8_expect(FUSED_EXPECT, dims),
+                                           "tiny int8", kv_int8=True)
+    check_results(res8, 16, dims)
+    same, total = token_agreement(res8, res32)
+    log(f"tiny int8 vs fp (f32): token agreement {same}/{total} = {same / total:.4f}")
+
+    decoder_step.set_fused_decoder_step(True)
+    try:
+        for pcm in (pcm16, pcm64):
+            B = pcm.shape[0]
+            label = f"tiny fused B={B}"
+            resf, paths[label] = counted_run(port, gpu, pcm, fused_step_expect(dims), label)
+            check_results(resf, B, dims)
+            if B == 16:
+                for i in range(2):
+                    teacher_forced_check(port, cpu, cpu_features(port, cpu, pcm[i]), resf[i],
+                                         f"{label} request {i}", FUSED_TOKEN_TIE)
+                same, total = token_agreement(resf, res32)
+                log(f"{label} vs unfused (f32): token agreement {same}/{total} = "
+                    f"{same / total:.4f}")
+            timed_batches(port, gpu, pcm, label, smi)
+    finally:
+        decoder_step.set_fused_decoder_step(None)
+    del gpu, cpu, sd
     gc.collect()
     torch.cuda.empty_cache()
+    return kres, paths
 
-    # == medium and large-v3, full width and depth ==================================
-    medium, large = dims_for("medium"), dims_for("large-v3")
-    mres, medium_launches, _ = family_path(
-        port, "medium", medium, dev, smi, FUSED_EXPECT, medium_kernel_phase)
-    lres, large_launches, _ = family_path(
-        port, "large-v3", large, dev, smi, large_expect(large), large_kernel_phase)
-    kres.update(mres)
-    kres.update(lres)
 
-    by_path = {"tiny": tiny_launches, "medium": medium_launches, "large-v3": large_launches}
+def kernel_table(kres, by_path):
+    """The per-kernel JSON entries: each row's f32 (and bf16) measurements
+    and its launches on its path's counted batch and on every path."""
     src = "qasr_ijcnlp_tpu_torch/csrc/"
     tpu = "qasr_ijcnlp_tpu/ops/"
     # (entry, TPU kernel, source, replaces, counter, path, shape)
-    rows = [
+    table = [
         ("mel", "K1", src + "melfront.cu", tpu + "melfront.py:48", "mel", "tiny",
          "(8, 480000) -> (8, 80, 3000)"),
         ("conv_stem", "K2", src + "conv_stem.cu", tpu + "conv_stem.py:82", "stem", "tiny",
@@ -749,9 +978,25 @@ def main():
          tpu + "encoder_block.py:259", "finish", "medium", "(8, 1536, 1024)"),
         ("packed_attention", "K8", src + "flash.cu", tpu + "flash.py:119", "packed",
          "large-v3", "(8, 1536, 1280), 20 heads, t_real 1500"),
+        ("int8_cross_attention", "K9", src + "decode_attn.cu", tpu + "decode_attn.py:64",
+         "int8", "large-v3 int8", "q (8, 1, 1280), codes (8, 20, 1536, 64), t_real 1500"),
+        ("int8_cross_attention_prompt", "K9_prompt", src + "decode_attn.cu",
+         tpu + "decode_attn.py:64", "int8", "large-v3 int8",
+         "q (8, 4, 1280), codes (8, 20, 1536, 64), t_real 1500"),
+        ("int8_cross_attention_tiny", "K9_tiny", src + "decode_attn.cu",
+         tpu + "decode_attn.py:64", "int8", "tiny int8",
+         "q (16, 1, 384), codes (16, 6, 1536, 64), t_real 1500"),
+        ("fused_decoder_layer", "K10", src + "decoder_step.cu", tpu + "decoder_step.py:137",
+         "step", "tiny fused B=16", "x (16, 384), self 67 of 80, cross 1500"),
+        ("fused_decoder_layer_b64", "K10_b64", src + "decoder_step.cu",
+         tpu + "decoder_step.py:137", "step", "tiny fused B=64",
+         "x (64, 384), self 67 of 80, cross 1500"),
+        ("fused_decoder_layer_d512", "K10_d512", src + "decoder_step.cu",
+         tpu + "decoder_step.py:137", "step", "tiny fused B=16",
+         "base width: x (8, 512), one layer, self 67 of 80, cross 1500"),
     ]
     kernels = []
-    for name, kid, source, replaces, counter, path, shape in rows:
+    for name, kid, source, replaces, counter, path, shape in table:
         entry = {"name": name, "tpu_kernel": kid, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": by_path[path][counter], "path": path,
                  "shape": shape, **kres[kid]["f32"],
@@ -759,6 +1004,37 @@ def main():
         if "bf16" in kres[kid]:
             entry.update({f"bf16_{key}": v for key, v in kres[kid]["bf16"].items()})
         kernels.append(entry)
+    return kernels
+
+
+def main():
+    t_start = time.perf_counter()
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke.py: torch.cuda.is_available() is False; this "
+                         "check runs only on an NVIDIA GPU")
+    import qasr_ijcnlp_tpu_torch as port
+    from qasr_ijcnlp_tpu_torch.models.dims import dims_for, tiny_dims
+
+    # TF32 off for every plain fp32 product and convolution on the card.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+
+    smi = device_lines()
+    build_kernels()
+
+    kres, by_path = tiny_path(port, tiny_dims(), dev, smi)
+    # == medium and large-v3, full width and depth ==================================
+    medium, large = dims_for("medium"), dims_for("large-v3")
+    mres, mpaths = family_path(port, "medium", medium, dev, smi, FUSED_EXPECT,
+                               medium_kernel_phase)
+    lres, lpaths = family_path(port, "large-v3", large, dev, smi, large_expect(large),
+                               large_kernel_phase, large_int8_path)
+    for res, paths in ((mres, mpaths), (lres, lpaths)):
+        kres.update(res)
+        by_path.update(paths)
+
+    kernels = kernel_table(kres, by_path)
     log(f"total seconds: {time.perf_counter() - t_start:.1f}")
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -1,7 +1,8 @@
 """qasr_ijcnlp_tpu_torch: the PyTorch / CUDA port of qasr_ijcnlp_tpu.
 
 The Whisper request path (PCM -> log-mel -> encoder -> greedy decode ->
-text) for every family size, tiny to large-v3, in PyTorch, with the JAX
+text) for every family size, tiny to large-v3, in PyTorch, with the int8
+cross cache (``kv_int8``) and the opt-in fused decoder step, and the JAX
 package's TPU kernels rewritten by hand for Hopper (``csrc/``).  The
 package imports torch and numpy and never JAX or the JAX package, which
 stays beside it as the reference.

@@ -46,6 +46,8 @@ _SIGNATURES = {
     "qasr_finish": [_I] + [_P] * 14 + [_I] * 3 + [_P],
     "qasr_packed_attention": [_I] + [_P] * 4 + [_I] * 6 + [_P],
     "qasr_log_mel": [_P] * 6 + [_I] * 4 + [_P],
+    "qasr_int8_cross_attention": [_I] + [_P] * 6 + [_I] * 6 + [_P],
+    "qasr_decoder_layer_step": [_I] + [_P] * 9 + [_I] * 6 + [_P],
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -44,6 +44,12 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
 // ---------------------------------------------------------------------------
 // Tiled GEMM: C[z, m, n] = ep(z, m, n, sum_k a(z, m, k) * b(z, k, n)).
 // 64x64 output tile per block, 16-deep k slices staged in shared memory as

@@ -1,9 +1,9 @@
 """Decoding API: options, results, language detection and decode().
 
 Port of ``qasr_ijcnlp_tpu/decode/__init__.py`` (greedy and temperature
-sampling).  Beam search, best-of, speculative drafts and the int8 cross
-cache are not ported yet and raise ``NotImplementedError``; none of them
-falls back to another path.
+sampling, with the int8 cross cache of ``kv_int8``).  Beam search, best-of
+and speculative drafts are not ported yet and raise
+``NotImplementedError``; none of them falls back to another path.
 """
 
 from __future__ import annotations
@@ -183,6 +183,7 @@ class DecodingTask:
             timestamp_begin=min(self.tokenizer.timestamp_begin, n_vocab),
             no_speech=no_speech if no_speech is not None and no_speech < n_vocab else None,
             compute_dtype=_compute_dtype(options.fp16, model_obj.device),
+            kv_int8=options.kv_int8,
         )
 
     def _verify_options(self, options: DecodingOptions) -> DecodingOptions:
@@ -197,7 +198,7 @@ class DecodingTask:
         ):
             raise ValueError("length_penalty (alpha) should be a value between 0 and 1")
         for name, item in (("beam_size", "Beam search"), ("best_of", "Beam search"),
-                           ("draft", "Decode services"), ("kv_int8", "int8 cross K/V")):
+                           ("draft", "Decode services")):
             if getattr(options, name):
                 raise NotImplementedError(
                     f"{name} is not ported yet: ROADMAP.md queue 1, '{item}'"
@@ -301,6 +302,8 @@ class DecodingTask:
             torch.from_numpy(init).to(audio_features.device),
             float(opts.temperature),
             generator,
+            # int8 cross K/V quantize the fp32 projections
+            cross_decoder=self.model.module.decoder if opts.kv_int8 else None,
         )
         # one device -> host copy for the whole batch
         buf = buf.cpu().numpy()

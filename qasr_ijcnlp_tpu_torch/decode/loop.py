@@ -5,8 +5,15 @@ is one ``lax.while_loop`` under ``jit``; here it is a Python loop over
 :func:`..models.whisper.decoder_step` with device-resident token buffer,
 scores and filter state.  The only host read inside the loop is the
 all-finished check, made every ``unroll`` steps to bound host syncs (the
-JAX loop checks its exit predicate at the same granularity).  Beam search
-is not ported yet.
+JAX loop checks its exit predicate at the same granularity).
+
+Two options change the kernels the loop runs, as in the reference:
+``LoopConfig.kv_int8`` stores the cross K/V as int8 (the int8 attention
+kernel K9 in every step), and the opt-in fused step
+(``ops.decoder_step.set_fused_decoder_step(True)``) replaces every
+single-token step by one fused kernel launch per decoder layer (K10) where
+``fused_cache_applicable`` admits the cache; the prompt pass stays on the
+unfused ``decoder_step``.  Beam search is not ported yet.
 """
 
 from __future__ import annotations
@@ -18,6 +25,9 @@ import torch
 from ..models import whisper as model
 from ..models.dims import ModelDimensions
 from ..ops import round_up
+from ..ops.decoder_step import (
+    fused_cache_applicable, fused_decoder_step, fused_step_enabled, to_fused_cache,
+)
 from .filters import FilterConfig, apply_filters
 
 
@@ -31,25 +41,32 @@ class LoopConfig(NamedTuple):
     timestamp_begin: int
     no_speech: Optional[int]
     compute_dtype: torch.dtype = torch.float32
+    # Store the cross K/V int8-quantized (ops/decode_attn.py); opt-in, not
+    # fp-token-exact.
+    kv_int8: bool = False
     # Steps between host checks of the all-finished exit.
     unroll: int = 4
 
 
-def _prompt_pass(decoder, cfg: LoopConfig, audio_features, initial_tokens):
+def _prompt_pass(decoder, cfg: LoopConfig, audio_features, initial_tokens,
+                 cross_decoder=None):
     """Encoder features -> cross K/V + prompt logits + no-speech probs.
 
     The self cache is bounded to the reachable length (prompt + samples +
     the unroll overshoot of the JAX loop), rounded up to 16, as in the
-    reference: every step reads the whole buffer."""
+    reference: every step reads the whole buffer.  The cross K/V are
+    projected with ``cross_decoder`` (default ``decoder``), which must hold
+    fp32 weights when ``cfg.kv_int8``."""
     B = initial_tokens.shape[0]
     reach = cfg.sample_begin + cfg.sample_len + cfg.unroll + 1
     ctx = min(cfg.dims.n_text_ctx, round_up(reach, 16))
     cache = model.init_kv_cache(
         cfg.dims, B, cfg.compute_dtype, audio_features.device,
-        cross_batch=audio_features.shape[0], ctx=ctx,
+        cross_batch=audio_features.shape[0], ctx=ctx, cross_int8=cfg.kv_int8,
     )
     cache = model.precompute_cross_kv(
-        decoder, audio_features, cache, n_head=cfg.dims.n_text_head
+        cross_decoder if cross_decoder is not None else decoder, audio_features,
+        cache, n_head=cfg.dims.n_text_head,
     )
     logits_all, cache = model.decoder_step(
         decoder, initial_tokens, cache, cfg.dims, cfg.compute_dtype
@@ -69,17 +86,27 @@ def greedy_decode(
     initial_tokens: torch.Tensor,  # (B, sample_begin) int64
     temperature: float = 0.0,
     generator: Optional[torch.Generator] = None,
+    cross_decoder=None,
 ) -> Tuple[torch.Tensor, int, torch.Tensor, torch.Tensor]:
     """Returns (tokens_buf (B, reach), final_len, sum_logprobs (B,),
-    no_speech_probs (B,)), all on the decode device."""
+    no_speech_probs (B,)), all on the decode device.  ``cross_decoder``
+    holds the fp32 weights the int8 cross K/V are projected with
+    (``cfg.kv_int8``; default ``decoder``)."""
     B = initial_tokens.shape[0]
     n_ctx = cfg.dims.n_text_ctx
     eot = cfg.eot
     dev = audio_features.device
 
     cache, logits, no_speech_probs = _prompt_pass(
-        decoder, cfg, audio_features, initial_tokens
+        decoder, cfg, audio_features, initial_tokens, cross_decoder
     )
+    # The opt-in fused step (the reference's decode/loop.py gate): read when
+    # the loop starts, and only for a cache the kernel takes.
+    if fused_step_enabled() and fused_cache_applicable(cache, cfg.dims, B):
+        cache = to_fused_cache(cache, cfg.dims)
+        step_fn = fused_decoder_step
+    else:
+        step_fn = model.decoder_step
     buf = torch.full((B, n_ctx + 1), eot, dtype=torch.long, device=dev)
     buf[:, : cfg.sample_begin] = initial_tokens
     cur_len = cfg.sample_begin
@@ -115,7 +142,7 @@ def greedy_decode(
                              torch.maximum(max_ts, next_tok), max_ts)
         cur_len += 1
         if i + 1 < cfg.sample_len and cur_len <= n_ctx:
-            step_logits, cache = model.decoder_step(
+            step_logits, cache = step_fn(
                 decoder, next_tok[:, None], cache, cfg.dims, cfg.compute_dtype
             )
             logits = step_logits[:, 0]

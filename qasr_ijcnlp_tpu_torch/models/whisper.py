@@ -20,7 +20,10 @@ PyTorch around the packed attention kernel (K8) of ``attention``.  Keys
 >= n_audio_ctx are masked throughout, and the padded rows are sliced off
 before ``ln_post``.  On CPU tensors the same ops run their plain versions.
 The decoder is plain PyTorch (``torch.matmul``), as the JAX package left it
-to XLA.
+to XLA, except for two kernels of the decode loop: the int8 cross
+attention (K9, ``ops/decode_attn.py``) behind an int8 cross cache, and the
+opt-in fused single-token step (K10, ``ops/decoder_step.py``) that the
+greedy loop takes in place of :func:`decoder_step`.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from torch import nn
 
 from ..ops import gelu, head_scale, layer_norm, linear, round_up
 from ..ops.conv_stem import fused_conv_stem
+from ..ops.decode_attn import LANE, int8_cross_attention, quantize_kv
 from ..ops.encoder_block import fused_block_applicable, fused_encoder_block
 from ..ops.flash import flash_attention_packed, packed_applicable
 from .dims import ModelDimensions
@@ -357,12 +361,11 @@ def init_kv_cache(
     immutable and returned anew).  Cross K/V are filled once per audio by
     :func:`precompute_cross_kv`, stored head-split and the key pre-scaled, so
     no decode step re-lays them out.  ``idx`` is the host-side write offset.
+
+    ``cross_int8`` stores the cross K/V instead as int8 codes (B, H, Tp, Dh)
+    with fp32 scales (B, H, Tp), Tp = round_up(n_audio_ctx, 128), the layout
+    of the int8 attention kernel (``ops/decode_attn.py``).
     """
-    if cross_int8:
-        raise NotImplementedError(
-            "int8 cross K/V (kv_int8) is not ported yet: ROADMAP.md queue 1, "
-            "'int8 cross K/V'"
-        )
     if cross_batch is not None and cross_batch != batch:
         raise NotImplementedError(
             "grouped cross attention (beam / best-of) is not ported yet: "
@@ -372,26 +375,83 @@ def init_kv_cache(
     Dh = dims.n_text_state // H
     T = min(ctx or dims.n_text_ctx, dims.n_text_ctx)
     z = lambda: torch.zeros(batch, H, T, Dh, dtype=dtype, device=device)
-    return {
+    cache = {
         "self_k": [z() for _ in range(L)],
         "self_v": [z() for _ in range(L)],
-        "cross_k": [None] * L,
-        "cross_v": [None] * L,
         "idx": 0,
     }
+    if cross_int8:
+        Tp = round_up(dims.n_audio_ctx, LANE)
+        codes = lambda: torch.zeros(batch, H, Tp, Dh, dtype=torch.int8, device=device)
+        scales = lambda: torch.zeros(batch, H, Tp, device=device)
+        cache.update({
+            "cross_k8": [codes() for _ in range(L)],
+            "cross_sk": [scales() for _ in range(L)],
+            "cross_v8": [codes() for _ in range(L)],
+            "cross_sv": [scales() for _ in range(L)],
+        })
+    else:
+        cache.update({"cross_k": [None] * L, "cross_v": [None] * L})
+    return cache
 
 
 def precompute_cross_kv(decoder: TextDecoder, xa, cache: Dict,
                         n_head: Optional[int] = None) -> Dict:
-    """Project the encoder output to every layer's cross K/V once."""
-    dtype = cache["self_k"][0].dtype
+    """Project the encoder output to every layer's cross K/V once.
+
+    With an int8 cache the projections are quantized here, once per audio:
+    the fp32 projections of the fp32 encoder output, unscaled, as the
+    reference quantizes them.  ``decoder`` must then hold fp32 cross
+    weights (the model's own decoder, not ``decoder_for(bfloat16)``)."""
     H = n_head if n_head is not None else cache["self_k"][0].shape[1]
+    if "cross_k8" in cache:
+        out = {**cache, "cross_k8": [], "cross_sk": [], "cross_v8": [], "cross_sv": []}
+        xa = xa.float()
+        for bp in decoder.blocks:
+            ca = bp.cross_attn
+            if ca.key.weight.dtype != torch.float32:
+                raise ValueError(
+                    "int8 cross K/V quantize the fp32 projections: pass a decoder "
+                    f"with fp32 weights, not {ca.key.weight.dtype}")
+            for name, lin in (("k", ca.key), ("v", ca.value)):
+                codes, scales = quantize_kv(linear(xa, lin), H)
+                out[f"cross_{name}8"].append(codes)
+                out[f"cross_s{name}"].append(scales)
+        return out
+    dtype = cache["self_k"][0].dtype
     xa = xa.to(dtype)
     ks, vs = [], []
     for bp in decoder.blocks:
         ks.append(scaled_heads(linear(xa, bp.cross_attn.key), H).contiguous())
         vs.append(_split_heads(linear(xa, bp.cross_attn.value), H).contiguous())
     return {**cache, "cross_k": ks, "cross_v": vs}
+
+
+def decoder_layer(bp: ResidualAttentionBlock, x, cache: Dict, l: int, offset: int,
+                  mask, n_head: int, t_real_cross: int):
+    """Layer ``l`` of :func:`decoder_step` on x (B, T_new, D) at cache
+    position ``offset``, writing its self K/V into the cache in place (the
+    JAX step returns a new buffer); ``mask`` (T_new, ctx) is additive."""
+    T_new = x.shape[1]
+    scale = head_scale(x.shape[-1] // n_head, cache["self_k"][l].dtype)
+    xn = layer_norm(x, bp.attn_ln)
+    q = linear(xn, bp.attn.query)
+    cache["self_k"][l][:, :, offset:offset + T_new] = _split_heads(
+        linear(xn, bp.attn.key), n_head)
+    cache["self_v"][l][:, :, offset:offset + T_new] = _split_heads(
+        linear(xn, bp.attn.value), n_head)
+    a = _attend(scaled_heads(q, n_head), cache["self_k"][l] * scale, cache["self_v"][l], mask)
+    x = x + linear(a, bp.attn.out)
+    qc = linear(layer_norm(x, bp.cross_attn_ln), bp.cross_attn.query)
+    if "cross_k8" in cache:
+        ca = int8_cross_attention(
+            qc, cache["cross_k8"][l], cache["cross_sk"][l], cache["cross_v8"][l],
+            cache["cross_sv"][l], n_head, t_real_cross,
+        ).to(x.dtype)
+    else:
+        ca = _attend(scaled_heads(qc, n_head), cache["cross_k"][l], cache["cross_v"][l])
+    x = x + linear(ca, bp.cross_attn.out)
+    return x + _mlp(bp.mlp, layer_norm(x, bp.mlp_ln))
 
 
 def decoder_step(
@@ -401,7 +461,9 @@ def decoder_step(
     """Incremental decoder forward over ``tokens`` (B, T_new) at cache
     position ``cache['idx']``: (fp32 logits (B, T_new, vocab), updated cache).
 
-    The first call may pass the whole prompt; later calls one token."""
+    The first call may pass the whole prompt; later calls one token.  An
+    int8 cross cache (``init_kv_cache(cross_int8=True)``) runs the int8
+    attention kernel (K9), whose fp32 output is cast to the compute dtype."""
     if offsets is not None:
         raise NotImplementedError(
             "per-row offsets (speculative decode) are not ported yet: "
@@ -419,22 +481,8 @@ def decoder_step(
     mask = torch.zeros(T_new, Tmax, device=dev).masked_fill(~keep, float("-inf"))
     pos = decoder.positional_embedding[offset:offset + T_new]
     x = (decoder.token_embedding.weight[tokens] + pos).to(compute_dtype)
-    scale = head_scale(dims.n_text_state // H, cache["self_k"][0].dtype)
     for l, bp in enumerate(decoder.blocks):
-        xn = layer_norm(x, bp.attn_ln)
-        q = linear(xn, bp.attn.query)
-        # in-place cache append (the JAX step returns a new buffer)
-        cache["self_k"][l][:, :, offset:offset + T_new] = _split_heads(
-            linear(xn, bp.attn.key), H)
-        cache["self_v"][l][:, :, offset:offset + T_new] = _split_heads(
-            linear(xn, bp.attn.value), H)
-        a = _attend(scaled_heads(q, H), cache["self_k"][l] * scale,
-                    cache["self_v"][l], mask)
-        x = x + linear(a, bp.attn.out)
-        qc = linear(layer_norm(x, bp.cross_attn_ln), bp.cross_attn.query)
-        ca = _attend(scaled_heads(qc, H), cache["cross_k"][l], cache["cross_v"][l])
-        x = x + linear(ca, bp.cross_attn.out)
-        x = x + _mlp(bp.mlp, layer_norm(x, bp.mlp_ln))
+        x = decoder_layer(bp, x, cache, l, offset, mask, H, dims.n_audio_ctx)
     x = layer_norm(x, decoder.ln)
     logits = (x @ decoder.token_embedding.weight.to(x.dtype).t()).float()
     return logits, {**cache, "idx": offset + T_new}

@@ -1,4 +1,4 @@
-"""Hand-written Hopper kernels of the encoder path and their plain versions.
+"""Hand-written Hopper kernels of the request path and their plain versions.
 
 Each module pairs one kernel wrapper with a plain PyTorch version of the
 same function.  The wrapper takes the plain version only for tensors on the
@@ -11,6 +11,10 @@ launches in a plain module-level int.
 * :mod:`.encoder_block` — LN + QKV + masked attention (K4) and
   out-proj + LN + MLP (K5, and K6 at D > 512)
 * :mod:`.flash` — attention on packed (B, T, D) heads (K8)
+* :mod:`.decode_attn` — the decode loop's int8 cross attention (K9) and
+  ``quantize_kv``, behind ``DecodingOptions(kv_int8=True)``
+* :mod:`.decoder_step` — the opt-in fused decoder-layer step (K10), one
+  launch per layer per token; ``set_fused_decoder_step(True)`` turns it on
 """
 
 import torch

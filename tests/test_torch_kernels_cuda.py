@@ -7,7 +7,9 @@ run this file without the JAX-side conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
-Tolerances are chip_smoke.py's: f32 atol 1e-4 (two fp32 summation orders);
+Tolerances are chip_smoke.py's: f32 atol 1e-4 (two fp32 summation orders;
+the int8 attention's output is fp32 whatever q's dtype, so it is held to
+1e-4 in both);
 bf16 twice the plain bf16 version's own distance from the plain version in
 f32 on the same bf16-valued inputs; mel atol 2e-4 (tests/test_ops.py).  The
 rounding probes (chip_smoke.py ``k4_probe``, ``k8_probe``) must come out
@@ -24,7 +26,10 @@ from qasr_ijcnlp_tpu_torch.models.dims import ModelDimensions, tiny_dims
 from qasr_ijcnlp_tpu_torch.models.registry import WhisperModel
 from qasr_ijcnlp_tpu_torch.models import whisper as tmodel
 from qasr_ijcnlp_tpu_torch.models.whisper import init_params
-from qasr_ijcnlp_tpu_torch.ops import conv_stem, encoder_block, flash, melfront
+from qasr_ijcnlp_tpu_torch.models.whisper import ResidualAttentionBlock
+from qasr_ijcnlp_tpu_torch.ops import (
+    conv_stem, decode_attn, decoder_step, encoder_block, flash, melfront,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -238,3 +243,86 @@ def test_rounding_probes_exact(cuda_dev, shape):
     assert torch.equal(encoder_block.fused_attention_ln(x, ln, attn, H, t_real), want)
     q, k, v, want = k8_probe(cuda_dev, H, 128, Tp, t_real)
     assert torch.equal(flash.flash_attention_packed(q, k, v, H, t_real), want)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("G,T_new,H,Ta", [(1, 1, 20, 1500), (1, 4, 20, 1500),
+                                          (1, 1, 6, 1500), (3, 2, 6, 200), (1, 9, 2, 500)],
+                         ids=["large-v3-step", "large-v3-prompt", "tiny-step",
+                              "grouped", "two-passes"])
+def test_int8_cross_attention_kernel(cuda_dev, dtype, G, T_new, H, Ta):
+    """K9 against its plain version; codes and scales past t_real hold
+    garbage, which the kernel must never read."""
+    B, D = 2, H * 64
+    g = torch.Generator(device="cuda").manual_seed(Ta + H + T_new)
+    k, v = (torch.randn(B, Ta, D, generator=g, device="cuda") for _ in range(2))
+    k8, sk = decode_attn.quantize_kv(k, H)
+    v8, sv = decode_attn.quantize_kv(v, H)
+    Tp = k8.shape[2]
+    q = torch.randn(B * G, T_new, D, generator=g, device="cuda").to(dtype)
+    t_real = Ta - 3
+    for codes, scales in ((k8, sk), (v8, sv)):
+        codes[:, :, t_real:] = 127
+        scales[:, :, t_real:] = 1e3
+    before = decode_attn.launches
+    out = decode_attn.int8_cross_attention(q, k8, sk, v8, sv, H, t_real)
+    assert decode_attn.launches == before + 1
+    ref = decode_attn.int8_cross_attention_plain(q, k8, sk, v8, sv, H, t_real)
+    assert out.dtype == torch.float32 and out.shape == (B * G, T_new, D) and Tp >= Ta
+    assert torch.isfinite(out).all()
+    assert float((out - ref).abs().max()) <= 1e-4
+
+
+def _decoder_block(D, seed, device):
+    torch.manual_seed(seed)
+    blk = ResidualAttentionBlock(D, D // 64, cross_attention=True)
+    for name in decoder_step.LN_NAMES:  # LayerNorms other than the identity
+        getattr(blk, name).weight.data.uniform_(0.5, 1.5)
+        getattr(blk, name).bias.data.uniform_(-0.2, 0.2)
+    return blk.to(device).requires_grad_(False)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("D,B,idx", [(384, 16, 5), (384, 64, 66), (512, 8, 0)],
+                         ids=["tiny-B16", "tiny-B64", "base-B8"])
+def test_fused_decoder_layer_kernel(cuda_dev, dtype, D, B, idx):
+    """K10 against its plain version: the layer output and the fresh k/v it
+    writes into the self cache at idx (and nowhere else)."""
+    H, ctx, Ta = D // 64, 80, 1500
+    packed, ln = decoder_step.pack_layer(_decoder_block(D, D + B, cuda_dev), dtype)
+    g = torch.Generator(device="cuda").manual_seed(idx + B)
+    # every input holds values of ``dtype``, so the fp32 plain run below sees
+    # the same inputs
+    x = torch.randn(B, D, generator=g, device="cuda").to(dtype)
+    sk, sv = (torch.randn(B, H, ctx, 64, generator=g, device="cuda").to(dtype)
+              for _ in range(2))
+    ck = (torch.randn(B, H, Ta, 64, generator=g, device="cuda") * 64 ** -0.25).to(dtype)
+    cv = torch.randn(B, H, Ta, 64, generator=g, device="cuda").to(dtype)
+
+    def run(fn, dt):
+        caches = [t.to(dt).clone() for t in (sk, sv)]
+        out = fn(x.to(dt), packed.to(dt), ln, *caches, ck.to(dt), cv.to(dt), idx, H)
+        return out, caches
+
+    before = decoder_step.launches
+    out, caches = run(decoder_step.fused_decoder_layer_step, dtype)
+    assert decoder_step.launches == before + 1
+    ref, ref_caches = run(decoder_step.fused_decoder_layer_step_plain, dtype)
+    ref32, ref32_caches = run(decoder_step.fused_decoder_layer_step_plain, torch.float32)
+    _close(out, ref, lambda: ref32)
+    for c, rc, rc32 in zip(caches, ref_caches, ref32_caches):
+        _close(c[:, :, idx], rc[:, :, idx], lambda: rc32[:, :, idx])
+        keep = torch.arange(ctx, device="cuda") != idx
+        assert torch.equal(c[:, :, keep], rc[:, :, keep])
+
+
+def test_fused_decoder_layer_raises_on_unsupported_input(cuda_dev):
+    packed, ln = decoder_step.pack_layer(_decoder_block(384, 1, cuda_dev), torch.float32)
+    x = torch.randn(12, 384, device="cuda")  # batch not a multiple of 8
+    sk = torch.zeros(12, 6, 16, 64, device="cuda")
+    ck = torch.zeros(12, 6, 100, 64, device="cuda")
+    with pytest.raises(ValueError):
+        decoder_step.fused_decoder_layer_step(x, packed, ln, sk, sk.clone(), ck, ck, 0, 6)
+    with pytest.raises(ValueError):  # idx past the cache
+        decoder_step.fused_decoder_layer_step(x[:8], packed, ln, sk[:8], sk[:8].clone(),
+                                              ck[:8], ck[:8], 16, 6)
