@@ -4,15 +4,16 @@
     python3 chip_smoke.py
 
 Drives the port's request path (qasr_ijcnlp_tpu_torch) at the full width of
-three Whisper sizes, with random weights from a seed and seeded synthetic
-30-s PCM, through its three decode-loop paths (the fp cross cache, the int8
-cross cache of ``kv_int8`` and the opt-in fused step):
+three Whisper sizes and of two head geometries at small's width, with random
+weights from a seed and seeded synthetic 30-s PCM, through its three
+decode-loop paths (the fp cross cache, the int8 cross cache of ``kv_int8``
+and the opt-in fused step):
 
 1. device lines: the card's name and power limit, torch/CUDA versions,
    whether ``regex`` imports;
 2. builds the hand-written kernels from ``qasr_ijcnlp_tpu_torch/csrc`` (one
    nvcc per source, all at once) and prints the commands, the time and the
-   ptxas register/smem lines;
+   ptxas register, smem and spill lines;
 3. **tiny** (4 + 4 layers, D 384): per kernel (K1 mel, K2 stem, K4
    attention, K5 finish) at B=8 (mel (8, 80, 3000), trunk (8, 1536, 384),
    t_real 1500), kernel vs its plain PyTorch version on the card in f32 and
@@ -46,12 +47,27 @@ cross cache of ``kv_int8`` and the opt-in fused step):
    plain bf16 version's own distance from f32 (``compare``).  Two rounding
    probes (medium: K4, large-v3: K8) check in bf16, bit for bit, the one
    rounding point where K4 and K8 differ;
-6. for medium and large-v3, request 0's f32 tokens are checked against the
-   CPU plain path (log-mel, encoder and decoder on the CPU), teacher-forced
-   on the card's tokens: at every step the card's token must be the CPU's
-   argmax or within a stated tie of its top logit; the smallest top-2
-   margin is printed;
-7. prints the whole script's seconds, the per-kernel JSON line (every
+6. **small-h96** (small's 12 + 12 layers and D 768, the encoder in 8 heads
+   of 96, which neither fuse nor pack): K7 (the 4D attention) on (8, 8,
+   1536, 96) head views and on an odd count of 64-wide heads (8, 5, 1536,
+   64), t_real 1500, timed beside SDPA; then a batch of 8 end to end, where
+   K7 must launch exactly 12 times and K4, the finish and K8 never;
+7. **small-h128** (small with 6 heads of 128 in encoder and decoder): K4 at
+   (8, 1536, 768) with heads of 128, K8 at heads of 128 (8, 1536, 1280) and
+   32 (8, 1536, 384), K9 at q (8, 1, 768) over codes (8, 6, 1536, 128);
+   then a batch of 8 end to end (K4 and the finish exactly 12 times each,
+   K7 and K8 never) and again with ``kv_int8`` (K9 exactly 12 x 64 times),
+   as for large-v3;
+8. **K11**, the attention core's diagnostic split (``diagnostics.
+   attn_parts``): its three modes against their plain versions at B=8 in
+   bf16, then the diagnostic's own run at the TPU script's B=512 (no plain
+   version there: its fp32 logits would take 29 GB), counted like a path;
+9. for medium, large-v3 and the small geometries, request 0's f32 tokens
+   are checked against the CPU plain path (log-mel, encoder and decoder on
+   the CPU), teacher-forced on the card's tokens: at every step the card's
+   token must be the CPU's argmax or within a stated tie of its top logit;
+   the smallest top-2 margin is printed;
+10. prints the whole script's seconds, the per-kernel JSON line (every
    ported kernel with its launches, times, error and bound), the card line,
    then ``{"ok": true, "device": ...}`` as the last line.
 
@@ -140,7 +156,7 @@ def build_kernels():
         log("build:", " ".join(cmd))
     log(f"build seconds: {lib.build_seconds:.1f}")
     for line in lib.build_log.splitlines():
-        if "Compiling entry" in line or "Used" in line:
+        if "Compiling entry" in line or "Used" in line or "spill" in line:
             log("  " + line.strip())
     return lib
 
@@ -167,13 +183,16 @@ def bound(flops, nbytes, key):
 
 
 def compare(name, key, kernel_fn, plain_fn, work, tol="f32", plain32_fn=None,
-            library_fn=None, iters=10, warmup=2):
+            library_fn=None, iters=10, warmup=2, peak=None, library_same=True):
     """Kernel vs its plain version on the same inputs; ``work`` is (flops,
-    bytes) of the function at these shapes.  f32 is held to ``TOL[tol]``,
-    bf16 to NOISE_FACTOR times the distance of the plain bf16 version from
+    bytes) of the function at these shapes, its operations counted at the
+    ``peak`` rate (default: ``key``'s).  f32 is held to ``TOL[tol]``, bf16
+    to NOISE_FACTOR times the distance of the plain bf16 version from
     ``plain32_fn`` (the plain version in f32 on the same bf16-valued
     inputs).  A library yardstick must agree with the plain version within
-    the same limit, or its time is not this function's."""
+    the same limit, or its time is not this function's; with
+    ``library_same=False`` it is a labelled near neighbour whose distance is
+    only printed."""
     k = kernel_fn()
     p = plain_fn()
     torch.cuda.synchronize()
@@ -193,13 +212,13 @@ def compare(name, key, kernel_fn, plain_fn, work, tol="f32", plain32_fn=None,
     del k, p
     if err > limit:
         raise AssertionError(f"{name} {key}: error {err} outside tolerance {tol_txt}")
-    if lib_err is not None and lib_err > limit:
+    if library_same and lib_err is not None and lib_err > limit:
         raise AssertionError(f"{name} {key}: the library call is {lib_err} from the "
                              f"plain version, outside {tol_txt}: not the same function")
     ms = cuda_ms(kernel_fn, iters, warmup)
     plain_ms = cuda_ms(plain_fn, iters, warmup)
     lib_ms = cuda_ms(library_fn, iters, warmup) if library_fn is not None else None
-    bound_ms, bound_by = bound(*work, key)
+    bound_ms, bound_by = bound(*work, peak or key)
     log(f"{name} {key}: max_abs_err {err:.3e} (tol {tol_txt}) kernel {ms:.4f} ms "
         f"plain {plain_ms:.4f} ms"
         + (f" library {lib_ms:.4f} ms (its max_abs_err {lib_err:.3e})"
@@ -239,10 +258,10 @@ def packed_work(B, Tq, Tk, D, H, t_real, s):
     return flops, s * (2 * B * Tq * D + 2 * B * Tk * D)
 
 
-def int8_work(B, H, R, t_real):
+def int8_work(B, H, R, t_real, dh=64):
     # codes and scales of the positions < t_real, fp32 q in and out
-    flops = 4 * B * H * R * t_real * 64
-    return flops, 2 * B * H * t_real * (64 + 4) + 8 * B * R * H * 64
+    flops = 4 * B * H * R * t_real * dh
+    return flops, 2 * B * H * t_real * (dh + 4) + 8 * B * R * H * dh
 
 
 def step_work(B, D, t_self, Ta, s):
@@ -443,6 +462,39 @@ def tiny_kernel_phase(model, dev):
     return block_phase(res, ("K2", "K4", "K5"), model.module.encoder, mel, x32, dims, dev)
 
 
+def small_h96_kernel_phase(model, dev):
+    """K7 at small-h96's geometry (8 heads of 96) and at an odd count of
+    64-wide heads (5)."""
+    res = k7_phase({}, "K7", B_KERNEL, model.dims.n_audio_head, 96, dev, SEED + 13)
+    return k7_phase(res, "K7_h5", B_KERNEL, 5, 64, dev, SEED + 14)
+
+
+def small_h128_kernel_phase(model, dev):
+    """K4 at small-h128's geometry (6 heads of 128), K8 at head widths 128
+    (D 1280, 10 heads) and 32 (D 384, 12 heads), K9 at the decoder's 6
+    heads of 128 (B 8, one query row)."""
+    from qasr_ijcnlp_tpu_torch.ops import encoder_block
+
+    rng = np.random.default_rng(SEED + 15)
+    dims, blk = model.dims, model.module.encoder.blocks[0]
+    T, Tp, D, H, _, _ = geometry(dims)
+    x32 = rows(rng, B_KERNEL, Tp, D, T, dev)
+    res = {}
+    for dt, key in dtypes():
+        x = x32.to(dt)
+        res.setdefault("K4_d128", {})[key] = compare(
+            f"K4_d128 attention {H} heads of {D // H}", key,
+            lambda: encoder_block.fused_attention_ln(x, blk.attn_ln, blk.attn, H, T),
+            lambda: encoder_block._plain_attn_ln(x, blk.attn_ln, blk.attn, H, T),
+            attn_work(B_KERNEL, Tp, D, H, T, elem_size(key)),
+            plain32_fn=lambda: encoder_block._plain_attn_ln(
+                x.float(), blk.attn_ln, blk.attn, H, T))
+    packed_phase(res, "K8_d128", B_KERNEL, 1280, 10, dev, SEED + 16)
+    packed_phase(res, "K8_d32", B_KERNEL, 384, 12, dev, SEED + 17)
+    return int8_phase(res, "K9_d128", B_KERNEL, dims.n_text_head, dev, SEED + 18,
+                      dh=dims.n_text_state // dims.n_text_head)
+
+
 def plain_trunk(enc, x, dims, t_real):
     """The encoder trunk through every block's plain version."""
     from qasr_ijcnlp_tpu_torch.ops import encoder_block, layer_norm
@@ -482,9 +534,7 @@ def medium_kernel_phase(model, dev):
 
 
 def large_kernel_phase(model, dev):
-    import torch.nn.functional as F
-
-    from qasr_ijcnlp_tpu_torch.ops import conv_stem, flash, head_scale, melfront
+    from qasr_ijcnlp_tpu_torch.ops import conv_stem, flash, melfront
 
     rng = np.random.default_rng(SEED + 2)
     B, dims = B_KERNEL, model.dims
@@ -492,7 +542,6 @@ def large_kernel_phase(model, dev):
     enc = model.module.encoder
     pcm = randn(rng, (B, Tm * 160), dev, 0.1)
     mel = randn(rng, (B, C0, Tm), dev)
-    q32, k32, v32 = (rows(rng, B, Tp, D, T, dev) for _ in range(3))
     res = {}
 
     padded = melfront.reflect_pad(pcm)
@@ -501,35 +550,21 @@ def large_kernel_phase(model, dev):
         lambda: melfront.clamp_and_scale(melfront.log10_mel(padded, C0)),
         lambda: melfront.clamp_and_scale(melfront._plain_log10_mel(padded, C0)),
         mel_work(B, padded.shape[1], Tm, C0), tol="mel")}
-    keep = (torch.arange(Tp, device=dev) < T)[None]  # (1, Tk), True = attend
     for dt, key in dtypes():
-        s = elem_size(key)
         res.setdefault("stem_1280", {})[key] = compare(
             f"stem D{D} {C0} mels", key,
             lambda: conv_stem.fused_conv_stem(enc, mel, Tp, dt),
             lambda: conv_stem._plain_stem(enc, mel, Tp, dt),
-            stem_work(B, C0, Tm, D, T, Tp, s),
+            stem_work(B, C0, Tm, D, T, Tp, elem_size(key)),
             plain32_fn=lambda: conv_stem._plain_stem(enc, mel, Tp, torch.float32))
-        sc = head_scale(D // H, dt)
-        q, k, v = q32.to(dt) * sc, k32.to(dt) * sc, v32.to(dt)
-        heads = lambda z: z.view(B, Tp, H, D // H).transpose(1, 2)
-        res.setdefault("K8", {})[key] = compare(
-            "K8 packed attention", key,
-            lambda: flash.flash_attention_packed(q, k, v, H, T),
-            lambda: flash._plain_attention_packed(q, k, v, H, T),
-            packed_work(B, Tp, Tp, D, H, T, s),
-            plain32_fn=lambda: flash._plain_attention_packed(
-                q.float(), k.float(), v.float(), H, T),
-            library_fn=lambda: F.scaled_dot_product_attention(
-                heads(q), heads(k), heads(v), attn_mask=keep, scale=1.0).transpose(1, 2))
-        del q, k, v
+    packed_phase(res, "K8", B, D, H, dev, SEED + 19, T, Tp)
     q, k, v, want = k8_probe(dev, H, 128, Tp, T)
     check_probe("K8", flash.flash_attention_packed(q, k, v, H, T), want, T)
     # K9 at the decoder's geometry: a step (one query row) and the prompt (four)
     return int8_phase(res, "K9", B, dims.n_text_head, dev, SEED + 9, row_counts=(1, 4))
 
 
-def int8_phase(res, kid, B, H, dev, seed, row_counts=(1,)):
+def int8_phase(res, kid, B, H, dev, seed, row_counts=(1,), dh=64):
     """K9 against its plain version in f32 (its arithmetic is fp32 whatever
     the compute dtype) for each query row count in ``rows``, recorded under
     ``kid`` (one row, a decode step) and ``kid + "_prompt"`` (four rows).
@@ -541,26 +576,140 @@ def int8_phase(res, kid, B, H, dev, seed, row_counts=(1,)):
     from qasr_ijcnlp_tpu_torch.ops import decode_attn
 
     rng = np.random.default_rng(seed)
-    T, D = 1500, H * 64
+    T, D = 1500, H * dh
     k, v = randn(rng, (B, T, D), dev), randn(rng, (B, T, D), dev)
     k8, sk = decode_attn.quantize_kv(k, H)
     v8, sv = decode_attn.quantize_kv(v, H)
-    heads = lambda z: z.view(B, -1, H, 64).transpose(1, 2)
-    kh, vh = (heads(k) * 64 ** -0.25).contiguous(), heads(v).contiguous()
+    heads = lambda z: z.view(B, -1, H, dh).transpose(1, 2)
+    kh, vh = (heads(k) * dh ** -0.25).contiguous(), heads(v).contiguous()
     for R in row_counts:
         q = randn(rng, (B, R, D), dev)
-        qh = (heads(q) * 64 ** -0.25).contiguous()
+        qh = (heads(q) * dh ** -0.25).contiguous()
         r = compare(
-            f"{kid} int8 cross attention B={B} {H} heads R={R}", "f32",
+            f"{kid} int8 cross attention B={B} {H} heads of {dh} R={R}", "f32",
             lambda: decode_attn.int8_cross_attention(q, k8, sk, v8, sv, H, T),
             lambda: decode_attn.int8_cross_attention_plain(q, k8, sk, v8, sv, H, T),
-            int8_work(B, H, R, T))
+            int8_work(B, H, R, T, dh))
         r["fp_path_sdpa_ms"] = cuda_ms(
             lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=1.0))
         log(f"{kid} R={R}: the fp path's cross-attention (SDPA over the f32 cache of "
             f"{2 * B * T * D * 4 / 1e6:.1f} MB) {r['fp_path_sdpa_ms']:.4f} ms")
         res[kid if R == 1 else f"{kid}_prompt"] = {"f32": r}
     return res
+
+
+def k7_phase(res, kid, B, H, dh, dev, seed, T=1500, Tp=1536):
+    """K7 against its plain version in f32 and bf16 on the (B, H, Tp, dh)
+    head views of (B, Tp, H dh) rows, as the unfused trunk hands them over
+    (scaled by the rounded dh^-0.25, padding rows repeated, t_real T), with
+    SDPA on the same views and key mask as its library yardstick."""
+    import torch.nn.functional as F
+
+    from qasr_ijcnlp_tpu_torch.ops import flash, head_scale
+
+    rng = np.random.default_rng(seed)
+    q32, k32, v32 = (rows(rng, B, Tp, H * dh, T, dev) for _ in range(3))
+    keep = (torch.arange(Tp, device=dev) < T)[None]  # (1, Tk), True = attend
+    heads = lambda z: z.view(B, Tp, H, dh).transpose(1, 2)
+    for dt, key in dtypes():
+        sc = head_scale(dh, dt)
+        q, k, v = heads(q32.to(dt)) * sc, heads(k32.to(dt)) * sc, heads(v32.to(dt))
+        res.setdefault(kid, {})[key] = compare(
+            f"{kid} 4D attention {H} heads of {dh}", key,
+            lambda: flash.flash_attention(q, k, v, T),
+            lambda: flash._plain_attention(q, k, v, T),
+            packed_work(B, Tp, Tp, H * dh, H, T, elem_size(key)),
+            plain32_fn=lambda: flash._plain_attention(q.float(), k.float(), v.float(), T),
+            library_fn=lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep,
+                                                              scale=1.0))
+        del q, k, v
+    return res
+
+
+def packed_phase(res, kid, B, D, H, dev, seed, T=1500, Tp=1536):
+    """K8 against its plain version in f32 and bf16 at D = H dh, with SDPA
+    as its library yardstick (as in ``large_kernel_phase``)."""
+    import torch.nn.functional as F
+
+    from qasr_ijcnlp_tpu_torch.ops import flash, head_scale
+
+    rng = np.random.default_rng(seed)
+    q32, k32, v32 = (rows(rng, B, Tp, D, T, dev) for _ in range(3))
+    keep = (torch.arange(Tp, device=dev) < T)[None]
+    heads = lambda z: z.view(B, Tp, H, D // H).transpose(1, 2)
+    for dt, key in dtypes():
+        sc = head_scale(D // H, dt)
+        q, k, v = q32.to(dt) * sc, k32.to(dt) * sc, v32.to(dt)
+        res.setdefault(kid, {})[key] = compare(
+            f"{kid} packed attention {H} heads of {D // H}", key,
+            lambda: flash.flash_attention_packed(q, k, v, H, T),
+            lambda: flash._plain_attention_packed(q, k, v, H, T),
+            packed_work(B, Tp, Tp, D, H, T, elem_size(key)),
+            plain32_fn=lambda: flash._plain_attention_packed(
+                q.float(), k.float(), v.float(), H, T),
+            library_fn=lambda: F.scaled_dot_product_attention(
+                heads(q), heads(k), heads(v), attn_mask=keep, scale=1.0).transpose(1, 2))
+        del q, k, v
+    return res
+
+
+def attn_parts_phase(res, dev):
+    """K11's three modes against their plain versions at B = 8 (bf16 only,
+    as the TPU script), with SDPA beside ``full`` as a near neighbour: it
+    computes the same attention but does not round the normalised p before
+    PV, so its distance is printed, not held.  ``dots`` and ``softmax``
+    have no library call."""
+    import torch.nn.functional as F
+
+    from qasr_ijcnlp_tpu_torch.diagnostics import attn_parts as ap
+
+    q, k, v = ap.inputs(B_KERNEL, SEED + 11, dev)
+    heads = lambda z: z.view(B_KERNEL, ap.T_PAD, ap.N_HEAD, ap.HEAD_WIDTH).transpose(1, 2)
+    sdpa = lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v),
+                                                  scale=1.0).transpose(1, 2)
+    for mode in ap.MODES:
+        flops, nbytes, peak = ap.work(mode, B_KERNEL, ap.T_PAD, ap.D_MODEL)
+        res[f"K11_{mode}"] = {"bf16": compare(
+            f"K11 {mode} B={B_KERNEL}", "bf16", lambda: ap.attn_parts(q, k, v, mode),
+            lambda: ap.attn_parts_plain(q, k, v, mode), (flops, nbytes),
+            plain32_fn=lambda: ap.attn_parts_plain(q.float(), k.float(), v.float(), mode),
+            library_fn=sdpa if mode == "full" else None, peak=peak, library_same=False)}
+    return res
+
+
+def attn_parts_run(res, dev):
+    """The diagnostic's own run (``diagnostics.attn_parts.measure``) at the
+    TPU script's B = 512, counted as a path: every counter set to 0 just
+    before it.  SDPA on the same inputs is timed beside ``full``."""
+    import torch.nn.functional as F
+
+    from qasr_ijcnlp_tpu_torch.diagnostics import attn_parts as ap
+
+    repeats = 3
+    want = len(ap.MODES) * (repeats + 1)  # each mode: a warm-up and the repeats
+    cs = counters()
+    for mod, attr in cs.values():
+        setattr(mod, attr, 0)
+    times = ap.measure(ap.BATCH, repeats=repeats, seed=SEED + 12, device=dev)
+    torch.cuda.synchronize()
+    launches = {k: getattr(mod, attr) for k, (mod, attr) in cs.items()}
+    log(f"main-path launches (attn_parts B={ap.BATCH}):", json.dumps(launches))
+    if launches["parts"] != want or sum(launches.values()) != want:
+        raise AssertionError(f"attn_parts run: launches {launches}, expected {want} of K11")
+    q, k, v = ap.inputs(ap.BATCH, SEED + 12, dev)
+    heads = lambda z: z.view(ap.BATCH, ap.T_PAD, ap.N_HEAD, ap.HEAD_WIDTH).transpose(1, 2)
+    sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        heads(q), heads(k), heads(v), scale=1.0), iters=3, warmup=1)
+    del q, k, v
+    for mode, r in times.items():
+        entry = res[f"K11_{mode}"]["bf16"]
+        entry.update({"ms_b512": r["ms"], "bound_ms_b512": r["bound_ms"],
+                      "bound_by_b512": r["bound_by"],
+                      "library_ms_b512": sdpa_ms if mode == "full" else None})
+        log(f"K11 {mode} B={ap.BATCH}: {r['ms']:.3f} ms (median of {r['times_ms']}), bound "
+            f"{r['bound_ms']:.3f} ms ({r['bound_by']})"
+            + (f"; SDPA on the same inputs {sdpa_ms:.3f} ms" if mode == "full" else ""))
+    return {f"attn_parts B={ap.BATCH}": launches}
 
 
 def step_phase(res, kid, block_for, B, dev, seed, ctx=80, idx=66, Ta=1500):
@@ -696,6 +845,7 @@ def timed_batches(port, model, pcm, label, smi, repeats=3, kv_int8=False):
 
 
 def counters():
+    from qasr_ijcnlp_tpu_torch.diagnostics import attn_parts
     from qasr_ijcnlp_tpu_torch.ops import (
         conv_stem, decode_attn, decoder_step, encoder_block, flash, melfront,
     )
@@ -703,21 +853,32 @@ def counters():
     return {"mel": (melfront, "launches"), "stem": (conv_stem, "launches"),
             "attn": (encoder_block, "attn_launches"),
             "finish": (encoder_block, "finish_launches"), "packed": (flash, "launches"),
-            "int8": (decode_attn, "launches"), "step": (decoder_step, "launches")}
+            "flash4d": (flash, "launches_4d"), "int8": (decode_attn, "launches"),
+            "step": (decoder_step, "launches"), "parts": (attn_parts, "launches")}
 
 
 # Launches a batch must show: None is "at least once", a number exact.  The
-# fused trunk (tiny to medium) never runs K8; large-v3's unfused trunk runs
-# K8 once per layer and never the fused block.  The fp decode loop runs
-# neither decode kernel; the int8 cache runs K9 once per layer in the prompt
-# pass and in each of the sample_len - 1 steps; the fused step runs K10 once
-# per layer in each step (the prompt pass stays unfused).
+# fused trunk (tiny to medium, small-h128) never runs K8 or K7; large-v3's
+# unfused trunk runs K8 once per layer and never the fused block; small-h96's
+# unfused trunk (heads that do not pack) runs K7 once per layer and nothing
+# else of the encoder's attention.  The fp decode loop runs neither decode
+# kernel; the int8 cache runs K9 once per layer in the prompt pass and in
+# each of the sample_len - 1 steps; the fused step runs K10 once per layer in
+# each step (the prompt pass stays unfused).  No request runs K11.
 FUSED_EXPECT = {"mel": None, "stem": None, "attn": None, "finish": None, "packed": 0,
-                "int8": 0, "step": 0}
+                "flash4d": 0, "int8": 0, "step": 0, "parts": 0}
 
 
 def large_expect(dims):
     return {**FUSED_EXPECT, "attn": 0, "finish": 0, "packed": dims.n_audio_layer}
+
+
+def fused_expect(dims):
+    return {**FUSED_EXPECT, "attn": dims.n_audio_layer, "finish": dims.n_audio_layer}
+
+
+def k7_expect(dims):
+    return {**FUSED_EXPECT, "attn": 0, "finish": 0, "flash4d": dims.n_audio_layer}
 
 
 def int8_expect(expect, dims):
@@ -802,16 +963,17 @@ def token_agreement(a, b):
     return same, sum(len(r.tokens) for r in a)
 
 
-def large_int8_path(port, gpu, cpu, pcm, res_fp, xa, smi):
-    """large-v3 with ``kv_int8``: one counted f32 batch, request 0 against the
-    CPU plain int8 path (its encoder output ``xa`` from the fp check), int8
-    vs fp agreement, then bf16, times and stages."""
+def int8_path(port, gpu, cpu, pcm, res_fp, xa, smi, name, expect):
+    """``name``'s model with ``kv_int8``: one counted f32 batch (``expect``
+    with the int8 launches), request 0 against the CPU plain int8 path (its
+    encoder output ``xa`` from the fp check), int8 vs fp agreement, then
+    bf16, times and stages."""
     from qasr_ijcnlp_tpu_torch.models.whisper import init_kv_cache, precompute_cross_kv
 
     dims, B = gpu.dims, pcm.shape[0]
-    label = "large-v3 int8"
-    res8, launches = counted_run(port, gpu, pcm, int8_expect(large_expect(dims), dims),
-                                 label, kv_int8=True)
+    label = f"{name} int8"
+    res8, launches = counted_run(port, gpu, pcm, int8_expect(expect, dims), label,
+                                 kv_int8=True)
     check_results(res8, B, dims)
     with torch.inference_mode():
         cpu_cache = precompute_cross_kv(
@@ -841,9 +1003,9 @@ def large_int8_path(port, gpu, cpu, pcm, res_fp, xa, smi):
     return launches
 
 
-def family_path(port, dims_name, dims, dev, smi, expect, kernel_phase, int8_path=None):
-    """Kernel phases and end to end for one size; ``int8_path`` drives the
-    same batch with the int8 cross cache."""
+def family_path(port, dims_name, dims, dev, smi, expect, kernel_phase, int8=False):
+    """Kernel phases and end to end for one size; with ``int8`` the same
+    batch runs again with the int8 cross cache."""
     from qasr_ijcnlp_tpu_torch.models.whisper import init_params
 
     t0 = time.perf_counter()
@@ -867,8 +1029,9 @@ def family_path(port, dims_name, dims, dev, smi, expect, kernel_phase, int8_path
     log(f"{dims_name}: request 0 text: {res32[0].text[:120]!r}")
     timed_batches(port, gpu, pcm, dims_name, smi, repeats=2)
     paths = {dims_name: launches}
-    if int8_path is not None:
-        paths[f"{dims_name} int8"] = int8_path(port, gpu, cpu, pcm, res32, xa, smi)
+    if int8:
+        paths[f"{dims_name} int8"] = int8_path(port, gpu, cpu, pcm, res32, xa, smi,
+                                               dims_name, expect)
     del gpu, cpu, sd, res32, res16
     gc.collect()
     torch.cuda.empty_cache()
@@ -995,13 +1158,35 @@ def kernel_table(kres, by_path):
          tpu + "decoder_step.py:137", "step", "tiny fused B=16",
          "base width: x (8, 512), one layer, self 67 of 80, cross 1500"),
     ]
+    table += [
+        ("flash_attention_4d", "K7", src + "flash.cu", tpu + "flash.py:30", "flash4d",
+         "small-h96", "(8, 8, 1536, 96) head views of (8, 1536, 768), t_real 1500"),
+        ("flash_attention_4d_h5", "K7_h5", src + "flash.cu", tpu + "flash.py:30", "flash4d",
+         "small-h96", "(8, 5, 1536, 64) head views, t_real 1500 (not on a driven path)"),
+        ("encoder_attention_d128", "K4_d128", src + "encoder_block.cu",
+         tpu + "encoder_block.py:148", "attn", "small-h128",
+         "(8, 1536, 768), 6 heads of 128, t_real 1500"),
+        ("packed_attention_d128", "K8_d128", src + "flash.cu", tpu + "flash.py:119", "packed",
+         "large-v3", "(8, 1536, 1280), 10 heads of 128 (not on a driven path)"),
+        ("packed_attention_d32", "K8_d32", src + "flash.cu", tpu + "flash.py:119", "packed",
+         "large-v3", "(8, 1536, 384), 12 heads of 32 (not on a driven path)"),
+        ("int8_cross_attention_d128", "K9_d128", src + "decode_attn.cu",
+         tpu + "decode_attn.py:64", "int8", "small-h128 int8",
+         "q (8, 1, 768), codes (8, 6, 1536, 128), t_real 1500"),
+    ]
+    for mode in ("dots", "softmax", "full"):
+        table.append((f"attn_parts_{mode}", f"K11_{mode}", src + "attn_parts.cu",
+                      "scripts/bench_attn_parts.py:37", "parts", "attn_parts B=512",
+                      f"{mode}: bf16 (8, 1536, 384), 6 heads of 64; also timed at B=512"))
     kernels = []
     for name, kid, source, replaces, counter, path, shape in table:
         entry = {"name": name, "tpu_kernel": kid, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": by_path[path][counter], "path": path,
-                 "shape": shape, **kres[kid]["f32"],
+                 "shape": shape,
                  "launches_by_path": {p: c[counter] for p, c in by_path.items()}}
-        if "bf16" in kres[kid]:
+        first = "f32" if "f32" in kres[kid] else "bf16"  # K11 is bf16 only
+        entry.update(kres[kid][first])
+        if first == "f32" and "bf16" in kres[kid]:
             entry.update({f"bf16_{key}": v for key, v in kres[kid]["bf16"].items()})
         kernels.append(entry)
     return kernels
@@ -1012,6 +1197,8 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: torch.cuda.is_available() is False; this "
                          "check runs only on an NVIDIA GPU")
+    from dataclasses import replace
+
     import qasr_ijcnlp_tpu_torch as port
     from qasr_ijcnlp_tpu_torch.models.dims import dims_for, tiny_dims
 
@@ -1029,8 +1216,21 @@ def main():
     mres, mpaths = family_path(port, "medium", medium, dev, smi, FUSED_EXPECT,
                                medium_kernel_phase)
     lres, lpaths = family_path(port, "large-v3", large, dev, smi, large_expect(large),
-                               large_kernel_phase, large_int8_path)
-    for res, paths in ((mres, mpaths), (lres, lpaths)):
+                               large_kernel_phase, int8=True)
+    # == small's width and depth with head geometries off the family ===============
+    # 8 heads of 96 (the trunk runs K7) and 6 of 128 in encoder and decoder
+    # (K4 and K9 at head width 128).
+    h96 = replace(dims_for("small"), n_audio_head=8)
+    h128 = replace(dims_for("small"), n_audio_head=6, n_text_head=6)
+    sres, spaths = family_path(port, "small-h96", h96, dev, smi, k7_expect(h96),
+                               small_h96_kernel_phase)
+    wres, wpaths = family_path(port, "small-h128", h128, dev, smi, fused_expect(h128),
+                               small_h128_kernel_phase, int8=True)
+    with torch.inference_mode():
+        pres = attn_parts_phase({}, dev)
+        ppaths = attn_parts_run(pres, dev)
+    for res, paths in ((mres, mpaths), (lres, lpaths), (sres, spaths), (wres, wpaths),
+                       (pres, ppaths)):
         kres.update(res)
         by_path.update(paths)
 

@@ -39,15 +39,18 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_STRIDES = ctypes.POINTER(ctypes.c_longlong)
 # name -> argtypes of every C entry point (the trailing pointer is the stream).
 _SIGNATURES = {
     "qasr_conv_stem": [_I] + [_P] * 8 + [_I] * 6 + [_P],
     "qasr_attention": [_I] + [_P] * 5 + [_F] + [_P] * 3 + [_I] * 5 + [_P],
     "qasr_finish": [_I] + [_P] * 14 + [_I] * 3 + [_P],
     "qasr_packed_attention": [_I] + [_P] * 4 + [_I] * 6 + [_P],
+    "qasr_flash_attention": [_I] + [_P] * 4 + [_I] * 6 + [_STRIDES, _P],
     "qasr_log_mel": [_P] * 6 + [_I] * 4 + [_P],
-    "qasr_int8_cross_attention": [_I] + [_P] * 6 + [_I] * 6 + [_P],
+    "qasr_int8_cross_attention": [_I] + [_P] * 6 + [_I] * 7 + [_F, _P],
     "qasr_decoder_layer_step": [_I] + [_P] * 9 + [_I] * 6 + [_P],
+    "qasr_attn_parts": [_I] + [_P] * 4 + [_I] * 3 + [_P],
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -154,16 +157,18 @@ def library() -> KernelLibrary:
         return _LIBRARY
 
 
-def check_cuda(name: str, *tensors: torch.Tensor, dtype=None) -> None:
-    """Raise unless every tensor is a contiguous CUDA tensor on the first
-    tensor's device (and of ``dtype`` when given)."""
+def check_cuda(name: str, *tensors: torch.Tensor, dtype=None,
+               contiguous: bool = True) -> None:
+    """Raise unless every tensor is a CUDA tensor on the first tensor's
+    device, contiguous (or, with ``contiguous=False``, with unit stride in
+    its last dim) and of ``dtype`` when given."""
     device = tensors[0].device
     for t in tensors:
         if not t.is_cuda or t.device != device:
             raise ValueError(
                 f"{name}: expected CUDA tensors on {device}, got {t.device}"
             )
-        if not t.is_contiguous():
+        if not (t.is_contiguous() if contiguous else t.stride(-1) == 1):
             raise ValueError(f"{name}: expected contiguous tensors")
         if dtype is not None and t.dtype != dtype:
             raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")

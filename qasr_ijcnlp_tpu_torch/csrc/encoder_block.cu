@@ -5,10 +5,11 @@
 // bias) -> softmax(QK^T + mask for keys >= t_real) V.  Three launches: LN,
 // one QKV GEMM against the concatenated (3D, D) weight, and the online-softmax
 // attention core of attention.cuh (shared with K8), which never writes the
-// (T, T) logits.  Bound on the H100: the attention core, 4 * B * H * t_real *
-// Tp * 64 FLOP on SIMT FMAs fed from shared memory; keys past t_real are
-// skipped whole (their weight is exactly 0), which saves the 36 padded keys
-// of every 1536-row tile.
+// (T, T) logits, at any head width dh = D / n_head up to 256 (the JAX gate
+// sends heads of 64 and 128 here).  Bound on the H100: the attention core,
+// 4 * B * H * t_real * Tp * dh FLOP on SIMT FMAs fed from shared memory;
+// keys past t_real are skipped whole (their weight is exactly 0), which
+// saves the 36 padded keys of every 1536-row tile.
 //
 // qasr_finish replaces `_finish_kernel` (K5, D <= 512) and
 // `_finish_kernel_ftiled` (K6, D > 512): x + attn Wo + bo -> LN -> fc ->
@@ -50,9 +51,11 @@ int run_attention(const T* x, const float* g, const float* beta, const T* wqkv,
   QASR_TRY(launch_gemm(M, 3 * D, D, 1, RowMajor<T>{h, D}, WeightNK<T>{wqkv, D},
                        QkvEp<T>{bqkv, qkv, D, scale}, s));
   // q, k and v are the three D-wide column segments of each qkv row.
-  const int ld = 3 * D;
-  QASR_TRY((launch_attn_core<T, 1>(qkv, ld, qkv + D, ld, qkv + 2 * D, ld, out, D, B, Tp, Tp,
-                                   n_head, t_real, s)));
+  const int dh = D / n_head;
+  const Strides in = packed_strides(Tp, 3 * D, dh);
+  const AttnArgs<T> a{qkv, qkv + D, qkv + 2 * D, out, in, in, in,
+                      packed_strides(Tp, D, dh), Tp, Tp, t_real, dh};
+  QASR_TRY((launch_attn_core<T, 1>(a, B, n_head, s)));
   return 0;
 }
 

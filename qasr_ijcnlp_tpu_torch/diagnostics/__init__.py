@@ -1,0 +1,6 @@
+"""One-off diagnostics of the port's kernels on the card, each a module run
+with ``python3 -m``:
+
+* :mod:`.attn_parts` — the attention core's cost split into its products
+  and its softmax (K11)
+"""

@@ -15,8 +15,10 @@ The encoder takes the reference's kernel dispatch (its flash-enabled form):
 the conv stem kernel emits the trunk input at the tile-padded length
 Tp = round_up(n_audio_ctx, 128) (1536 for 1500 frames).  Up to D = 1024
 (tiny to medium) every block then runs as the attention + finish kernels
-(``_trunk_uses_fused_blocks``); above it (large-v3) the block is plain
-PyTorch around the packed attention kernel (K8) of ``attention``.  Keys
+(``_trunk_uses_fused_blocks``); otherwise (large-v3, and head geometries
+the fused block does not take) the block is plain PyTorch around the
+attention kernel of ``attention``: K8 where the heads pack, K7 where they
+do not.  Keys
 >= n_audio_ctx are masked throughout, and the padded rows are sliced off
 before ``ln_post``.  On CPU tensors the same ops run their plain versions.
 The decoder is plain PyTorch (``torch.matmul``), as the JAX package left it
@@ -40,7 +42,7 @@ from ..ops import gelu, head_scale, layer_norm, linear, round_up
 from ..ops.conv_stem import fused_conv_stem
 from ..ops.decode_attn import LANE, int8_cross_attention, quantize_kv
 from ..ops.encoder_block import fused_block_applicable, fused_encoder_block
-from ..ops.flash import flash_attention_packed, packed_applicable
+from ..ops.flash import flash_attention, flash_attention_packed, packed_applicable
 from .dims import ModelDimensions
 
 
@@ -227,23 +229,23 @@ def attention(q, k, v, n_head: int, mask=None, t_real: Optional[int] = None):
     q: (B, Tq, D), k/v: (B, Tk, D); ``mask`` additive, broadcastable to
     (B, H, Tq, Tk); keys >= ``t_real`` never receive weight.
 
-    Long unmasked queries (the encoder's) take the packed attention kernel
-    (K8) where the heads pack, as the reference's flash path does; short
-    ones (decoder prompts and steps) stay plain.  A long query whose heads
-    do not pack is the 4D kernel's (K7) case, not ported: it raises on CUDA
-    tensors and runs plain on the CPU, as the reference does with its
-    kernels off."""
+    Long unmasked queries (the encoder's) take the reference's flash path:
+    the packed attention kernel (K8) where the heads pack into its 128-lane
+    groups, else the 4D kernel (K7) on the split, scaled heads (strided
+    views, no copy; the heads merge again by a free reshape), in the
+    reference's order: split, scale, attend, merge.  The reference feeds K7
+    an unpadded trunk; the port's trunk is padded, so K7 masks the keys >=
+    ``t_real`` (its TPU body's own mask), which gives the same rows.  Short
+    queries (decoder prompts and steps) stay plain.  Every head width up to
+    ``ops.MAX_HEAD_WIDTH`` runs on the card; on CPU tensors both kernels run
+    their plain versions."""
     if mask is None and q.shape[1] >= 512:
+        tr = t_real if t_real is not None else k.shape[1]
         if packed_applicable(n_head, q.shape[-1]):
             scale = head_scale(q.shape[-1] // n_head, q.dtype)
-            tr = t_real if t_real is not None else k.shape[1]
             return flash_attention_packed(q * scale, k * scale, v, n_head, tr)
-        if q.is_cuda:
-            raise NotImplementedError(
-                f"attention over {n_head} heads of width {q.shape[-1] // n_head} "
-                "needs the 4D flash kernel, which is not ported yet: "
-                "ROADMAP.md queue 2, K7"
-            )
+        return _merge_heads(flash_attention(scaled_heads(q, n_head), scaled_heads(k, n_head),
+                                            _split_heads(v, n_head), tr))
     if t_real is not None and t_real != k.shape[1]:
         keep = torch.arange(k.shape[1], device=k.device) < t_real
         pad = torch.zeros(k.shape[1], device=k.device).masked_fill(~keep, float("-inf"))

@@ -10,7 +10,8 @@ launches in a plain module-level int.
 * :mod:`.conv_stem` — two-conv encoder stem (K2, and K3 at 512 < D <= 1024)
 * :mod:`.encoder_block` — LN + QKV + masked attention (K4) and
   out-proj + LN + MLP (K5, and K6 at D > 512)
-* :mod:`.flash` — attention on packed (B, T, D) heads (K8)
+* :mod:`.flash` — attention on packed (B, T, D) heads (K8) and on
+  (B, H, T, dh) heads that do not pack (K7)
 * :mod:`.decode_attn` — the decode loop's int8 cross attention (K9) and
   ``quantize_kv``, behind ``DecodingOptions(kv_int8=True)``
 * :mod:`.decoder_step` — the opt-in fused decoder-layer step (K10), one
@@ -20,10 +21,23 @@ launches in a plain module-level int.
 import torch
 import torch.nn.functional as F
 
+# The widest head the attention kernels take (csrc/attention.cuh for K4, K7
+# and K8, csrc/decode_attn.cu for K9).
+MAX_HEAD_WIDTH = 256
+
 
 def round_up(x: int, m: int) -> int:
     """Smallest multiple of ``m`` that is >= ``x`` (kernel tile padding)."""
     return (x + m - 1) // m * m
+
+
+def kernel_head_width(name: str, d_model: int, n_head: int) -> int:
+    """``d_model // n_head``; raise where the heads do not split ``d_model``
+    evenly or are wider than the attention kernels take."""
+    if n_head < 1 or d_model % n_head or d_model // n_head > MAX_HEAD_WIDTH:
+        raise ValueError(f"{name}: {n_head} heads over D={d_model} are not equal heads "
+                         f"of width <= {MAX_HEAD_WIDTH}")
+    return d_model // n_head
 
 
 def head_scale(d_head: int, dtype) -> float:

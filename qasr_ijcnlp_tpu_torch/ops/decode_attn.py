@@ -12,15 +12,17 @@ so only int8 bytes of the cache stream through the step.  The output is
 fp32 whatever the compute dtype; the caller casts it to the activation
 dtype, as the reference does.
 
-Layout on the card: codes (B, H, Tp, Dh) int8, one audio position's 64
-codes in one 64-byte row, and scales (B, H, Tp) fp32, with Tp =
+Layout on the card: codes (B, H, Tp, Dh) int8, one audio position's Dh
+codes in one Dh-byte row, and scales (B, H, Tp) fp32, with Tp =
 round_up(Ta, 128) and the padding positions' codes and scales 0.  (The
 TPU's (B, H, Dh, Tp) "T-on-lanes" layout existed for its int8 (32, 128)
 tile; the tests compare codes and scales after a transpose.)
 
 On the H100 (``csrc/decode_attn.cu``) one block serves one (batch item,
 head) and all of its G x T_new query rows, so each code is read from
-device memory once per step whatever the group size.  The kernel is bound
+device memory once per step whatever the group size.  Like the reference's
+kernel it takes any head width, up to ``MAX_HEAD_WIDTH``: 16-byte loads
+where Dh is a multiple of 16, single bytes otherwise.  The kernel is bound
 by those bytes: at large-v3, B = 8, one layer's step reads 31.5 MB of codes
 and 2.0 MB of scales.  No single PyTorch call attends over int8 codes with
 per-position scales, so the kernel has no library twin.
@@ -31,10 +33,9 @@ from __future__ import annotations
 import torch
 
 from .. import _kernels
-from . import round_up
+from . import MAX_HEAD_WIDTH, round_up
 
 LANE = 128  # audio positions are padded to a multiple of this
-DH = 64     # the kernel's head width (every Whisper size)
 
 launches = 0
 
@@ -102,12 +103,14 @@ def int8_cross_attention(q, k8, sk, v8, sv, n_head: int, t_real: int):
         raise ValueError(f"int8_cross_attention: expected (B, H, Tp, Dh) codes, "
                          f"got {tuple(k8.shape)}")
     B, H, Tp, Dh = k8.shape
-    if (H != n_head or Dh != DH or D != H * DH or BG % B or v8.shape != k8.shape
+    if (H != n_head or D != H * Dh or BG % B or v8.shape != k8.shape
             or sk.shape != (B, H, Tp) or sv.shape != sk.shape):
         raise ValueError(
             f"int8_cross_attention: q {tuple(q.shape)}, codes {tuple(k8.shape)} / "
             f"{tuple(v8.shape)}, scales {tuple(sk.shape)} / {tuple(sv.shape)} do "
-            f"not fit {n_head} heads of width {DH}")
+            f"not fit {n_head} heads")
+    if Dh > MAX_HEAD_WIDTH:
+        raise ValueError(f"int8_cross_attention: head width {Dh} > {MAX_HEAD_WIDTH}")
     if not 1 <= t_real <= Tp:
         raise ValueError(f"int8_cross_attention: t_real={t_real} outside [1, {Tp}]")
     q = q.contiguous()
@@ -122,7 +125,7 @@ def int8_cross_attention(q, k8, sk, v8, sv, n_head: int, t_real: int):
     _kernels.library().call(
         "qasr_int8_cross_attention", q.device, _kernels.DTYPE_CODES[q.dtype],
         q.data_ptr(), k8.data_ptr(), sk.data_ptr(), v8.data_ptr(), sv.data_ptr(),
-        out.data_ptr(), B, BG // B, T_new, H, Tp, t_real,
+        out.data_ptr(), B, BG // B, T_new, H, Tp, Dh, t_real, float(Dh) ** -0.5,
     )
     launches += 1
     return out

@@ -18,7 +18,9 @@ memory (201 MB in f32 at medium, B = 8); keeping t on chip is later work.
 
 On the H100 (``csrc/encoder_block.cu``) the attention is an online-softmax
 kernel per (64-query tile, head, batch item) that never writes the (T, T)
-logits and skips key tiles past ``t_real``; the projections and the MLP are
+logits and skips key tiles past ``t_real``, at any head width up to
+``MAX_HEAD_WIDTH`` (the JAX gate sends heads of 64 and 128 here, and the
+kernel runs both); the projections and the MLP are
 SIMT fp32-accumulating GEMMs with fused epilogues.  Both halves are bound by
 FMA throughput on the CUDA cores until the GEMMs move to wgmma.
 
@@ -34,9 +36,7 @@ from typing import Optional
 import torch
 
 from .. import _kernels
-from . import gelu, head_scale, layer_norm, linear
-
-DH = 64  # the CUDA attention kernel's head width (every Whisper size)
+from . import gelu, head_scale, kernel_head_width, layer_norm, linear
 
 attn_launches = 0
 finish_launches = 0
@@ -92,10 +92,7 @@ def _check_block_input(name, x, n_head, t_real):
     if x.dim() != 3 or x.dtype not in _kernels.DTYPE_CODES:
         raise ValueError(f"{name}: expected (B, Tp, D) float32/bfloat16, got "
                          f"{tuple(x.shape)} {x.dtype}")
-    D = x.shape[-1]
-    if D % n_head or D // n_head != DH:
-        raise ValueError(f"{name}: the kernel needs head width {DH}, got "
-                         f"D={D}, n_head={n_head}")
+    kernel_head_width(name, x.shape[-1], n_head)
     if not 1 <= t_real <= x.shape[1]:
         raise ValueError(f"{name}: t_real={t_real} outside [1, {x.shape[1]}]")
 

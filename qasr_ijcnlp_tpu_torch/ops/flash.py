@@ -1,31 +1,41 @@
-"""Attention on packed (B, T, D) heads (K8).
+"""Encoder attention outside the fused block: packed (B, T, D) heads (K8)
+and (B, H, T, dh) heads (K7).
 
-Replaces ``qasr_ijcnlp_tpu/ops/flash.py`` ``_packed_kernel``: softmax(q k^T)
-v per 64-wide head, read straight from the model's (B, T, D) tensors with
-the heads packed along D, keys at positions >= ``t_real`` masked, q and k
-pre-scaled by the caller.  The encoder's unfused trunk (large-v3, D = 1280)
-runs it in every layer.
+Replaces, in ``qasr_ijcnlp_tpu/ops/flash.py``, ``_packed_kernel``
+(softmax(q k^T) v per head, read straight from the model's (B, T, D)
+tensors with the heads packed along D; the encoder's unfused trunk runs it
+in every layer where the heads pack, as at large-v3) and ``_attn_kernel``
+behind ``flash_attention`` (the same on (B, H, T, dh) heads; the trunk runs
+it in every layer whose heads do not pack into the TPU's 128-lane groups,
+``packed_applicable`` false: an odd count of 64-wide heads, or a width that
+does not divide 128).  In both, keys at positions >= ``t_real`` are masked
+and q and k arrive pre-scaled by the caller.
 
-On the H100 (``csrc/flash.cu``) it is the online-softmax attention core that
-K4 also uses (``csrc/attention.cuh``), launched on separate q, k and v
-pointers: no transpose, no padding copy, no (Tq, Tk) logits in device
-memory.  It is bound by FMA throughput on the CUDA cores (no tensor cores
-yet).  Its numerics follow the TPU kernel: the softmax denominator sums the
-unrounded fp32 p, and p is rounded to the compute dtype only for the PV
-product.
-
-The 4D ``flash_attention`` (K7), for head geometries that cannot be packed,
-is not ported: ROADMAP.md queue 2, K7.
+On the H100 (``csrc/flash.cu``) both are the online-softmax attention core
+that K4 also uses (``csrc/attention.cuh``), at any head width up to
+``MAX_HEAD_WIDTH``: no transpose, no padding copy, no (Tq, Tk) logits in
+device memory.  On Hopper "packed" or "head-major" is only a choice of
+strides, so K7 takes its (B, H, T, dh) operands as they come, including the
+strided head views of (B, T, D) projections that ``models.whisper.
+attention`` hands it, and writes its output where merging the heads again
+is a free reshape.  Both are bound by FMA throughput on the CUDA cores (no
+tensor cores yet).  Their numerics follow the TPU kernels: the softmax
+denominator sums the unrounded fp32 p, and p is rounded to the compute
+dtype only for the PV product.
 """
 
 from __future__ import annotations
 
+import ctypes
+from typing import Optional
+
 import torch
 
 from .. import _kernels
-from .encoder_block import DH
+from . import MAX_HEAD_WIDTH, kernel_head_width
 
-launches = 0
+launches = 0      # K8
+launches_4d = 0   # K7
 
 
 def packed_applicable(n_head: int, d_model: int) -> bool:
@@ -42,12 +52,8 @@ def _plain_attention_packed(q, k, v, n_head: int, t_real: int):
     B, Tq, D = q.shape
     dh = D // n_head
     split = lambda x: x.reshape(B, x.shape[1], n_head, dh).transpose(1, 2)
-    logits = (split(q) @ split(k).transpose(-1, -2)).float()
-    if t_real != k.shape[1]:
-        keep = torch.arange(k.shape[1], device=k.device) < t_real
-        logits = logits.masked_fill(~keep, float("-inf"))
-    w = torch.softmax(logits, dim=-1).to(q.dtype)
-    return (w @ split(v)).transpose(1, 2).reshape(B, Tq, D)
+    return _plain_attention(split(q), split(k), split(v), t_real).transpose(1, 2).reshape(
+        B, Tq, D)
 
 
 def flash_attention_packed(q, k, v, n_head: int, t_real: int):
@@ -65,9 +71,7 @@ def flash_attention_packed(q, k, v, n_head: int, t_real: int):
     if k.shape != v.shape or k.shape[0] != B or k.shape[2] != D:
         raise ValueError(f"flash_attention_packed: k {tuple(k.shape)} and v "
                          f"{tuple(v.shape)} do not match q {tuple(q.shape)}")
-    if D != n_head * DH:
-        raise ValueError(f"flash_attention_packed: the kernel needs head width "
-                         f"{DH}, got D={D}, n_head={n_head}")
+    kernel_head_width("flash_attention_packed", D, n_head)
     if t_real < 1:
         raise ValueError(f"flash_attention_packed: t_real={t_real} < 1")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
@@ -79,4 +83,50 @@ def flash_attention_packed(q, k, v, n_head: int, t_real: int):
         B, Tq, k.shape[1], D, n_head, t_real,
     )
     launches += 1
+    return out
+
+
+def _plain_attention(q, k, v, t_real: int):
+    """Plain PyTorch version of K7 (the reference's ``_xla_attention`` with
+    the kernel body's key mask): (B, H, Tq, dh) -> (B, H, Tq, dh); fp32
+    logits and softmax, weights rounded to the input dtype before PV."""
+    logits = (q @ k.transpose(-1, -2)).float()
+    if t_real != k.shape[2]:
+        keep = torch.arange(k.shape[2], device=k.device) < t_real
+        logits = logits.masked_fill(~keep, float("-inf"))
+    return torch.softmax(logits, dim=-1).to(q.dtype) @ v
+
+
+def flash_attention(q, k, v, t_real: Optional[int] = None):
+    """q (B, H, Tq, dh), k and v (B, H, Tk, dh), pre-scaled -> (B, H, Tq, dh)
+    in q's dtype.  Keys at positions >= ``t_real`` (default Tk) get no
+    weight.  On the card the operands may be any strided views with unit
+    column stride; the output is a (B, H, Tq, dh) view of a (B, Tq, H, dh)
+    tensor, so ``_merge_heads`` of it copies nothing."""
+    t_real = k.shape[2] if t_real is None else min(t_real, k.shape[2])
+    if not q.is_cuda:
+        return _plain_attention(q, k, v, t_real)
+    global launches_4d
+    dt = q.dtype
+    if q.dim() != 4 or dt not in _kernels.DTYPE_CODES:
+        raise ValueError(f"flash_attention: expected (B, H, T, dh) float32/bfloat16 "
+                         f"q, got {tuple(q.shape)} {dt}")
+    B, H, Tq, dh = q.shape
+    if k.shape != v.shape or k.shape[:2] != (B, H) or k.shape[3] != dh:
+        raise ValueError(f"flash_attention: k {tuple(k.shape)} and v {tuple(v.shape)} "
+                         f"do not match q {tuple(q.shape)}")
+    if dh > MAX_HEAD_WIDTH:
+        raise ValueError(f"flash_attention: head width {dh} > {MAX_HEAD_WIDTH}")
+    if t_real < 1:
+        raise ValueError(f"flash_attention: t_real={t_real} < 1")
+    q, k, v = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v))
+    out = q.new_empty(B, Tq, H, dh).transpose(1, 2)
+    _kernels.check_cuda("flash_attention", q, k, v, out, dtype=dt, contiguous=False)
+    strides = (ctypes.c_longlong * 12)(*(s for x in (q, k, v, out) for s in x.stride()[:3]))
+    _kernels.library().call(
+        "qasr_flash_attention", q.device, _kernels.DTYPE_CODES[dt],
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        B, H, Tq, k.shape[2], dh, t_real, strides,
+    )
+    launches_4d += 1
     return out

@@ -66,6 +66,26 @@ def test_int8_cross_attention_plain_matches_jax_kernel(G, T_new):
     np.testing.assert_allclose(ours.numpy(), ref, atol=2e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("Dh", [128, 40])
+def test_int8_cross_attention_wide_heads_match_jax_kernel(Dh):
+    """Head widths other than 64: 128 (16-byte code loads on the card) and
+    40 (not a multiple of 16: single-byte loads), one step and a prompt."""
+    rng = np.random.default_rng(Dh)
+    B, H, Ta = 2, 2, 200
+    D = H * Dh
+    k = jnp.asarray(rng.standard_normal((B, Ta, D)), jnp.float32)
+    v = jnp.asarray(rng.standard_normal((B, Ta, D)), jnp.float32)
+    k8, sk = jattn.quantize_kv(k, H)
+    v8, sv = jattn.quantize_kv(v, H)
+    for T_new in (1, 4):
+        q = rng.standard_normal((B, T_new, D)).astype(np.float32)
+        ref = np.asarray(jattn.int8_cross_attention(jnp.asarray(q), k8, sk, v8, sv, H, Ta))
+        ours = decode_attn.int8_cross_attention(
+            torch.from_numpy(q), *_port_layout(k8, sk), *_port_layout(v8, sv), H, Ta)
+        assert ours.shape == (B, T_new, D)
+        np.testing.assert_allclose(ours.numpy(), ref, atol=2e-5, rtol=1e-5)
+
+
 @pytest.fixture(scope="module")
 def models():
     params = jax_params(4)

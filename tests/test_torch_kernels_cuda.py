@@ -27,8 +27,9 @@ from qasr_ijcnlp_tpu_torch.models.registry import WhisperModel
 from qasr_ijcnlp_tpu_torch.models import whisper as tmodel
 from qasr_ijcnlp_tpu_torch.models.whisper import init_params
 from qasr_ijcnlp_tpu_torch.models.whisper import ResidualAttentionBlock
+from qasr_ijcnlp_tpu_torch.diagnostics import attn_parts
 from qasr_ijcnlp_tpu_torch.ops import (
-    conv_stem, decode_attn, decoder_step, encoder_block, flash, melfront,
+    conv_stem, decode_attn, decoder_step, encoder_block, flash, head_scale, melfront,
 )
 
 pytestmark = pytest.mark.cuda
@@ -224,10 +225,92 @@ def test_packed_attention_ignores_padding_values(cuda_dev):
 
 
 def test_unpackable_long_attention_raises_on_card(cuda_dev):
-    """Three 64-wide heads with 512 queries are the 4D kernel's (K7) case."""
-    x = torch.randn(1, 512, 192, device="cuda")
-    with pytest.raises(NotImplementedError, match="K7"):
-        tmodel.attention(x, x, x, 3)
+    """A head wider than any kernel takes (one of 320) raises on the card;
+    three 64-wide heads with 512 queries run K7."""
+    x = torch.randn(1, 512, 320, device="cuda")
+    with pytest.raises(ValueError, match="head width"):
+        tmodel.attention(x, x, x, 1)
+    x = x[..., :192].contiguous()
+    before = flash.launches_4d
+    out = tmodel.attention(x, x, x, 3)
+    assert flash.launches_4d == before + 1 and out.shape == x.shape
+
+
+def _heads_of_rows(B, T, H, dh, g, dtype, scale=1.0):
+    """(B, H, T, dh) head views of a (B, T, H dh) tensor, as the unfused
+    trunk hands them to K7 (unit column stride, not contiguous)."""
+    x = torch.randn(B, T, H * dh, generator=g, device="cuda") * scale
+    return x.to(dtype).view(B, T, H, dh).transpose(1, 2)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("H,dh", [(5, 64), (8, 96), (6, 128), (2, 256), (3, 40)],
+                         ids=["odd-64", "dh96", "dh128", "dh256", "dh40"])
+@pytest.mark.parametrize("layout", ["rows", "contiguous"])
+def test_flash_attention_4d_kernel(cuda_dev, dtype, H, dh, layout):
+    """K7 against its plain version at the head widths it serves, on the
+    trunk's strided head views and on contiguous (B, H, T, dh) tensors;
+    keys >= t_real hold garbage it must never read."""
+    g = torch.Generator(device="cuda").manual_seed(H * dh)
+    q, k, v = (_heads_of_rows(2, 640, H, dh, g, dtype, s) for s in (0.3, 0.3, 1.0))
+    if layout == "contiguous":
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    t_real = 520
+    ref_inputs = [t.clone() for t in (q, k, v)]
+    k[:, :, t_real:], v[:, :, t_real:] = float("inf"), float("nan")
+    before = flash.launches_4d
+    out = flash.flash_attention(q, k, v, t_real)
+    assert flash.launches_4d == before + 1
+    plain = lambda *qkv: flash._plain_attention(*qkv, t_real)
+    _close(out, plain(*ref_inputs), lambda: plain(*(t.float() for t in ref_inputs)))
+    # the output merges its heads with no copy
+    assert tmodel._merge_heads(out).is_contiguous()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_attention_kernel_dh128(cuda_dev, dtype):
+    """K4 at head width 128 (D 768, six heads), which the JAX gate admits."""
+    torch.manual_seed(3)
+    blk = ResidualAttentionBlock(768, 6).to(cuda_dev).requires_grad_(False)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(2, 1536, 768, generator=g, device="cuda")
+    x[:, 1500:] = x[:, 1500:1501]
+    x = x.to(dtype)
+    before = encoder_block.attn_launches
+    k = encoder_block.fused_attention_ln(x, blk.attn_ln, blk.attn, 6, 1500)
+    assert encoder_block.attn_launches == before + 1
+    plain = lambda x: encoder_block._plain_attn_ln(x, blk.attn_ln, blk.attn, 6, 1500)
+    _close(k, plain(x), lambda: plain(x.float()))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("D,H", [(1280, 10), (384, 12), (256, 16)],
+                         ids=["dh128", "dh32", "dh16"])
+def test_packed_attention_kernel_head_widths(cuda_dev, dtype, D, H):
+    """K8 at head widths other than 64 that ``packed_applicable`` admits."""
+    assert flash.packed_applicable(H, D)
+    g = torch.Generator(device="cuda").manual_seed(D + H)
+    q, k, v = (torch.randn(2, 1536, D, generator=g, device="cuda") for _ in range(3))
+    k[:, 1500:], v[:, 1500:] = k[:, -1:], v[:, -1:]
+    sc = head_scale(D // H, dtype)
+    q, k, v = q.to(dtype) * sc, k.to(dtype) * sc, v.to(dtype)
+    before = flash.launches
+    out = flash.flash_attention_packed(q, k, v, H, 1500)
+    assert flash.launches == before + 1
+    plain = lambda *qkv: flash._plain_attention_packed(*qkv, H, 1500)
+    _close(out, plain(q, k, v), lambda: plain(q.float(), k.float(), v.float()))
+
+
+@pytest.mark.parametrize("mode", attn_parts.MODES)
+def test_attn_parts_kernel(cuda_dev, mode):
+    """K11's modes against their plain versions at B = 8 (bf16 only, as the
+    TPU script)."""
+    q, k, v = attn_parts.inputs(8, 0, cuda_dev)
+    before = attn_parts.launches
+    out = attn_parts.attn_parts(q, k, v, mode)
+    assert attn_parts.launches == before + 1
+    _close(out, attn_parts.attn_parts_plain(q, k, v, mode),
+           lambda: attn_parts.attn_parts_plain(q.float(), k.float(), v.float(), mode))
 
 
 @pytest.mark.parametrize("shape", [(128, 2, 512, 500), (1024, 16, 1536, 1500),
@@ -246,14 +329,18 @@ def test_rounding_probes_exact(cuda_dev, shape):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("G,T_new,H,Ta", [(1, 1, 20, 1500), (1, 4, 20, 1500),
-                                          (1, 1, 6, 1500), (3, 2, 6, 200), (1, 9, 2, 500)],
+@pytest.mark.parametrize("G,T_new,H,Ta,Dh", [(1, 1, 20, 1500, 64), (1, 4, 20, 1500, 64),
+                                             (1, 1, 6, 1500, 64), (3, 2, 6, 200, 64),
+                                             (1, 9, 2, 500, 64), (1, 1, 6, 1500, 128),
+                                             (1, 4, 6, 1500, 128), (3, 3, 2, 300, 256),
+                                             (1, 4, 3, 300, 40)],
                          ids=["large-v3-step", "large-v3-prompt", "tiny-step",
-                              "grouped", "two-passes"])
-def test_int8_cross_attention_kernel(cuda_dev, dtype, G, T_new, H, Ta):
+                              "grouped", "two-passes", "dh128-step", "dh128-prompt",
+                              "dh256-grouped", "dh40-bytes"])
+def test_int8_cross_attention_kernel(cuda_dev, dtype, G, T_new, H, Ta, Dh):
     """K9 against its plain version; codes and scales past t_real hold
     garbage, which the kernel must never read."""
-    B, D = 2, H * 64
+    B, D = 2, H * Dh
     g = torch.Generator(device="cuda").manual_seed(Ta + H + T_new)
     k, v = (torch.randn(B, Ta, D, generator=g, device="cuda") for _ in range(2))
     k8, sk = decode_attn.quantize_kv(k, H)
