@@ -7,7 +7,7 @@ Drives the port's request path (qasr_ijcnlp_tpu_torch) at the full width of
 three Whisper sizes and of two head geometries at small's width, with random
 weights from a seed and seeded synthetic 30-s PCM, through its three
 decode-loop paths (the fp cross cache, the int8 cross cache of ``kv_int8``
-and the opt-in fused step):
+and the opt-in fused step) and its grouped decodes (beam search, best-of):
 
 1. device lines: the card's name and power limit, torch/CUDA versions,
    whether ``regex`` imports;
@@ -27,7 +27,11 @@ and the opt-in fused step):
    4 x 64 times), and the fused step (``set_fused_decoder_step(True)``) at
    B=16 and B=64 (K10 exactly 4 x 63 times per batch, requests 0 and 1
    teacher-forced against the CPU plain path within K10's f32 parity
-   tolerance, times and stages in f32 and bf16);
+   tolerance, times and stages in f32 and bf16); then, with the fused step
+   still switched on, beam_size 5 (and patience 2.0) at B=16, tokens of
+   requests 0 and 1 equal to the CPU plain path's, and best_of 5 at T 0.5
+   from a seeded generator (two calls equal; each result ``rank_group``'s
+   choice of its group), K10 never launched, times and stages;
 4. **medium** (24 + 24 layers, D 1024, full depth): the stem at D 1024 (K3),
    K4 with 16 heads, the finish at D 1024 (K6) and the whole 24-layer trunk
    (8, 1536, 1024) against their plain versions; then a batch of 8 end to
@@ -37,11 +41,16 @@ and the opt-in fused step):
    K1 at 128 mels, the stem at D 1280, K8 on (8, 1536, 1280) with 20 heads
    and t_real 1500 (timed beside ``scaled_dot_product_attention`` as its
    library yardstick), and K9 at B=8, 20 heads, for one query row (a step)
-   and four (the prompt); then a batch of 8 end to end, where K1 and the
-   stem must launch, K8 exactly 32 times, K4 and the finish never; then the
-   same batch with ``kv_int8`` in f32 and bf16 (K9 exactly 32 x 64 times),
-   request 0 teacher-forced against the CPU plain int8 path, int8 vs fp
-   token agreement and avg_logprob gap, times and stages.
+   and four (the prompt), and at G=5 (five beam rows per request); then a
+   batch of 8 end to end, where K1 and the stem must launch, K8 exactly 32
+   times, K4 and the finish never; then the same batch with ``kv_int8`` in
+   f32 and bf16 (K9 exactly 32 x 64 times), request 0 teacher-forced
+   against the CPU plain int8 path, int8 vs fp token agreement and
+   avg_logprob gap, times and stages; then beam_size 5 (40 hypothesis rows
+   over a cross cache of 8), fp and int8 (K9 at G=5 exactly 32 x 64 times,
+   K10 never), request 0 against the CPU plain path's beam (equal, or a
+   near tie where they diverge), int8 vs fp avg_logprob gap, bf16, times
+   and stages.
    In every kernel phase the padding rows of the trunk inputs are one
    repeated row, as the trunk leaves them, and bf16 is held to twice the
    plain bf16 version's own distance from f32 (``compare``).  Two rounding
@@ -62,6 +71,11 @@ and the opt-in fused step):
    attn_parts``): its three modes against their plain versions at B=8 in
    bf16, then the diagnostic's own run at the TPU script's B=512 (no plain
    version there: its fp32 logits would take 29 GB), counted like a path;
+   then **K12**, the decode step's cross-attention formulations
+   (``diagnostics.step_formulations``): dma, vpu, mxu_t and mxu_r against
+   their plain versions at the TPU script's B=64 (bf16; dma's output
+   fp32), SDPA timed beside the attention modes, and the diagnostic's own
+   run counted like a path (K12 exactly 4 x 61 times);
 9. for medium, large-v3 and the small geometries, request 0's f32 tokens
    are checked against the CPU plain path (log-mel, encoder and decoder on
    the CPU), teacher-forced on the card's tokens: at every step the card's
@@ -560,14 +574,17 @@ def large_kernel_phase(model, dev):
     packed_phase(res, "K8", B, D, H, dev, SEED + 19, T, Tp)
     q, k, v, want = k8_probe(dev, H, 128, Tp, T)
     check_probe("K8", flash.flash_attention_packed(q, k, v, H, T), want, T)
-    # K9 at the decoder's geometry: a step (one query row) and the prompt (four)
-    return int8_phase(res, "K9", B, dims.n_text_head, dev, SEED + 9, row_counts=(1, 4))
+    # K9 at the decoder's geometry: a step (one query row) and the prompt (four),
+    # and a beam step (five rows of each request)
+    int8_phase(res, "K9", B, dims.n_text_head, dev, SEED + 9, row_counts=(1, 4))
+    return int8_phase(res, "K9_g5", B, dims.n_text_head, dev, SEED + 23, groups=5)
 
 
-def int8_phase(res, kid, B, H, dev, seed, row_counts=(1,), dh=64):
+def int8_phase(res, kid, B, H, dev, seed, row_counts=(1,), dh=64, groups=1):
     """K9 against its plain version in f32 (its arithmetic is fp32 whatever
     the compute dtype) for each query row count in ``rows``, recorded under
-    ``kid`` (one row, a decode step) and ``kid + "_prompt"`` (four rows).
+    ``kid`` (one row, a decode step) and ``kid + "_prompt"`` (four rows);
+    ``groups`` query rows of each count share each cached segment (beam).
     Beside it, SDPA over the f32 fp cross cache is timed as the fp path's
     cross-attention, which the int8 path replaces (not the same function,
     so not its library yardstick: K9 has none)."""
@@ -583,13 +600,13 @@ def int8_phase(res, kid, B, H, dev, seed, row_counts=(1,), dh=64):
     heads = lambda z: z.view(B, -1, H, dh).transpose(1, 2)
     kh, vh = (heads(k) * dh ** -0.25).contiguous(), heads(v).contiguous()
     for R in row_counts:
-        q = randn(rng, (B, R, D), dev)
+        q = randn(rng, (B * groups, R, D), dev)
         qh = (heads(q) * dh ** -0.25).contiguous()
         r = compare(
-            f"{kid} int8 cross attention B={B} {H} heads of {dh} R={R}", "f32",
+            f"{kid} int8 cross attention B={B} G={groups} {H} heads of {dh} R={R}", "f32",
             lambda: decode_attn.int8_cross_attention(q, k8, sk, v8, sv, H, T),
             lambda: decode_attn.int8_cross_attention_plain(q, k8, sk, v8, sv, H, T),
-            int8_work(B, H, R, T, dh))
+            int8_work(B, H, R * groups, T, dh))
         r["fp_path_sdpa_ms"] = cuda_ms(
             lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=1.0))
         log(f"{kid} R={R}: the fp path's cross-attention (SDPA over the f32 cache of "
@@ -712,6 +729,103 @@ def attn_parts_run(res, dev):
     return {f"attn_parts B={ap.BATCH}": launches}
 
 
+def step_formulations_phase(res, dev):
+    """K12's four modes against their plain versions at the TPU script's
+    shapes (B = 64, Ta 1536, bf16; dma's fp32 output in f32), with SDPA over
+    row-major (B, 6, Ta, 64) heads, scale 1, beside the three attention
+    modes as a near neighbour (it rounds neither p nor the sum as the modes
+    do, so its distance is printed, not held)."""
+    import torch.nn.functional as F
+
+    from qasr_ijcnlp_tpu_torch.diagnostics import step_formulations as sf
+
+    B, H, dh = sf.BATCH, sf.N_HEAD, sf.HEAD_WIDTH
+    for mode in sf.MODES:
+        q, k, v = sf.inputs(B, mode, SEED + 20, dev)
+        flops, nbytes, peak = sf.work(mode, B, sf.T_AUDIO)
+        sdpa = None
+        if mode != "dma":
+            rowmajor = (lambda z: z.view(B, H, dh, -1).transpose(-1, -2)) if sf.lanes(mode) \
+                else (lambda z: z.view(B, -1, H, dh).transpose(1, 2))
+            qh, kh, vh = q.view(B, H, 1, dh), rowmajor(k).contiguous(), rowmajor(v).contiguous()
+            sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=1.0)
+        key = "f32" if mode == "dma" else "bf16"
+        res[f"K12_{mode}"] = {key: compare(
+            f"K12 {mode} B={B}", key, lambda: sf.step_formulations(q, k, v, mode),
+            lambda: sf.step_formulations_plain(q, k, v, mode), (flops, nbytes),
+            plain32_fn=lambda: sf.step_formulations_plain(q.float(), k.float(), v.float(),
+                                                          mode),
+            library_fn=sdpa, peak=peak, library_same=False)}
+        del q, k, v, sdpa
+        if mode != "dma":
+            res[f"K12_{mode}"]["bf16"].update(step_formulations_wide(sf, mode, B, dev))
+    return res
+
+
+def step_formulations_wide(sf, mode, B, dev):
+    """K12 ``mode`` on inputs N(0, 0.5^2) (the CPU test's), checked and not
+    timed.  The script's inputs (x 0.1) give a nearly uniform softmax, where
+    a wrong rescale or split merge moves the output by little; here the
+    logits spread by about 2 per head, and such a fault moves it by tenths.
+    The kernel rounds p against its chunk's running max and the plain
+    version against the row's max, so each lands a bf16 step either side of
+    the exact value: the kernel is held to NOISE_FACTOR times the plain bf16
+    version's distance from the plain version in f32, both measured from
+    the f32 one; its distance from the plain bf16 version is reported."""
+    q, k, v = sf.inputs(B, mode, SEED + 22, dev, scale=0.5)
+    out = sf.step_formulations(q, k, v, mode)
+    p = sf.step_formulations_plain(q, k, v, mode).float()
+    p32 = sf.step_formulations_plain(q.float(), k.float(), v.float(), mode).float()
+    torch.cuda.synchronize()
+    if out.shape != p.shape or not torch.isfinite(out).all():
+        raise AssertionError(f"K12 {mode} B={B} wide: bad shape or non-finite output")
+    err = float((out.float() - p).abs().max())
+    err32 = float((out.float() - p32).abs().max())
+    noise = float((p - p32).abs().max())
+    limit = NOISE_FACTOR * noise
+    log(f"K12 {mode} B={B} inputs N(0, 0.5^2): from the plain f32 version {err32:.3e} (tol "
+        f"{limit:.3e} = {NOISE_FACTOR:g} x plain bf16's {noise:.3e}); from plain bf16 "
+        f"{err:.3e}; max |out| {float(p.abs().max()):.3f}")
+    if err32 > limit:
+        raise AssertionError(f"K12 {mode} B={B} wide: {err32} from the plain f32 version, "
+                             f"outside tolerance {limit}")
+    return {"max_abs_err_wide": err, "max_abs_err_wide_f32": err32, "tol_wide": limit}
+
+
+def step_formulations_run(res, dev):
+    """The diagnostic's own run (``diagnostics.step_formulations.measure``)
+    at the script's B = 64, counted as a path: every counter set to 0 just
+    before it; each mode launches K12 once to warm up and 3 x 20 times
+    timed, and nothing else runs."""
+    from qasr_ijcnlp_tpu_torch.diagnostics import step_formulations as sf
+
+    runs, iters = 3, 20
+    want = len(sf.MODES) * (1 + runs * iters)
+    cs = counters()
+    for mod, attr in cs.values():
+        setattr(mod, attr, 0)
+    times = sf.measure(sf.BATCH, runs=runs, iters=iters, seed=SEED + 21, device=dev)
+    torch.cuda.synchronize()
+    launches = {k: getattr(mod, attr) for k, (mod, attr) in cs.items()}
+    log(f"main-path launches (step_formulations B={sf.BATCH}):", json.dumps(launches))
+    if launches["formulations"] != want or sum(launches.values()) != want:
+        raise AssertionError(f"step_formulations run: launches {launches}, expected "
+                             f"{want} of K12")
+    ceiling = HBM_BYTES_PER_S / 1e9
+    for mode, r in times.items():
+        entry = res[f"K12_{mode}"]
+        entry = entry.get("f32") or entry["bf16"]
+        entry.update({"run_ms": r["ms"], "run_gbps": r["gbps"], "run_spread": r["spread"]})
+        log(f"K12 {mode} B={sf.BATCH}: {r['ms'] * 1e3:.1f} us a call (fastest of "
+            f"{[round(t * 1e3, 1) for t in r['runs_ms']]} us), {r['gbps']:.1f} GB/s effective, "
+            f"spread {r['spread'] * 100:.1f}%, bound {r['bound_ms'] * 1e3:.1f} us "
+            f"({r['bound_by']})")
+        if r["gbps"] > ceiling:
+            raise AssertionError(f"K12 {mode}: {r['gbps']:.0f} GB/s is above the card's "
+                                 f"{ceiling:.0f} GB/s: the timing is wrong")
+    return {f"step_formulations B={sf.BATCH}": launches}
+
+
 def step_phase(res, kid, block_for, B, dev, seed, ctx=80, idx=66, Ta=1500):
     """K10 against its plain version in f32 and bf16 at one decoder layer's
     last step of a 64-token decode (self positions 0..idx of ``ctx``, Ta
@@ -783,14 +897,16 @@ def synthetic_pcm(n, seed, samples=480000):
     return out
 
 
-def options(port, fp16, kv_int8=False):
+def options(port, fp16, kv_int8=False, extra=None):
+    """The bench options; ``extra`` adds decode options (beam_size, best_of,
+    temperature, patience)."""
     return port.DecodingOptions(fp16=fp16, suppress_tokens=[EOT], kv_int8=kv_int8,
-                                **BENCH_OPTIONS)
+                                **BENCH_OPTIONS, **(extra or {}))
 
 
-def run_requests(port, model, pcm, fp16, kv_int8=False):
+def run_requests(port, model, pcm, fp16, kv_int8=False, extra=None, generator=None):
     mel = port.log_mel_spectrogram(pcm, n_mels=model.dims.n_mels, device=model.device)
-    return port.decode(model, mel, options(port, fp16, kv_int8))
+    return port.decode(model, mel, options(port, fp16, kv_int8, extra), generator=generator)
 
 
 def check_results(results, n, dims):
@@ -804,7 +920,7 @@ def check_results(results, n, dims):
             raise AssertionError("bad audio features")
 
 
-def stage_times(port, model, pcm, fp16, label, kv_int8=False):
+def stage_times(port, model, pcm, fp16, label, kv_int8=False, extra=None):
     """Host-clock ms of each stage of one warm request batch: PCM (host) to
     log-mel, encoder, and decode (cross K/V, prompt, greedy loop, results),
     each ended by a synchronize."""
@@ -819,7 +935,7 @@ def stage_times(port, model, pcm, fp16, label, kv_int8=False):
         feats = encoder_apply(model.module.encoder, mel, model.dims, dt)
     torch.cuda.synchronize()
     marks.append(time.perf_counter())
-    port.decode(model, feats, options(port, fp16, kv_int8))
+    port.decode(model, feats, options(port, fp16, kv_int8, extra))
     torch.cuda.synchronize()
     marks.append(time.perf_counter())
     ms = [(b - a) * 1000 for a, b in zip(marks, marks[1:])]
@@ -828,24 +944,24 @@ def stage_times(port, model, pcm, fp16, label, kv_int8=False):
     return ms
 
 
-def timed_batches(port, model, pcm, label, smi, repeats=3, kv_int8=False):
+def timed_batches(port, model, pcm, label, smi, repeats=3, kv_int8=False, extra=None):
     """Wall time per batch (host clock around ``repeats`` warm batches ended
     by a synchronize) and the stages of one more, in bf16 and f32."""
     for fp16 in (True, False):
-        run_requests(port, model, pcm, fp16, kv_int8)  # warm-up
+        run_requests(port, model, pcm, fp16, kv_int8, extra)  # warm-up
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(repeats):
-            run_requests(port, model, pcm, fp16, kv_int8)
+            run_requests(port, model, pcm, fp16, kv_int8, extra)
         torch.cuda.synchronize()
         sec = (time.perf_counter() - t0) / repeats
         log(f"{label} end to end B={pcm.shape[0]} {'bf16' if fp16 else 'f32'}: "
             f"{sec * 1000:.1f} ms/batch, {pcm.shape[0] * 30.0 / sec:.1f} audio-s/s ({smi})")
-        stage_times(port, model, pcm, fp16, label, kv_int8)
+        stage_times(port, model, pcm, fp16, label, kv_int8, extra)
 
 
 def counters():
-    from qasr_ijcnlp_tpu_torch.diagnostics import attn_parts
+    from qasr_ijcnlp_tpu_torch.diagnostics import attn_parts, step_formulations
     from qasr_ijcnlp_tpu_torch.ops import (
         conv_stem, decode_attn, decoder_step, encoder_block, flash, melfront,
     )
@@ -854,7 +970,8 @@ def counters():
             "attn": (encoder_block, "attn_launches"),
             "finish": (encoder_block, "finish_launches"), "packed": (flash, "launches"),
             "flash4d": (flash, "launches_4d"), "int8": (decode_attn, "launches"),
-            "step": (decoder_step, "launches"), "parts": (attn_parts, "launches")}
+            "step": (decoder_step, "launches"), "parts": (attn_parts, "launches"),
+            "formulations": (step_formulations, "launches")}
 
 
 # Launches a batch must show: None is "at least once", a number exact.  The
@@ -864,9 +981,12 @@ def counters():
 # else of the encoder's attention.  The fp decode loop runs neither decode
 # kernel; the int8 cache runs K9 once per layer in the prompt pass and in
 # each of the sample_len - 1 steps; the fused step runs K10 once per layer in
-# each step (the prompt pass stays unfused).  No request runs K11.
+# each step (the prompt pass stays unfused).  Beam search and best-of run the
+# same loop counts over their grouped caches (K9 at G = 5 with int8: no decoder
+# step after the last transition) and never K10, whose gate refuses a grouped
+# cache.  No request runs K11 or K12.
 FUSED_EXPECT = {"mel": None, "stem": None, "attn": None, "finish": None, "packed": 0,
-                "flash4d": 0, "int8": 0, "step": 0, "parts": 0}
+                "flash4d": 0, "int8": 0, "step": 0, "parts": 0, "formulations": 0}
 
 
 def large_expect(dims):
@@ -889,13 +1009,14 @@ def fused_step_expect(dims):
     return {**FUSED_EXPECT, "step": dims.n_text_layer * (BENCH_OPTIONS["sample_len"] - 1)}
 
 
-def counted_run(port, model, pcm, expect, label, kv_int8=False):
+def counted_run(port, model, pcm, expect, label, kv_int8=False, extra=None, generator=None):
     """One f32 batch with every launch counter set to 0 just before it;
     ``expect`` maps a counter to an exact count, or None for "at least 1"."""
     cs = counters()
     for mod, attr in cs.values():
         setattr(mod, attr, 0)
-    res = run_requests(port, model, pcm, fp16=False, kv_int8=kv_int8)
+    res = run_requests(port, model, pcm, fp16=False, kv_int8=kv_int8, extra=extra,
+                       generator=generator)
     torch.cuda.synchronize()
     launches = {k: getattr(mod, attr) for k, (mod, attr) in cs.items()}
     log(f"main-path launches ({label}, f32, {pcm.shape[0]} requests):",
@@ -1003,9 +1124,161 @@ def int8_path(port, gpu, cpu, pcm, res_fp, xa, smi, name, expect):
     return launches
 
 
-def family_path(port, dims_name, dims, dev, smi, expect, kernel_phase, int8=False):
+BEAM = {"beam_size": 5}
+
+
+def sequence_logprobs(port, cpu_model, xa, tokens, int8_cache=None):
+    """Cumulative filtered logprobs of ``tokens`` (the bench options) on the
+    CPU plain path over encoder output ``xa``, teacher-forced in one pass
+    (over ``int8_cache``, the CPU's int8 cross cache, where given)."""
+    from qasr_ijcnlp_tpu_torch.decode import DecodingTask
+    from qasr_ijcnlp_tpu_torch.decode.filters import apply_filters
+    from qasr_ijcnlp_tpu_torch.models.whisper import decoder_apply, decoder_step
+
+    dims = cpu_model.dims
+    task = DecodingTask(cpu_model, options(port, False))
+    toks = torch.tensor([list(task.initial_tokens) + list(tokens)])
+    with torch.inference_mode():
+        if int8_cache is None:
+            logits = decoder_apply(cpu_model.module.decoder, toks, xa, dims)[0]
+        else:
+            logits = decoder_step(cpu_model.module.decoder, toks, dict(int8_cache), dims)[0][0]
+    sb = task.sample_begin
+    last = prev = torch.tensor([-1])
+    lps = []
+    for i, tok in enumerate(tokens):
+        f = apply_filters(task.loop_cfg.filters, logits[sb - 1 + i][None], sb + i, last, prev,
+                          torch.zeros(1, dtype=torch.long))[0]
+        lps.append(float(torch.log_softmax(f.float(), -1)[tok]))
+        prev, last = last, torch.tensor([tok])
+    return np.cumsum(lps)
+
+
+def beam_check(port, cpu_model, xa, card, ref, label, tie, int8_cache=None):
+    """A card beam result against the CPU plain path's for the same request:
+    equal tokens, or, at the first step where they diverge, the CPU's
+    scores of the two competing sequences through that step (or of the two
+    whole sequences, a near tie in the final ranking) within ``tie``."""
+    if card.tokens == ref.tokens:
+        log(f"{label}: beam tokens identical to the CPU plain path's "
+            f"({len(card.tokens)} tokens)")
+        return
+    j = next(i for i, (a, b) in enumerate(zip(card.tokens, ref.tokens)) if a != b)
+    a = sequence_logprobs(port, cpu_model, xa, card.tokens, int8_cache)
+    b = sequence_logprobs(port, cpu_model, xa, ref.tokens, int8_cache)
+    d_step, d_end = abs(a[j] - b[j]), abs(a[-1] - b[-1])
+    log(f"{label}: beam tokens diverge from the CPU's at step {j}; CPU scores through it "
+        f"{a[j]:.6f} (card) vs {b[j]:.6f} (CPU), |diff| {d_step:.3e}; whole sequences "
+        f"{a[-1]:.6f} vs {b[-1]:.6f}, |diff| {d_end:.3e} (tie {tie:g})")
+    if min(d_step, d_end) > tie:
+        raise AssertionError(f"{label}: diverging beam results are no near tie")
+
+
+def beam_expect(expect, dims, int8):
+    """Launches of a beam batch: the encoder's as ``expect``; K9 once per
+    layer in the prompt pass and in each of the sample_len - 1 decoder steps
+    (none after the last transition); never K10."""
+    n = dims.n_text_layer * BENCH_OPTIONS["sample_len"] if int8 else 0
+    return {**expect, "int8": n, "step": 0}
+
+
+def beam_path(port, gpu, cpu, pcm, xa, smi, name, expect):
+    """``name``'s model with beam_size 5 (5 hypothesis rows per request over
+    a cross cache of one row per request), fp and int8: counted f32 batches,
+    request 0 against the CPU plain path's beam for that request alone,
+    int8 vs fp avg_logprob, bf16, times and stages."""
+    from qasr_ijcnlp_tpu_torch.models.whisper import init_kv_cache, precompute_cross_kv
+
+    dims, B = gpu.dims, pcm.shape[0]
+    paths, results = {}, {}
+    for int8 in (False, True):
+        label = f"{name} beam{' int8' if int8 else ''}"
+        res, paths[label] = counted_run(port, gpu, pcm, beam_expect(expect, dims, int8), label,
+                                        kv_int8=int8, extra=BEAM)
+        check_results(res, B, dims)
+        results[int8] = res
+        with torch.inference_mode():
+            ref = port.decode(cpu, xa, options(port, False, int8, BEAM))[0]
+            cache = precompute_cross_kv(cpu.module.decoder, xa,
+                                        init_kv_cache(dims, 1, cross_int8=True)) if int8 else None
+        beam_check(port, cpu, xa, res[0], ref, f"{label} request 0",
+                   INT8_TOKEN_TIE if int8 else TOKEN_TIE, cache)
+        res16 = run_requests(port, gpu, pcm, fp16=True, kv_int8=int8, extra=BEAM)
+        check_results(res16, B, dims)
+        same, total = token_agreement(res, res16)
+        log(f"{label}: bf16 vs f32 token agreement {same}/{total} = {same / total:.4f}")
+        timed_batches(port, gpu, pcm, label, smi, repeats=1, kv_int8=int8, extra=BEAM)
+    same, total = token_agreement(results[True], results[False])
+    gap = max(abs(a.avg_logprob - b.avg_logprob) for a, b in zip(results[True], results[False]))
+    log(f"{name} beam int8 vs fp (f32): token agreement {same}/{total} = {same / total:.4f}; "
+        f"largest avg_logprob gap {gap:.4f} (bound {INT8_LOGPROB_GAP})")
+    if gap > INT8_LOGPROB_GAP:
+        raise AssertionError(f"{name} beam int8: avg_logprob moved by {gap} from the fp path")
+    return paths
+
+
+def tiny_beam_paths(port, gpu, cpu, pcm, smi):
+    """tiny, 16 requests: beam_size 5 (and patience 2.0), tokens equal to
+    the CPU plain path's for requests 0 and 1; best-of 5 at T = 0.5 from a
+    seeded generator, twice equal, each result ``rank_group``'s choice
+    among its group's five.  Both run with the fused step switched on, and
+    K10 must not launch."""
+    from qasr_ijcnlp_tpu_torch.decode import (
+        DecodingTask, _audio_features, _cut_at_eot, rank_group,
+    )
+    from qasr_ijcnlp_tpu_torch.ops import decoder_step
+
+    dims, B = gpu.dims, pcm.shape[0]
+    paths = {}
+    best_of = {"best_of": 5, "temperature": 0.5}
+    gen = lambda: torch.Generator(device=gpu.device).manual_seed(SEED + 22)
+    decoder_step.set_fused_decoder_step(True)
+    try:
+        for extra, label in ((BEAM, "tiny beam"),
+                             ({**BEAM, "patience": 2.0}, "tiny beam patience 2")):
+            res, paths[label] = counted_run(port, gpu, pcm, beam_expect(FUSED_EXPECT, dims, False),
+                                            label, extra=extra)
+            check_results(res, B, dims)
+            ref = run_requests(port, cpu, pcm[:2], fp16=False, extra=extra)
+            for i in range(2):
+                if ref[i].tokens != res[i].tokens:
+                    raise AssertionError(f"{label} request {i}: GPU f32 tokens differ from the "
+                                         f"CPU plain path:\n{res[i].tokens}\n{ref[i].tokens}")
+            log(f"{label}: f32 tokens identical to the CPU plain path for requests 0, 1")
+        label = "tiny best_of"
+        res, paths[label] = counted_run(port, gpu, pcm, FUSED_EXPECT, label, extra=best_of,
+                                        generator=gen())
+        check_results(res, B, dims)
+        again = run_requests(port, gpu, pcm, fp16=False, extra=best_of, generator=gen())
+        if [r.tokens for r in again] != [r.tokens for r in res]:
+            raise AssertionError(f"{label}: one seed gave two results")
+        task = DecodingTask(gpu, options(port, False, extra=best_of))
+        with torch.inference_mode():
+            mel = port.log_mel_spectrogram(pcm, n_mels=dims.n_mels, device=gpu.device)
+            feats = _audio_features(gpu, mel, False)
+            init = torch.tensor([task.initial_tokens] * B, device=gpu.device)
+            groups, lps, _ = task._run_greedy(feats, init.repeat_interleave(5, 0), gen())
+        for i, (r, group, lp) in enumerate(zip(res, groups, lps)):
+            sliced = [_cut_at_eot(np.asarray(g), task.sample_begin, EOT) for g in group]
+            best = rank_group(sliced, lp, None)
+            if r.tokens != sliced[best]:
+                raise AssertionError(f"{label} request {i}: not rank_group's choice")
+        distinct = len({tuple(t) for g in groups for t in
+                        (_cut_at_eot(np.asarray(x), task.sample_begin, EOT) for x in g)})
+        log(f"{label}: one seed, one result; each of {B} results is rank_group's choice of "
+            f"its 5 samples ({distinct} distinct samples of {5 * B})")
+    finally:
+        decoder_step.set_fused_decoder_step(None)
+    for extra, label in ((BEAM, "tiny beam"), (best_of, "tiny best_of")):
+        timed_batches(port, gpu, pcm, label, smi, repeats=2, extra=extra)
+    return paths
+
+
+def family_path(port, dims_name, dims, dev, smi, expect, kernel_phase, int8=False,
+                beam=False):
     """Kernel phases and end to end for one size; with ``int8`` the same
-    batch runs again with the int8 cross cache."""
+    batch runs again with the int8 cross cache, with ``beam`` with beam
+    search (fp and int8)."""
     from qasr_ijcnlp_tpu_torch.models.whisper import init_params
 
     t0 = time.perf_counter()
@@ -1032,6 +1305,8 @@ def family_path(port, dims_name, dims, dev, smi, expect, kernel_phase, int8=Fals
     if int8:
         paths[f"{dims_name} int8"] = int8_path(port, gpu, cpu, pcm, res32, xa, smi,
                                                dims_name, expect)
+    if beam:
+        paths.update(beam_path(port, gpu, cpu, pcm, xa, smi, dims_name, expect))
     del gpu, cpu, sd, res32, res16
     gc.collect()
     torch.cuda.empty_cache()
@@ -1114,6 +1389,7 @@ def tiny_path(port, dims, dev, smi):
             timed_batches(port, gpu, pcm, label, smi)
     finally:
         decoder_step.set_fused_decoder_step(None)
+    paths.update(tiny_beam_paths(port, gpu, cpu, pcm16, smi))
     del gpu, cpu, sd
     gc.collect()
     torch.cuda.empty_cache()
@@ -1173,11 +1449,20 @@ def kernel_table(kres, by_path):
         ("int8_cross_attention_d128", "K9_d128", src + "decode_attn.cu",
          tpu + "decode_attn.py:64", "int8", "small-h128 int8",
          "q (8, 1, 768), codes (8, 6, 1536, 128), t_real 1500"),
+        ("int8_cross_attention_g5", "K9_g5", src + "decode_attn.cu",
+         tpu + "decode_attn.py:64", "int8", "large-v3 beam int8",
+         "q (40, 1, 1280): 5 beam rows per request, codes (8, 20, 1536, 64), t_real 1500"),
     ]
     for mode in ("dots", "softmax", "full"):
         table.append((f"attn_parts_{mode}", f"K11_{mode}", src + "attn_parts.cu",
                       "scripts/bench_attn_parts.py:37", "parts", "attn_parts B=512",
                       f"{mode}: bf16 (8, 1536, 384), 6 heads of 64; also timed at B=512"))
+    for i, mode in enumerate(("dma", "vpu", "mxu_t", "mxu_r")):
+        layout = "(64, 384, 1536)" if mode in ("vpu", "mxu_t") else "(64, 1536, 384)"
+        table.append((f"step_formulations_{mode}", f"K12_{mode}", src + "step_formulations.cu",
+                      f"scripts/bench_step_formulations.py:{(38, 61, 95, 138)[i]}",
+                      "formulations", "step_formulations B=64",
+                      f"{mode}: bf16 q (64, 384), k, v {layout}"))
     kernels = []
     for name, kid, source, replaces, counter, path, shape in table:
         entry = {"name": name, "tpu_kernel": kid, "route": "cuda", "source": source,
@@ -1216,7 +1501,7 @@ def main():
     mres, mpaths = family_path(port, "medium", medium, dev, smi, FUSED_EXPECT,
                                medium_kernel_phase)
     lres, lpaths = family_path(port, "large-v3", large, dev, smi, large_expect(large),
-                               large_kernel_phase, int8=True)
+                               large_kernel_phase, int8=True, beam=True)
     # == small's width and depth with head geometries off the family ===============
     # 8 heads of 96 (the trunk runs K7) and 6 of 128 in encoder and decoder
     # (K4 and K9 at head width 128).
@@ -1229,6 +1514,8 @@ def main():
     with torch.inference_mode():
         pres = attn_parts_phase({}, dev)
         ppaths = attn_parts_run(pres, dev)
+        step_formulations_phase(pres, dev)
+        ppaths.update(step_formulations_run(pres, dev))
     for res, paths in ((mres, mpaths), (lres, lpaths), (sres, spaths), (wres, wpaths),
                        (pres, ppaths)):
         kres.update(res)

@@ -1,9 +1,10 @@
 """Decoding API: options, results, language detection and decode().
 
-Port of ``qasr_ijcnlp_tpu/decode/__init__.py`` (greedy and temperature
-sampling, with the int8 cross cache of ``kv_int8``).  Beam search, best-of
-and speculative drafts are not ported yet and raise
-``NotImplementedError``; none of them falls back to another path.
+Port of ``qasr_ijcnlp_tpu/decode/__init__.py``: greedy and temperature
+sampling, best-of (``best_of`` sampled rows per audio, ranked), beam search
+(``beam_size``, ``patience``, ``length_penalty``), each with the int8 cross
+cache of ``kv_int8``.  Speculative drafts are not ported yet and raise
+``NotImplementedError``; nothing falls back to another path.
 """
 
 from __future__ import annotations
@@ -129,6 +130,37 @@ def _cut_at_eot(seq: np.ndarray, sample_begin: int, eot: int) -> List[int]:
     return s[: hits[0]].tolist() if hits.size else s.tolist()
 
 
+def finalize_beam_group(fin_toks_g, fin_scores_g, fin_count_g: int,
+                        beams_g, beam_scores_g, K: int, eot: int):
+    """Reference BeamSearchDecoder.finalize for one audio: the bounded
+    finished set, topped up with the best unfinished beams (eot appended)
+    when fewer than K finished."""
+    seqs = [list(fin_toks_g[c]) for c in range(fin_count_g)]
+    scores = [float(fin_scores_g[c]) for c in range(fin_count_g)]
+    if len(seqs) < K:
+        for j in np.argsort(beam_scores_g)[::-1]:
+            seqs.append(list(beams_g[j]) + [eot])
+            scores.append(float(beam_scores_g[j]))
+            if len(seqs) >= K:
+                break
+    return seqs, scores
+
+
+def rank_group(sliced: List[List[int]], scores: List[float],
+               length_penalty: Optional[float]) -> int:
+    """MaximumLikelihoodRanker for one group (reference decoding.py):
+    index of the best candidate under the length penalty."""
+
+    def _score(lp, length):
+        if length_penalty is None:
+            penalty = length
+        else:
+            penalty = ((5 + length) / 6) ** length_penalty
+        return lp / penalty
+
+    return int(np.argmax([_score(p, len(t)) for p, t in zip(scores, sliced)]))
+
+
 class DecodingTask:
     """Host-side planner: resolves options to a loop config, runs the loop,
     post-processes to DecodingResults."""
@@ -143,6 +175,8 @@ class DecodingTask:
             task=options.task,
         )
         self.options = self._verify_options(options)
+        # hypothesis rows per audio
+        self.n_group: int = options.beam_size or options.best_of or 1
 
         self.n_ctx: int = model_obj.dims.n_text_ctx
         self.sample_len: int = options.sample_len or model_obj.dims.n_text_ctx // 2
@@ -197,12 +231,10 @@ class DecodingTask:
             0 <= options.length_penalty <= 1
         ):
             raise ValueError("length_penalty (alpha) should be a value between 0 and 1")
-        for name, item in (("beam_size", "Beam search"), ("best_of", "Beam search"),
-                           ("draft", "Decode services")):
-            if getattr(options, name):
-                raise NotImplementedError(
-                    f"{name} is not ported yet: ROADMAP.md queue 1, '{item}'"
-                )
+        if options.draft:
+            raise NotImplementedError(
+                "draft is not ported yet: ROADMAP.md queue 1, item 7 'Decode services'"
+            )
         return options
 
     def _get_initial_tokens(self) -> Tuple[int, ...]:
@@ -294,26 +326,24 @@ class DecodingTask:
                 for i in range(n_audio)
             ]
 
-        decoder = self.model.decoder_for(self.loop_cfg.compute_dtype)
-        buf, _, sum_lp, no_speech = _loop.greedy_decode(
-            decoder,
-            self.loop_cfg,
-            audio_features,
-            torch.from_numpy(init).to(audio_features.device),
-            float(opts.temperature),
-            generator,
-            # int8 cross K/V quantize the fp32 projections
-            cross_decoder=self.model.module.decoder if opts.kv_int8 else None,
-        )
-        # one device -> host copy for the whole batch
-        buf = buf.cpu().numpy()
-        sum_lp = sum_lp.cpu().numpy()
-        no_speech = no_speech.cpu().numpy()
+        # Hypothesis rows are group-major (audio i, group g) = row i G + g; the
+        # audio features keep one row per audio.
+        init_rep = np.repeat(init, self.n_group, axis=0)
+        init_rep = torch.from_numpy(init_rep).to(audio_features.device)
+        if opts.beam_size is not None:
+            tokens_lists, logprob_lists, no_speech = self._run_beam(audio_features, init_rep)
+        else:
+            tokens_lists, logprob_lists, no_speech = self._run_greedy(
+                audio_features, init_rep, generator)
 
         eot = tokenizer.eot
-        tokens = [_cut_at_eot(buf[i], self.sample_begin, eot) for i in range(n_audio)]
+        sliced = [[_cut_at_eot(np.asarray(seq), self.sample_begin, eot) for seq in group]
+                  for group in tokens_lists]
+        selected = self._rank(sliced, logprob_lists)
+        tokens = [g[i] for i, g in zip(selected, sliced)]
         texts = [tokenizer.decode(t).strip() for t in tokens]
-        avg_logprobs = [float(sum_lp[i]) / (len(t) + 1) for i, t in enumerate(tokens)]
+        sum_logprobs = [lp[i] for i, lp in zip(selected, logprob_lists)]
+        avg_logprobs = [lp / (len(t) + 1) for t, lp in zip(tokens, sum_logprobs)]
         return [
             DecodingResult(
                 audio_features=audio_features[i],
@@ -327,6 +357,48 @@ class DecodingTask:
             )
             for i in range(n_audio)
         ]
+
+    def _rank(self, tokens: List[List[List[int]]], sum_logprobs: List[List[float]]):
+        return [rank_group(s, p, self.options.length_penalty)
+                for s, p in zip(tokens, sum_logprobs)]
+
+    def _decoders(self):
+        """(the compute-dtype decoder, the fp32 decoder the int8 cross K/V
+        are projected with, or None)."""
+        return (self.model.decoder_for(self.loop_cfg.compute_dtype),
+                self.model.module.decoder if self.options.kv_int8 else None)
+
+    def _run_greedy(self, audio_features, init_rep, generator):
+        G = self.n_group
+        decoder, cross_decoder = self._decoders()
+        buf, _, sum_lp, no_speech = _loop.greedy_decode(
+            decoder, self.loop_cfg, audio_features, init_rep,
+            float(self.options.temperature), generator, cross_decoder=cross_decoder,
+        )
+        # one device -> host copy for the whole batch
+        buf, sum_lp = buf.cpu().numpy(), sum_lp.cpu().numpy()
+        no_speech = no_speech[::G].cpu().numpy()
+        n_audio = buf.shape[0] // G
+        tokens_lists = [[buf[i * G + g] for g in range(G)] for i in range(n_audio)]
+        logprob_lists = [[float(sum_lp[i * G + g]) for g in range(G)] for i in range(n_audio)]
+        return tokens_lists, logprob_lists, no_speech
+
+    def _run_beam(self, audio_features, init_rep):
+        K = self.options.beam_size
+        C = max(round(K * (self.options.patience or 1.0)), 1)
+        decoder, cross_decoder = self._decoders()
+        out = _loop.beam_decode(decoder, self.loop_cfg, audio_features, init_rep, K, C,
+                                cross_decoder=cross_decoder)
+        beams, beam_scores, fin_toks, fin_scores, fin_count, no_speech = (
+            t.cpu().numpy() for t in out)
+        tokens_lists, logprob_lists = [], []
+        for b in range(beams.shape[0]):
+            seqs, scores = finalize_beam_group(
+                fin_toks[b], fin_scores[b], int(fin_count[b]), beams[b], beam_scores[b], K,
+                self.tokenizer.eot)
+            tokens_lists.append(seqs)
+            logprob_lists.append(scores)
+        return tokens_lists, logprob_lists, no_speech
 
 
 def _get_task(model_obj, options: DecodingOptions) -> DecodingTask:
@@ -354,7 +426,8 @@ def decode(
 ) -> Union[DecodingResult, List[DecodingResult]]:
     """Decode 30-second mel segment(s) (reference decoding.py decode).
 
-    ``generator`` drives temperature sampling on the model's device."""
+    ``generator`` drives temperature sampling (and best-of) on the model's
+    device."""
     mel = torch.as_tensor(mel).to(model_obj.device)
     if single := mel.dim() == 2:
         mel = mel[None]

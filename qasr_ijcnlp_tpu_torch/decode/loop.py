@@ -1,11 +1,19 @@
-"""Greedy / temperature-sampling decode loop.
+"""Greedy / temperature-sampling and beam-search decode loops.
 
-Port of ``qasr_ijcnlp_tpu/decode/loop.py`` ``greedy_decode``.  The JAX loop
-is one ``lax.while_loop`` under ``jit``; here it is a Python loop over
-:func:`..models.whisper.decoder_step` with device-resident token buffer,
-scores and filter state.  The only host read inside the loop is the
-all-finished check, made every ``unroll`` steps to bound host syncs (the
-JAX loop checks its exit predicate at the same granularity).
+Port of ``qasr_ijcnlp_tpu/decode/loop.py`` ``greedy_decode`` and
+``beam_decode``.  The JAX loops are ``lax.while_loop``s under ``jit``; here
+they are Python loops over :func:`..models.whisper.decoder_step` with
+device-resident token buffers, scores and filter state.  The only host read
+inside a loop is its exit check, made every ``unroll`` steps to bound host
+syncs.  Greedy rows that finished commit eot, so the steps past the exit
+change nothing.  Beam search has no such fixed point (with ``patience`` < 1
+the finished set is topped up from the live beams), so its exit predicate is
+also evaluated on the device before every step, as the JAX loop's
+``lax.cond`` does, and a step taken after it turned false commits nothing.
+
+Both loops take hypothesis rows in groups of G (beam size, best-of count)
+over audio features of one row per audio (group-major, row i G + g): the
+cross cache is stored once per audio and never repeated.
 
 Two options change the kernels the loop runs, as in the reference:
 ``LoopConfig.kv_int8`` stores the cross K/V as int8 (the int8 attention
@@ -13,7 +21,8 @@ kernel K9 in every step), and the opt-in fused step
 (``ops.decoder_step.set_fused_decoder_step(True)``) replaces every
 single-token step by one fused kernel launch per decoder layer (K10) where
 ``fused_cache_applicable`` admits the cache; the prompt pass stays on the
-unfused ``decoder_step``.  Beam search is not ported yet.
+unfused ``decoder_step``.  That gate refuses a grouped cache, so beam and
+best-of decode never run K10.
 """
 
 from __future__ import annotations
@@ -28,7 +37,7 @@ from ..ops import round_up
 from ..ops.decoder_step import (
     fused_cache_applicable, fused_decoder_step, fused_step_enabled, to_fused_cache,
 )
-from .filters import FilterConfig, apply_filters
+from .filters import FilterConfig, _log_softmax, apply_filters
 
 
 class LoopConfig(NamedTuple):
@@ -82,8 +91,8 @@ def _prompt_pass(decoder, cfg: LoopConfig, audio_features, initial_tokens,
 def greedy_decode(
     decoder,
     cfg: LoopConfig,
-    audio_features: torch.Tensor,  # (B, Ta, D)
-    initial_tokens: torch.Tensor,  # (B, sample_begin) int64
+    audio_features: torch.Tensor,  # (B_audio, Ta, D)
+    initial_tokens: torch.Tensor,  # (B_audio * G, sample_begin) int64
     temperature: float = 0.0,
     generator: Optional[torch.Generator] = None,
     cross_decoder=None,
@@ -149,3 +158,172 @@ def greedy_decode(
 
     reach = min(cfg.sample_begin + cfg.sample_len + 1, n_ctx + 1)
     return buf[:, :reach], cur_len, sum_logprobs, no_speech_probs
+
+
+# ---------------------------------------------------------------------------
+# Beam search
+# ---------------------------------------------------------------------------
+
+
+def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k`` on the last dim: the k largest, equal values in
+    index order (``torch.topk`` promises no order among ties, and CPU and
+    CUDA break them differently; beams start at -inf and suppressed tokens
+    are -inf, so ties are common)."""
+    neg, idx = torch.sort(-x, dim=-1, stable=True)
+    return -neg[..., :k], idx[..., :k]
+
+
+class BeamState(NamedTuple):
+    buf: torch.Tensor  # (B K, W) tokens
+    sum_logprobs: torch.Tensor  # (B K,)
+    fin_toks: torch.Tensor  # (B, C, W)
+    fin_scores: torch.Tensor  # (B, C)
+    fin_count: torch.Tensor  # (B,)
+    last: torch.Tensor  # (B K,) filter state
+    prev: torch.Tensor
+    max_ts: torch.Tensor
+
+
+def beam_transition(cfg: LoopConfig, K: int, C: int, logits: torch.Tensor,
+                    cur_len: int, st: BeamState):
+    """One beam-search selection step over B groups of K rows (JAX
+    ``_beam_transition``; reference BeamSearchDecoder.update).  ``logits``
+    (B K, V) are the decoder outputs for the tokens at ``cur_len - 1``.
+    Returns (the new state, ``flat_src`` (B K,): the parent row of each new
+    row, for the caller's self-cache gather, and the (B K,) tokens just
+    written at ``cur_len``)."""
+    BK = logits.shape[0]
+    B = BK // K
+    eot = cfg.eot
+    dev = logits.device
+    buf = st.buf
+    W = buf.shape[1]
+
+    filtered = apply_filters(cfg.filters, logits, cur_len, st.last, st.prev, st.max_ts)
+    cand = st.sum_logprobs[:, None] + _log_softmax(filtered)  # (BK, V)
+    top_lp, top_id = _top_k(cand, K + 1)
+    top_lp = top_lp.reshape(B, K * (K + 1))
+    top_id = top_id.reshape(B, K * (K + 1))
+    parent = torch.arange(K, device=dev).repeat_interleave(K + 1).expand(B, -1)
+
+    # jnp.argsort is stable: equal scores keep their candidate order.
+    order = torch.sort(-top_lp, dim=-1, stable=True).indices
+    s_lp = top_lp.gather(1, order)
+    s_id = top_id.gather(1, order)
+    s_parent = parent.gather(1, order)
+    s_eot = s_id == eot
+
+    # The reference's scan: walk candidates in score order, eot to the
+    # finished set, others to the next beams, until K non-eot are saved.
+    noneot = (~s_eot).long()
+    noneot_excl = noneot.cumsum(-1) - noneot
+    processed = noneot_excl < K
+
+    # The K continuing beams: candidate -> slot (K = dropped).  Every slot is
+    # filled: a beam's K + 1 candidates hold at most one eot.
+    slot = torch.where(~s_eot & processed, noneot_excl, torch.full_like(noneot_excl, K))
+
+    def scatter(vals, fill):
+        out = torch.full((B, K + 1), fill, dtype=vals.dtype, device=dev)
+        return out.scatter_(1, slot, vals)[:, :K]
+
+    new_lp = scatter(s_lp, float("-inf"))
+    new_tok = scatter(s_id, eot).reshape(-1)
+    new_parent = scatter(s_parent, 0)
+
+    flat_src = (torch.arange(B, device=dev)[:, None] * K + new_parent).reshape(-1)
+    new_buf = buf[flat_src]
+    new_buf[:, cur_len] = new_tok
+    prev = st.last[flat_src]
+    max_ts = st.max_ts[flat_src]
+    max_ts = torch.where(new_tok >= cfg.timestamp_begin, torch.maximum(max_ts, new_tok), max_ts)
+
+    # Finished candidates, bounded by C: a running rank per audio gives each
+    # eligible one its own slot; the rest go to slot C, which is dropped.
+    elig = (s_eot & processed).long()
+    dest = st.fin_count[:, None] + elig.cumsum(-1) - elig
+    dest = torch.where((elig == 1) & (dest < C), dest, torch.full_like(dest, C))
+    # each candidate's parent prefix, (B, K(K+1), W)
+    cand_bufs = buf.reshape(B, K, W)[torch.arange(B, device=dev)[:, None], s_parent]
+    cand_bufs[:, :, cur_len] = eot
+    fin_toks = torch.cat([st.fin_toks, st.fin_toks.new_zeros(B, 1, W)], 1)
+    fin_toks = fin_toks.scatter_(1, dest[:, :, None].expand(-1, -1, W), cand_bufs)[:, :C]
+    fin_scores = torch.cat([st.fin_scores, st.fin_scores.new_zeros(B, 1)], 1)
+    fin_scores = fin_scores.scatter_(1, dest, s_lp)[:, :C]
+    fin_count = torch.clamp_max(st.fin_count + elig.sum(-1), C)
+
+    new = BeamState(new_buf, new_lp.reshape(-1), fin_toks, fin_scores, fin_count,
+                    new_tok, prev, max_ts)
+    return new, flat_src, new_tok
+
+
+def beam_decode(
+    decoder,
+    cfg: LoopConfig,
+    audio_features: torch.Tensor,  # (B, Ta, D)
+    initial_tokens: torch.Tensor,  # (B K, sample_begin) int64
+    beam_size: int,
+    max_candidates: int,
+    cross_decoder=None,
+):
+    """Beam search with a bounded finished set of ``max_candidates`` per
+    audio.  Returns (beams (B, K, reach), beam_scores (B, K), finished
+    tokens (B, C, reach), finished scores (B, C), finished count (B,),
+    no_speech_probs (B,)), all on the decode device.
+
+    Exit: the JAX loop's predicate (steps left, not every audio's finished
+    set full, context left).  The finished-set clause is read on the device
+    before each step and freezes the state when false, and on the host every
+    ``unroll`` steps to end the loop.  After the last transition no decoder
+    step runs (JAX runs one and never reads it).  After every transition the
+    self cache of every layer is gathered to the new rows' parents, into
+    fresh buffers; the cross cache, one row per audio, never is."""
+    K, C = beam_size, max_candidates
+    BK = initial_tokens.shape[0]
+    B = BK // K
+    n_ctx = cfg.dims.n_text_ctx
+    eot = cfg.eot
+    dev = audio_features.device
+
+    cache, logits, no_speech_all = _prompt_pass(
+        decoder, cfg, audio_features, initial_tokens, cross_decoder
+    )
+    buf = torch.full((BK, n_ctx + 1), eot, dtype=torch.long, device=dev)
+    buf[:, : cfg.sample_begin] = initial_tokens
+    # Only beam 0 of each audio starts live; duplicates would dominate topk.
+    start = torch.full((K,), float("-inf"), device=dev)
+    start[0] = 0.0
+    W = n_ctx + 1
+    st = BeamState(
+        buf=buf,
+        sum_logprobs=start.repeat(B),
+        fin_toks=torch.full((B, C, W), eot, dtype=torch.long, device=dev),
+        fin_scores=torch.full((B, C), float("-inf"), device=dev),
+        fin_count=torch.zeros(B, dtype=torch.long, device=dev),
+        last=torch.full((BK,), -1, dtype=torch.long, device=dev),
+        prev=torch.full((BK,), -1, dtype=torch.long, device=dev),
+        max_ts=torch.zeros(BK, dtype=torch.long, device=dev),
+    )
+    cur_len = cfg.sample_begin
+    for i in range(cfg.sample_len):
+        if cur_len > n_ctx:
+            break
+        if i and i % cfg.unroll == 0 and bool((st.fin_count >= C).all()):
+            break
+        live = ~(st.fin_count >= C).all()
+        new, flat_src, new_tok = beam_transition(cfg, K, C, logits, cur_len, st)
+        st = BeamState(*(torch.where(live, a, b) for a, b in zip(new, st)))
+        cur_len += 1
+        if i + 1 < cfg.sample_len and cur_len <= n_ctx:
+            cache = {**cache,
+                     "self_k": [k.index_select(0, flat_src) for k in cache["self_k"]],
+                     "self_v": [v.index_select(0, flat_src) for v in cache["self_v"]]}
+            step_logits, cache = model.decoder_step(
+                decoder, new_tok[:, None], cache, cfg.dims, cfg.compute_dtype
+            )
+            logits = step_logits[:, 0]
+
+    reach = min(cfg.sample_begin + cfg.sample_len + 1, n_ctx + 1)
+    return (st.buf.reshape(B, K, W)[:, :, :reach], st.sum_logprobs.reshape(B, K),
+            st.fin_toks[:, :, :reach], st.fin_scores, st.fin_count, no_speech_all[::K])

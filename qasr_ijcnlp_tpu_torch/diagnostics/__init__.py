@@ -3,4 +3,6 @@ with ``python3 -m``:
 
 * :mod:`.attn_parts` — the attention core's cost split into its products
   and its softmax (K11)
+* :mod:`.step_formulations` — the decode step's cross-attention in four
+  formulations against the read floor (K12)
 """

@@ -367,12 +367,15 @@ def init_kv_cache(
     ``cross_int8`` stores the cross K/V instead as int8 codes (B, H, Tp, Dh)
     with fp32 scales (B, H, Tp), Tp = round_up(n_audio_ctx, 128), the layout
     of the int8 attention kernel (``ops/decode_attn.py``).
+
+    ``cross_batch`` (default ``batch``) is the number of audio rows: beam
+    and best-of decode ``batch = cross_batch * G`` hypothesis rows,
+    group-major (row i G + g), against a cross cache stored once per audio.
     """
-    if cross_batch is not None and cross_batch != batch:
-        raise NotImplementedError(
-            "grouped cross attention (beam / best-of) is not ported yet: "
-            "ROADMAP.md queue 1, 'Beam search'"
-        )
+    Bc = batch if cross_batch is None else cross_batch
+    if Bc < 1 or batch % Bc:
+        raise ValueError(f"{batch} hypothesis rows do not split into groups over "
+                         f"{Bc} audio rows")
     L, H = dims.n_text_layer, dims.n_text_head
     Dh = dims.n_text_state // H
     T = min(ctx or dims.n_text_ctx, dims.n_text_ctx)
@@ -384,8 +387,8 @@ def init_kv_cache(
     }
     if cross_int8:
         Tp = round_up(dims.n_audio_ctx, LANE)
-        codes = lambda: torch.zeros(batch, H, Tp, Dh, dtype=torch.int8, device=device)
-        scales = lambda: torch.zeros(batch, H, Tp, device=device)
+        codes = lambda: torch.zeros(Bc, H, Tp, Dh, dtype=torch.int8, device=device)
+        scales = lambda: torch.zeros(Bc, H, Tp, device=device)
         cache.update({
             "cross_k8": [codes() for _ in range(L)],
             "cross_sk": [scales() for _ in range(L)],
@@ -433,7 +436,12 @@ def decoder_layer(bp: ResidualAttentionBlock, x, cache: Dict, l: int, offset: in
                   mask, n_head: int, t_real_cross: int):
     """Layer ``l`` of :func:`decoder_step` on x (B, T_new, D) at cache
     position ``offset``, writing its self K/V into the cache in place (the
-    JAX step returns a new buffer); ``mask`` (T_new, ctx) is additive."""
+    JAX step returns a new buffer); ``mask`` (T_new, ctx) is additive.  A
+    cross cache of B rows serves x's B G rows in groups of G, group-major
+    (beam, best-of): K9 takes the groups itself; on the fp cache each
+    audio's G T queries attend as one (B, H, G T, dh) block, the JAX
+    package's ``_grouped_cross_attention``, so the cache is read once per
+    audio and never repeated (G = 1 is the ungrouped step)."""
     T_new = x.shape[1]
     scale = head_scale(x.shape[-1] // n_head, cache["self_k"][l].dtype)
     xn = layer_norm(x, bp.attn_ln)
@@ -451,7 +459,9 @@ def decoder_layer(bp: ResidualAttentionBlock, x, cache: Dict, l: int, offset: in
             cache["cross_sv"][l], n_head, t_real_cross,
         ).to(x.dtype)
     else:
-        ca = _attend(scaled_heads(qc, n_head), cache["cross_k"][l], cache["cross_v"][l])
+        B = cache["cross_k"][l].shape[0]
+        ca = _attend(scaled_heads(qc.reshape(B, -1, qc.shape[-1]), n_head),
+                     cache["cross_k"][l], cache["cross_v"][l]).reshape(x.shape)
     x = x + linear(ca, bp.cross_attn.out)
     return x + _mlp(bp.mlp, layer_norm(x, bp.mlp_ln))
 
@@ -465,7 +475,8 @@ def decoder_step(
 
     The first call may pass the whole prompt; later calls one token.  An
     int8 cross cache (``init_kv_cache(cross_int8=True)``) runs the int8
-    attention kernel (K9), whose fp32 output is cast to the compute dtype."""
+    attention kernel (K9), whose fp32 output is cast to the compute dtype.
+    A cross cache of B / G rows serves ``tokens``' B rows in groups of G."""
     if offsets is not None:
         raise NotImplementedError(
             "per-row offsets (speculative decode) are not ported yet: "

@@ -98,13 +98,10 @@ def test_decode_kv_int8_matches_jax(models, opts):
             b.avg_logprob * (len(b.tokens) + 1), abs=1e-3)  # sum_logprobs
 
 
-@pytest.mark.parametrize("kw", [
-    dict(beam_size=2), dict(best_of=2, temperature=0.5),
-    dict(kv_int8=True, beam_size=2), dict(draft=object()),
-], ids=["beam_size", "best_of", "kv_int8", "draft"])
+@pytest.mark.parametrize("kw", [dict(draft=object())], ids=["draft"])
 def test_unported_options_raise(models, kw):
-    """Options still to port raise, naming their ROADMAP item; kv_int8
-    itself is ported, and still raises with beam search, which is not."""
+    """Options still to port raise, naming their ROADMAP item (beam search
+    and best-of are ported: tests/test_torch_beam.py)."""
     _, tm = models
     mel = np.zeros((1, 80, 1000), np.float32)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

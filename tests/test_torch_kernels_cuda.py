@@ -28,6 +28,7 @@ from qasr_ijcnlp_tpu_torch.models import whisper as tmodel
 from qasr_ijcnlp_tpu_torch.models.whisper import init_params
 from qasr_ijcnlp_tpu_torch.models.whisper import ResidualAttentionBlock
 from qasr_ijcnlp_tpu_torch.diagnostics import attn_parts
+from qasr_ijcnlp_tpu_torch.diagnostics import step_formulations as sf
 from qasr_ijcnlp_tpu_torch.ops import (
     conv_stem, decode_attn, decoder_step, encoder_block, flash, head_scale, melfront,
 )
@@ -413,3 +414,130 @@ def test_fused_decoder_layer_raises_on_unsupported_input(cuda_dev):
     with pytest.raises(ValueError):  # idx past the cache
         decoder_step.fused_decoder_layer_step(x[:8], packed, ln, sk[:8], sk[:8].clone(),
                                               ck[:8], ck[:8], 16, 6)
+
+
+@pytest.mark.parametrize("B", [8, 64])
+@pytest.mark.parametrize("mode", sf.MODES)
+def test_step_formulations_kernel(cuda_dev, mode, B):
+    """K12's modes against their plain versions at the script's shapes (bf16
+    inputs; dma's output is fp32)."""
+    q, k, v = sf.inputs(B, mode, B + len(mode), cuda_dev)
+    before = sf.launches
+    out = sf.step_formulations(q, k, v, mode)
+    assert sf.launches == before + 1
+    _close(out, sf.step_formulations_plain(q, k, v, mode),
+           lambda: sf.step_formulations_plain(q.float(), k.float(), v.float(), mode))
+
+
+@pytest.mark.parametrize("B", [8, 64])
+@pytest.mark.parametrize("mode", ["vpu", "mxu_t", "mxu_r"])
+def test_step_formulations_kernel_wide_logits(cuda_dev, mode, B):
+    """The attention modes on inputs N(0, 0.5^2): the logits spread by
+    about 2 per head, so a fault in the online softmax's rescale or in the
+    merge of the splits moves the output by tenths.  The kernel rounds p
+    against its chunk's running max, the plain version against the row's:
+    the kernel is held to NOISE_FACTOR times the plain bf16 version's
+    distance from the plain version in f32, both measured from the f32
+    one."""
+    q, k, v = sf.inputs(B, mode, B + len(mode), cuda_dev, scale=0.5)
+    out = sf.step_formulations(q, k, v, mode)
+    p = sf.step_formulations_plain(q, k, v, mode)
+    p32 = sf.step_formulations_plain(q.float(), k.float(), v.float(), mode).float()
+    assert out.shape == p.shape and out.dtype == p.dtype and torch.isfinite(out).all()
+    err = float((out.float() - p32).abs().max())
+    noise = float((p.float() - p32).abs().max())
+    assert err <= NOISE_FACTOR * noise, (err, noise)
+
+
+def test_step_formulations_raise_on_unsupported_input(cuda_dev):
+    q, k, v = sf.inputs(8, "mxu_r", 0, cuda_dev, ta=128)
+    with pytest.raises(ValueError):  # B not a multiple of 8
+        sf.step_formulations(q[:4], k[:4], v[:4], "mxu_r")
+    with pytest.raises(ValueError):  # Ta not a multiple of 64
+        sf.step_formulations(q, k[:, :100], v[:, :100], "dma")
+    with pytest.raises(ValueError):  # fp32
+        sf.step_formulations(q.float(), k.float(), v.float(), "dma")
+    with pytest.raises(ValueError):  # the other layout
+        sf.step_formulations(q, k, v, "vpu")
+
+
+def test_beam_transition_ties_on_card(cuda_dev):
+    """The beam selection on the card equals the CPU's where scores tie
+    (torch.topk orders ties differently on CUDA; the port sorts stably)."""
+    import qasr_ijcnlp_tpu_torch as port
+    from qasr_ijcnlp_tpu_torch.decode import DecodingTask
+    from qasr_ijcnlp_tpu_torch.decode import loop as tloop
+
+    sd = init_params(torch.Generator().manual_seed(1), SMALL)
+    cfg = DecodingTask(WhisperModel.from_state_dict(sd, SMALL, "cpu"), port.DecodingOptions(
+        language="en", without_timestamps=True, beam_size=4)).loop_cfg
+    B, K, C, W, eot = 2, 4, 3, 20, cfg.eot
+    cur = cfg.sample_begin
+    g = torch.Generator().manual_seed(3)
+    logits = torch.randn(B * K, SMALL.n_vocab, generator=g) * 3
+    logits[0, 100:110] = logits[0].max() + 1.0  # a ten-way tie at the top
+    logits[1] = logits[0]
+    logits[2, eot] = logits[2].max() + 0.5
+    start = torch.full((K,), float("-inf"))
+    start[0] = 0.0
+    state = tloop.BeamState(
+        torch.full((B * K, W), eot), start.repeat(B), torch.full((B, C, W), eot),
+        torch.full((B, C), float("-inf")), torch.zeros(B, dtype=torch.long),
+        torch.full((B * K,), -1), torch.full((B * K,), -1), torch.zeros(B * K, dtype=torch.long))
+    on = lambda st, dev: tloop.BeamState(*(t.to(dev) for t in st))
+    cpu, gpu = state, on(state, cuda_dev)
+    for _ in range(3):
+        cpu, src, tok = tloop.beam_transition(cfg, K, C, logits, cur, cpu)
+        gpu, gsrc, gtok = tloop.beam_transition(cfg, K, C, logits.to(cuda_dev), cur, gpu)
+        assert torch.equal(gsrc.cpu(), src) and torch.equal(gtok.cpu(), tok)
+        for a, b in zip(gpu, cpu):
+            assert torch.equal(a.cpu(), b)
+        cur += 1
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["fp", "int8"])
+def test_grouped_decoder_step_on_card(model, int8):
+    """A prompt and one beam step of G = 5 rows per audio over the grouped
+    cross cache (one row per audio), card vs CPU in f32; with the int8
+    cache K9 runs at G = 5, once per layer and step."""
+    dims, B, G = model.dims, 2, 5
+    sd = {k: v.cpu() for k, v in model.module.state_dict().items()}
+    cpu = WhisperModel.from_state_dict(sd, dims, "cpu")
+    g = torch.Generator().manual_seed(4)
+    xa = torch.randn(B, dims.n_audio_ctx, dims.n_audio_state, generator=g)
+    prompt = torch.randint(0, 50000, (B * G, 3), generator=g)
+    step = torch.randint(0, 50000, (B * G, 1), generator=g)
+    src = torch.tensor([0, 0, 2, 1, 3, 5, 9, 9, 6, 7])  # a parent gather within groups
+    outs = []
+    for m in (model, cpu):
+        dev = m.device
+        cache = tmodel.precompute_cross_kv(
+            m.module.decoder, xa.to(dev),
+            tmodel.init_kv_cache(dims, B * G, device=dev, cross_batch=B, ctx=16,
+                                 cross_int8=int8))
+        before = decode_attn.launches
+        a, cache = tmodel.decoder_step(m.module.decoder, prompt.to(dev), cache, dims)
+        cache = {**cache, "self_k": [k.index_select(0, src.to(dev)) for k in cache["self_k"]],
+                 "self_v": [v.index_select(0, src.to(dev)) for v in cache["self_v"]]}
+        b, _ = tmodel.decoder_step(m.module.decoder, step.to(dev), cache, dims)
+        if dev.type == "cuda":
+            assert decode_attn.launches - before == (2 * dims.n_text_layer if int8 else 0)
+        outs.append((a.cpu(), b.cpu()))
+    for x, y in zip(*outs):
+        assert float((x - y).abs().max()) <= 1e-3
+
+
+def test_beam_decode_on_card_matches_cpu(model):
+    """f32 beam decode (K = 3) through the kernels equals the CPU plain
+    path."""
+    import qasr_ijcnlp_tpu_torch as port
+
+    sd = {k: v.cpu() for k, v in model.module.state_dict().items()}
+    cpu = WhisperModel.from_state_dict(sd, model.dims, "cpu")
+    T = model.dims.n_audio_ctx
+    pcm = (np.random.default_rng(6).standard_normal((2, 2 * T * 160)) * 0.1).astype(
+        np.float32)
+    opts = port.DecodingOptions(language="en", sample_len=8, fp16=False, beam_size=3)
+    ours = port.decode(model, port.log_mel_spectrogram(pcm, device="cuda"), opts)
+    ref = port.decode(cpu, port.log_mel_spectrogram(pcm, device="cpu"), opts)
+    assert [r.tokens for r in ours] == [r.tokens for r in ref]

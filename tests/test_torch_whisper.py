@@ -133,16 +133,12 @@ def test_decoder_step_matches_jax(models, features):
     assert tc["idx"] == int(jc["idx"]) == 5
 
 
-@pytest.mark.parametrize("feature", ["offsets", "cross_int8", "grouped"])
+@pytest.mark.parametrize("feature", ["offsets"])
 def test_unported_decoder_features_raise(models, feature):
+    """Per-row offsets (speculative decode) still raise; grouped caches are
+    ported (tests/test_torch_beam.py)."""
     _, m = models
-    if feature == "offsets":
-        cache = tmodel.init_kv_cache(DIMS, 1, ctx=8)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tmodel.decoder_step(m.module.decoder, torch.zeros(1, 1, dtype=torch.long),
-                                cache, DIMS, offsets=torch.zeros(1))
-    else:
-        # the int8 cache is ported; grouped (beam) caches, int8 or not, are not
-        kw = {"cross_batch": 1, "cross_int8": feature == "cross_int8"}
-        with pytest.raises(NotImplementedError, match="Beam search"):
-            tmodel.init_kv_cache(DIMS, 2, **kw)
+    cache = tmodel.init_kv_cache(DIMS, 1, ctx=8)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tmodel.decoder_step(m.module.decoder, torch.zeros(1, 1, dtype=torch.long),
+                            cache, DIMS, offsets=torch.zeros(1))
