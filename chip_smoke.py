@@ -40,7 +40,8 @@ and the opt-in fused step) and its grouped decodes (beam search, best-of):
 5. **large-v3** (32 + 32 layers, D 1280, 128 mels, vocab 51866, full depth):
    K1 at 128 mels, the stem at D 1280, K8 on (8, 1536, 1280) with 20 heads
    and t_real 1500 (timed beside ``scaled_dot_product_attention`` as its
-   library yardstick), and K9 at B=8, 20 heads, for one query row (a step)
+   library yardstick; K7 and K8 run on the tensor cores, so their f32 bound
+   counts three TF32 products per product at 495 TFLOP/s), and K9 at B=8, 20 heads, for one query row (a step)
    and four (the prompt), and at G=5 (five beam rows per request); then a
    batch of 8 end to end, where K1 and the stem must launch, K8 exactly 32
    times, K4 and the finish never; then the same batch with ``kv_int8`` in
@@ -134,8 +135,9 @@ INT8_TOKEN_TIE = 1e-2
 # (tests/test_ops.py test_decode_with_kv_int8_runs_and_is_close).
 INT8_LOGPROB_GAP = 0.15
 # H100 SXM datasheet peaks: fp32 on the CUDA cores, bf16
-# dense on the tensor cores, HBM3 bandwidth.
-PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}
+# dense on the tensor cores, HBM3 bandwidth.  "tf32x3": an fp32 product
+# done as three TF32 products on the tensor cores (K7 and K8 in f32).
+PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12, "tf32x3": 495e12 / 3}
 HBM_BYTES_PER_S = 3.35e12
 B_KERNEL = 8
 
@@ -615,6 +617,11 @@ def int8_phase(res, kid, B, H, dev, seed, row_counts=(1,), dh=64, groups=1):
     return res
 
 
+def tc_peak(key):
+    """The peak that bounds K7 and K8 (tensor-core products) in ``key``."""
+    return "tf32x3" if key == "f32" else "bf16"
+
+
 def k7_phase(res, kid, B, H, dh, dev, seed, T=1500, Tp=1536):
     """K7 against its plain version in f32 and bf16 on the (B, H, Tp, dh)
     head views of (B, Tp, H dh) rows, as the unfused trunk hands them over
@@ -635,7 +642,7 @@ def k7_phase(res, kid, B, H, dh, dev, seed, T=1500, Tp=1536):
             f"{kid} 4D attention {H} heads of {dh}", key,
             lambda: flash.flash_attention(q, k, v, T),
             lambda: flash._plain_attention(q, k, v, T),
-            packed_work(B, Tp, Tp, H * dh, H, T, elem_size(key)),
+            packed_work(B, Tp, Tp, H * dh, H, T, elem_size(key)), peak=tc_peak(key),
             plain32_fn=lambda: flash._plain_attention(q.float(), k.float(), v.float(), T),
             library_fn=lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep,
                                                               scale=1.0))
@@ -661,7 +668,7 @@ def packed_phase(res, kid, B, D, H, dev, seed, T=1500, Tp=1536):
             f"{kid} packed attention {H} heads of {D // H}", key,
             lambda: flash.flash_attention_packed(q, k, v, H, T),
             lambda: flash._plain_attention_packed(q, k, v, H, T),
-            packed_work(B, Tp, Tp, D, H, T, elem_size(key)),
+            packed_work(B, Tp, Tp, D, H, T, elem_size(key)), peak=tc_peak(key),
             plain32_fn=lambda: flash._plain_attention_packed(
                 q.float(), k.float(), v.float(), H, T),
             library_fn=lambda: F.scaled_dot_product_attention(

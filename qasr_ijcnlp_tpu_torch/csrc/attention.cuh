@@ -1,15 +1,13 @@
-// Online-softmax attention core shared by K4 (qasr_attention,
-// encoder_block.cu), K7 (qasr_flash_attention, flash.cu) and K8
-// (qasr_packed_attention, flash.cu).
+// SIMT online-softmax attention core of K4 (qasr_attention,
+// encoder_block.cu, replacing qasr_ijcnlp_tpu/ops/encoder_block.py
+// `_attn_kernel`), whose tiles K11 (attn_parts.cu) reuses.  K7 and K8 run
+// on the tensor-core core of attention_tc.cuh instead.
 //
 // out[b, h, t, :dh] = softmax_j(q_t . k_j, keys j < t_real) v_j for one head
 // h of any width dh <= 256, with q and k pre-scaled by the caller.  Each of
 // q, k, v and out is addressed through its own (batch, head, row) element
 // strides with unit column stride, so K4 reads its fused (B, Tp, 3D) QKV
-// buffer, K8 the model's (B, T, D) tensors (head stride dh) and K7 (B, H, T,
-// dh) views of either layout through the same code, and Tq may differ from
-// Tk.  On Hopper "packed" versus "head-major" is only a choice of strides:
-// the TPU's 128-lane head pairing has no counterpart here.  The (Tq, Tk)
+// buffer in place, and Tq may differ from Tk.  The (Tq, Tk)
 // logits are never written: one block owns 64 query rows of one head of one
 // batch item and walks the keys in 32-row shared-memory tiles with a running
 // max and denominator.  Key tiles at or past t_real are skipped whole (their
@@ -30,15 +28,16 @@
 // W = 256 to one.
 //
 // Bound on the H100: 4 * B * H * Tq * t_real * dh FLOP on SIMT fp32 FMAs fed
-// from shared memory (no tensor cores yet), i.e. operations, not bytes.
+// from shared memory (K4 has not moved to the tensor cores yet), i.e.
+// operations, not bytes.
 #pragma once
 
 #include "common.cuh"
 
 namespace qasr {
 
-// encoder_block.cu instantiates the kernel with kRoundedSum = 1 and flash.cu
-// with 0, so no instantiation is compiled twice.
+// encoder_block.cu instantiates the kernel with kRoundedSum = 1; the 0 form
+// (the unrounded sum) served K7 and K8 and is no longer instantiated.
 constexpr int AQ = 64;     // query rows per block
 constexpr int AK = 32;     // keys per shared-memory tile
 constexpr int ATHREADS = 256;

@@ -11,7 +11,7 @@ launches in a plain module-level int.
 * :mod:`.encoder_block` — LN + QKV + masked attention (K4) and
   out-proj + LN + MLP (K5, and K6 at D > 512)
 * :mod:`.flash` — attention on packed (B, T, D) heads (K8) and on
-  (B, H, T, dh) heads that do not pack (K7)
+  (B, H, T, dh) heads that do not pack (K7), both on the tensor cores
 * :mod:`.decode_attn` — the decode loop's int8 cross attention (K9) and
   ``quantize_kv``, behind ``DecodingOptions(kv_int8=True)``
 * :mod:`.decoder_step` — the opt-in fused decoder-layer step (K10), one
@@ -21,8 +21,8 @@ launches in a plain module-level int.
 import torch
 import torch.nn.functional as F
 
-# The widest head the attention kernels take (csrc/attention.cuh for K4, K7
-# and K8, csrc/decode_attn.cu for K9).
+# The widest head the attention kernels take (csrc/attention.cuh for K4,
+# csrc/attention_tc.cuh for K7 and K8, csrc/decode_attn.cu for K9).
 MAX_HEAD_WIDTH = 256
 
 

@@ -11,17 +11,24 @@ it in every layer whose heads do not pack into the TPU's 128-lane groups,
 does not divide 128).  In both, keys at positions >= ``t_real`` are masked
 and q and k arrive pre-scaled by the caller.
 
-On the H100 (``csrc/flash.cu``) both are the online-softmax attention core
-that K4 also uses (``csrc/attention.cuh``), at any head width up to
-``MAX_HEAD_WIDTH``: no transpose, no padding copy, no (Tq, Tk) logits in
-device memory.  On Hopper "packed" or "head-major" is only a choice of
-strides, so K7 takes its (B, H, T, dh) operands as they come, including the
-strided head views of (B, T, D) projections that ``models.whisper.
-attention`` hands it, and writes its output where merging the heads again
-is a free reshape.  Both are bound by FMA throughput on the CUDA cores (no
-tensor cores yet).  Their numerics follow the TPU kernels: the softmax
-denominator sums the unrounded fp32 p, and p is rounded to the compute
-dtype only for the PV product.
+On the H100 (``csrc/flash.cu``) both run the tensor-core attention core of
+``csrc/attention_tc.cuh`` at any head width up to ``MAX_HEAD_WIDTH``: one
+block per 64 or 128 query rows of one head, key tiles brought into shared
+memory by TMA through a ring of mbarrier stages, both products on ``wgmma``
+(bf16 operands, or in f32 three TF32 products per product, hi.lo' + lo.hi'
++ hi.hi', which keeps the f32 error under 1e-5 at the encoder's shapes
+where one TF32 product would pass 1e-4), the online softmax in fp32
+registers.  No transpose, no
+padding copy and no (Tq, Tk) logits in device memory: TMA's bounds give
+zeros for keys >= ``t_real`` and for the padded head columns.  On Hopper
+"packed" or "head-major" is only a choice of strides, so K7 takes its (B,
+H, T, dh) operands as they come, including the strided head views of (B,
+T, D) projections that ``models.whisper.attention`` hands it (views whose
+strides TMA cannot address are read with plain loads by the same kernel),
+and writes its output where merging the heads again is a free reshape.
+Both are bound by tensor-core operations.  Their numerics follow the TPU
+kernels: the softmax denominator sums the unrounded fp32 p, and p is
+rounded to the compute dtype only for the PV product.
 """
 
 from __future__ import annotations

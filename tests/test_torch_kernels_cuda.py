@@ -269,6 +269,42 @@ def test_flash_attention_4d_kernel(cuda_dev, dtype, H, dh, layout):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kind,H,dh,tq,tk,t_real", [
+    ("packed", 20, 64, 1000, 1536, 1001),
+    ("packed", 4, 128, 77, 700, 5),
+    ("4d", 2, 64, 130, 300, 63),
+    ("4d", 3, 36, 200, 300, 250),
+    ("4d", 2, 256, 65, 200, 17),
+], ids=["tq-ragged", "t_real-in-first-tile", "t_real<key-tile", "dh36-plain-loads",
+        "dh256-short"])
+def test_attention_tc_edges(cuda_dev, dtype, kind, H, dh, tq, tk, t_real):
+    """K7/K8 at the tensor-core core's edges: Tq not a multiple of the query
+    tile, t_real not a multiple of the key tile or inside the first one, and
+    inf/NaN in every key and value row >= t_real.  Three heads of 36 in bf16
+    (a 216-byte row stride) are operands TMA cannot address, which the same
+    kernel reads with plain loads; in f32 (432 bytes) they go through TMA."""
+    g = torch.Generator(device="cuda").manual_seed(tq * 7 + dh)
+    q = torch.randn(2, tq, H * dh, generator=g, device="cuda") * 0.3
+    k = torch.randn(2, tk, H * dh, generator=g, device="cuda") * 0.3
+    v = torch.randn(2, tk, H * dh, generator=g, device="cuda")
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    clean = [t.clone() for t in (q, k, v)]
+    k[:, t_real:], v[:, t_real:] = float("inf"), float("nan")
+    if kind == "packed":
+        before = flash.launches
+        out = flash.flash_attention_packed(q, k, v, H, t_real)
+        assert flash.launches == before + 1
+        plain = lambda *qkv: flash._plain_attention_packed(*qkv, H, t_real)
+    else:
+        heads = lambda x: x.view(2, x.shape[1], H, dh).transpose(1, 2)
+        before = flash.launches_4d
+        out = flash.flash_attention(heads(q), heads(k), heads(v), t_real)
+        assert flash.launches_4d == before + 1
+        plain = lambda *qkv: flash._plain_attention(*map(heads, qkv), t_real)
+    _close(out, plain(*clean), lambda: plain(*(t.float() for t in clean)))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_attention_kernel_dh128(cuda_dev, dtype):
     """K4 at head width 128 (D 768, six heads), which the JAX gate admits."""
     torch.manual_seed(3)
