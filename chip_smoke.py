@@ -34,13 +34,15 @@ and the opt-in fused step) and its grouped decodes (beam search, best-of):
    choice of its group), K10 never launched, times and stages;
 4. **medium** (24 + 24 layers, D 1024, full depth): the stem at D 1024 (K3),
    K4 with 16 heads, the finish at D 1024 (K6) and the whole 24-layer trunk
-   (8, 1536, 1024) against their plain versions; then a batch of 8 end to
+   (8, 1536, 1024) against their plain versions, and the fused block's
+   tensor-core GEMM alone at its four products (QKV, out-projection, fc,
+   proj over 12,288 rows) beside ``torch.matmul`` in f32 and bf16; then a batch of 8 end to
    end in f32 and bf16 (wall time and stages), where the stem, K4 and the
    finish must launch and K8 never;
 5. **large-v3** (32 + 32 layers, D 1280, 128 mels, vocab 51866, full depth):
    K1 at 128 mels, the stem at D 1280, K8 on (8, 1536, 1280) with 20 heads
    and t_real 1500 (timed beside ``scaled_dot_product_attention`` as its
-   library yardstick; K7 and K8 run on the tensor cores, so their f32 bound
+   library yardstick; K4-K8 run on the tensor cores, so their f32 bound
    counts three TF32 products per product at 495 TFLOP/s), and K9 at B=8, 20 heads, for one query row (a step)
    and four (the prompt), and at G=5 (five beam rows per request); then a
    batch of 8 end to end, where K1 and the stem must launch, K8 exactly 32
@@ -448,13 +450,14 @@ def block_phase(res, ids, enc, mel, x32, dims, dev):
             f"{ids[1]} attention {H} heads", key,
             lambda: encoder_block.fused_attention_ln(x, blk.attn_ln, blk.attn, H, T),
             lambda: encoder_block._plain_attn_ln(x, blk.attn_ln, blk.attn, H, T),
-            attn_work(B, Tp, D, H, T, s),
+            attn_work(B, Tp, D, H, T, s), peak=tc_peak(key),
             plain32_fn=lambda: encoder_block._plain_attn_ln(
                 x.float(), blk.attn_ln, blk.attn, H, T))
         res.setdefault(ids[2], {})[key] = compare(
             f"{ids[2]} finish D{D}", key,
             lambda: encoder_block.fused_block_finish(x, attn, blk),
             lambda: encoder_block._plain_finish(x, attn, blk), finish_work(B, Tp, D, s),
+            peak=tc_peak(key),
             plain32_fn=lambda: encoder_block._plain_finish(x.float(), attn.float(), blk))
         del attn
     return res
@@ -502,7 +505,7 @@ def small_h128_kernel_phase(model, dev):
             f"K4_d128 attention {H} heads of {D // H}", key,
             lambda: encoder_block.fused_attention_ln(x, blk.attn_ln, blk.attn, H, T),
             lambda: encoder_block._plain_attn_ln(x, blk.attn_ln, blk.attn, H, T),
-            attn_work(B_KERNEL, Tp, D, H, T, elem_size(key)),
+            attn_work(B_KERNEL, Tp, D, H, T, elem_size(key)), peak=tc_peak(key),
             plain32_fn=lambda: encoder_block._plain_attn_ln(
                 x.float(), blk.attn_ln, blk.attn, H, T))
     packed_phase(res, "K8_d128", B_KERNEL, 1280, 10, dev, SEED + 16)
@@ -531,6 +534,7 @@ def medium_kernel_phase(model, dev):
     mel = randn(rng, (B_KERNEL, C0, Tm), dev)
     x32 = rows(rng, B_KERNEL, Tp, D, T, dev)
     res = block_phase({}, ("K3", "K4_16h", "K6"), enc, mel, x32, dims, dev)
+    gemm_phase(dev, B_KERNEL * Tp, D)
     x, ln, attn, want = k4_probe(dev, D, H, Tp, T)
     check_probe("K4", encoder_block.fused_attention_ln(x, ln, attn, H, T), want, T)
 
@@ -544,9 +548,55 @@ def medium_kernel_phase(model, dev):
             f"trunk ({L} layers)", key,
             lambda: transformer_trunk(enc, x, dims, t_real=T),
             lambda: plain_trunk(enc, x, dims, T), (L * (a_f + f_f), L * (a_b + f_b)),
-            tol="trunk_f32", plain32_fn=lambda: plain_trunk(enc, x.float(), dims, T),
+            tol="trunk_f32", peak=tc_peak(key),
+            plain32_fn=lambda: plain_trunk(enc, x.float(), dims, T),
             iters=2, warmup=1)
     return res
+
+
+def gemm_phase(dev, M, D):
+    """The fused block's tensor-core GEMM alone at the four products of
+    width D over M rows (QKV, out-projection, fc, proj, each with its
+    epilogue) beside ``torch.matmul`` of the same operands (cuBLAS, TF32
+    off), as context for K4 and K6: no one call computes LN + QKV +
+    attention or the whole finish.  Weights N(0, 1/K), activations and
+    residuals N(0, 1), biases N(0, 0.1^2); the GEMM is held to its plain
+    version as ``compare`` holds a kernel."""
+    from qasr_ijcnlp_tpu_torch.ops import encoder_block as eb, head_scale
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 24)
+    shapes = {"qkv": (3 * D, D), "out_proj": (D, D), "fc": (4 * D, D), "proj": (D, 4 * D)}
+    for dt, key in dtypes():
+        sc, parts = head_scale(64, dt), []
+        for ep, (N, K) in shapes.items():
+            randn_ = lambda *shape, sd=1.0: (torch.randn(*shape, generator=g, device=dev)
+                                             * sd).to(dt)
+            a, w, bias = randn_(M, K), randn_(N, K, sd=K ** -0.5), randn_(N, sd=0.1)
+            res = randn_(M, N) if ep in ("out_proj", "proj") else None
+            a_op, w_op = eb.gemm_operand(a, dt), eb.gemm_operand(w, dt)
+            run = lambda: eb.block_gemm(a_op, w_op, bias, ep, res, sc)
+            out = run()
+            out = out[0] + out[1] if out.dim() == 3 else out  # f32 t's hi/lo slabs
+            plain = eb.block_gemm_plain(a, w, bias, ep, res, sc)
+            err = float((out.float() - plain.float()).abs().max())
+            if key == "f32":
+                limit = TOL["f32"]
+            else:
+                r32 = None if res is None else res.float()
+                plain32 = eb.block_gemm_plain(a.float(), w.float(), bias.float(), ep, r32, sc)
+                limit = NOISE_FACTOR * float((plain.float() - plain32).abs().max())
+                del plain32
+            if not torch.isfinite(out).all() or err > limit:
+                raise AssertionError(f"GEMM {ep} {key}: error {err} outside {limit}")
+            del out, plain
+            ms = cuda_ms(run)
+            mm_ms = cuda_ms(lambda: torch.matmul(a, w.t()))
+            tf = lambda t: 2 * M * N * K / t / 1e9
+            parts.append(f"{ep} ({M}, {N}, {K}) kernel {ms:.4f} ms ({tf(ms):.0f} TFLOP/s, "
+                         f"err {err:.2e} of {limit:.2e}), torch.matmul {mm_ms:.4f} ms "
+                         f"({tf(mm_ms):.0f} TFLOP/s)")
+            del a, w, bias, res, a_op, w_op
+        log(f"GEMM D{D} {key} (torch.matmul with allow_tf32 off): " + "; ".join(parts))
 
 
 def large_kernel_phase(model, dev):
@@ -618,7 +668,7 @@ def int8_phase(res, kid, B, H, dev, seed, row_counts=(1,), dh=64, groups=1):
 
 
 def tc_peak(key):
-    """The peak that bounds K7 and K8 (tensor-core products) in ``key``."""
+    """The peak that bounds the tensor-core kernels (K4-K8) in ``key``."""
     return "tf32x3" if key == "f32" else "bf16"
 
 
@@ -1105,7 +1155,7 @@ def int8_path(port, gpu, cpu, pcm, res_fp, xa, smi, name, expect):
     check_results(res8, B, dims)
     with torch.inference_mode():
         cpu_cache = precompute_cross_kv(
-            cpu.module.decoder, xa, init_kv_cache(dims, 1, cross_int8=True))
+            cpu.module.decoder, xa, init_kv_cache(dims, 1, device="cpu", cross_int8=True))
         card_cache = precompute_cross_kv(
             gpu.module.decoder, res8[0].audio_features[None].float(),
             init_kv_cache(dims, 1, device=gpu.device, ctx=16, cross_int8=True))
@@ -1206,8 +1256,9 @@ def beam_path(port, gpu, cpu, pcm, xa, smi, name, expect):
         results[int8] = res
         with torch.inference_mode():
             ref = port.decode(cpu, xa, options(port, False, int8, BEAM))[0]
-            cache = precompute_cross_kv(cpu.module.decoder, xa,
-                                        init_kv_cache(dims, 1, cross_int8=True)) if int8 else None
+            cache = precompute_cross_kv(
+                cpu.module.decoder, xa,
+                init_kv_cache(dims, 1, device="cpu", cross_int8=True)) if int8 else None
         beam_check(port, cpu, xa, res[0], ref, f"{label} request 0",
                    INT8_TOKEN_TIE if int8 else TOKEN_TIE, cache)
         res16 = run_requests(port, gpu, pcm, fp16=True, kv_int8=int8, extra=BEAM)
@@ -1420,6 +1471,8 @@ def kernel_table(kres, by_path):
          "attn", "tiny", "(8, 1536, 384), 6 heads, t_real 1500"),
         ("encoder_finish", "K5", src + "encoder_block.cu", tpu + "encoder_block.py:238",
          "finish", "tiny", "(8, 1536, 384)"),
+        ("encoder_attention_d1024", "K4_16h", src + "encoder_block.cu",
+         tpu + "encoder_block.py:148", "attn", "medium", "(8, 1536, 1024), 16 heads, t_real 1500"),
         ("encoder_finish_d1024", "K6", src + "encoder_block.cu",
          tpu + "encoder_block.py:259", "finish", "medium", "(8, 1536, 1024)"),
         ("packed_attention", "K8", src + "flash.cu", tpu + "flash.py:119", "packed",

@@ -1,5 +1,5 @@
-// Tensor-core attention core of K7 (qasr_flash_attention) and K8
-// (qasr_packed_attention), included only by flash.cu.
+// Tensor-core attention core of K4 (qasr_attention, encoder_block.cu), K7
+// (qasr_flash_attention) and K8 (qasr_packed_attention, both flash.cu).
 //
 // out[b, h, t, :dh] = softmax_j(q_t . k_j, keys j < t_real) v_j for one head
 // h of any width dh <= 256, q and k pre-scaled by the caller, each operand
@@ -7,7 +7,11 @@
 // column stride, Tq and Tk free.  The logits and the softmax are fp32; p is
 // rounded to the compute dtype only for the PV product, while the
 // denominator sums the unrounded fp32 p (the rule of the TPU kernels
-// `_attn_kernel` and `_packed_kernel` in qasr_ijcnlp_tpu/ops/flash.py).
+// `_attn_kernel` and `_packed_kernel` in qasr_ijcnlp_tpu/ops/flash.py) or,
+// with kRoundedSum, the rounded p that PV multiplies (K4's rule: the TPU
+// kernel qasr_ijcnlp_tpu/ops/encoder_block.py `_attn_kernel` appends a ones
+// block to V, so its denominator sums the p it multiplies; in f32 the two
+// rules are one).
 //
 // Bound on the H100: operations, 4 * B * H * min(Tq, t_real) * t_real * dh
 // FLOP on the tensor cores (989 TFLOP/s in bf16; in f32 three TF32 products
@@ -53,19 +57,16 @@
 //   over the tile anyway, and the transpose rides on it (the alternative,
 //   mma.sync m16n8k8 with fragments loaded by hand, would feed the tensor
 //   cores at a lower rate).  The pass is SIMT work that does not overlap
-//   the block's own products; other blocks on the SM fill that gap.  The PV A operand comes from the S accumulator,
-//   whose thread holds keys 2q, 2q + 1 of each 8-key group where the tf32
+//   the block's own products; other blocks on the SM fill that gap.  The
+//   PV A operand comes from the S accumulator, whose thread holds keys 2q,
+//   2q + 1 of each 8-key group where the tf32
 //   A fragment wants k = q, q + 4; Vt stores each group's keys in that
 //   order (even keys, then odd), so no shuffle is needed.
 // * Head widths.  Compiled at W = 16, 32, 64, 96, 128 and 256 and launched
 //   at the smallest W >= dh; PV runs in slices of at most 64 columns.
 #pragma once
 
-#include <cuda.h>
-#include <dlfcn.h>
-#include <type_traits>
-
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace qasr {
 
@@ -114,166 +115,6 @@ __device__ __forceinline__ int cm_idx(int r, int c, int R) {
   return (c / CH) * R * CH + r * CH + (c % CH);
 }
 
-// ---------------------------------------------------------------- PTX ------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_u32(bar)), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-
-// Wait for the completion of the barrier's phase of this parity.  A wait
-// of over 10 s is a broken pipeline: trap, so that the launch fails with
-// an error instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  uint64_t t0 = 0;
-  for (;;) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (t0 == 0) t0 = global_ns();
-    else if (global_ns() - t0 > 10000000000ull) __trap();
-  }
-}
-
-// Generic-proxy writes to shared memory become visible to wgmma and TMA.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void named_bar(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-__device__ __forceinline__ void tma_load5(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                          int c0, int c1, int c2, int c3, int c4) {
-  asm volatile(
-      "cp.async.bulk.tensor.5d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3), "r"(c4)
-      : "memory");
-}
-
-__device__ __forceinline__ float tf32_rna(float x) {
-  uint32_t u;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(u) : "f"(x));
-  return __uint_as_float(u);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Shared-memory matrix descriptor, no swizzle, K-major: 8-row x 16-byte core
-// matrices; `lbo` bytes between core matrices along K, 128 along M/N.
-__device__ __forceinline__ uint64_t gmma_desc(const void* p, int lbo, int sbo = 128) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keep the compiler from moving accumulator reads or writes across the
-// asynchronous products.
-template <int N>
-__device__ __forceinline__ void fence_regs(float* d) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define QASR_D8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
-#define QASR_D16 \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
-#define QASR_D32                                                                        \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
-  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-#define QASR_O8(d)                                                                  \
-  "+f"((d)[0]), "+f"((d)[1]), "+f"((d)[2]), "+f"((d)[3]), "+f"((d)[4]), "+f"((d)[5]), \
-      "+f"((d)[6]), "+f"((d)[7])
-#define QASR_O16(d) QASR_O8(d), QASR_O8((d) + 8)
-#define QASR_O32(d) QASR_O16(d), QASR_O16((d) + 16)
-// A and B from shared memory (bf16 adds the two transpose flags, both 0).
-#define QASR_SS(SHAPE, TYPES, DL, A, B, P, TAIL)                                    \
-  "{\n.reg .pred p;\nsetp.ne.b32 p, %" #P ", 0;\nwgmma.mma_async.sync.aligned." SHAPE \
-  ".f32." TYPES " " DL ", %" #A ", %" #B ", p, 1, 1" TAIL ";\n}\n"
-// A from four registers, B from shared memory (bf16 adds B's transpose flag).
-#define QASR_RS(SHAPE, TYPES, DL, A0, A1, A2, A3, B, P, TAIL)                       \
-  "{\n.reg .pred p;\nsetp.ne.b32 p, %" #P ", 0;\nwgmma.mma_async.sync.aligned." SHAPE \
-  ".f32." TYPES " " DL ", {%" #A0 ", %" #A1 ", %" #A2 ", %" #A3 "}, %" #B ", p, 1, 1" TAIL \
-  ";\n}\n"
-
-// D (64 x N, fp32, accumulated) += A B for one k-step: bf16 k16 or tf32 k8.
-template <int N>
-struct Wgmma;
-
-#define QASR_WGMMA(N, DL, OUT, NA, NB, NP, RA0, RA1, RA2, RA3, RB, RP)                     \
-  template <>                                                                             \
-  struct Wgmma<N> {                                                                       \
-    static __device__ __forceinline__ void ss(float* d, uint64_t a, uint64_t b, __nv_bfloat16) { \
-      asm volatile(QASR_SS("m64n" #N "k16", "bf16.bf16", DL, NA, NB, NP, ", 0, 0")         \
-                   : OUT(d)                                                                \
-                   : "l"(a), "l"(b), "r"(1));                                              \
-    }                                                                                     \
-    static __device__ __forceinline__ void ss(float* d, uint64_t a, uint64_t b, float) {   \
-      asm volatile(QASR_SS("m64n" #N "k8", "tf32.tf32", DL, NA, NB, NP, "")                \
-                   : OUT(d)                                                                \
-                   : "l"(a), "l"(b), "r"(1));                                              \
-    }                                                                                     \
-    static __device__ __forceinline__ void rs(float* d, const uint32_t* a, uint64_t b,     \
-                                              __nv_bfloat16) {                             \
-      asm volatile(QASR_RS("m64n" #N "k16", "bf16.bf16", DL, RA0, RA1, RA2, RA3, RB, RP,   \
-                           ", 1")                                                          \
-                   : OUT(d)                                                                \
-                   : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));          \
-    }                                                                                     \
-    static __device__ __forceinline__ void rs(float* d, const uint32_t* a, uint64_t b,     \
-                                              float) {                                     \
-      asm volatile(QASR_RS("m64n" #N "k8", "tf32.tf32", DL, RA0, RA1, RA2, RA3, RB, RP, "") \
-                   : OUT(d)                                                                \
-                   : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));          \
-    }                                                                                     \
-  };
-
-QASR_WGMMA(16, QASR_D8, QASR_O8, 8, 9, 10, 8, 9, 10, 11, 12, 13)
-QASR_WGMMA(32, QASR_D16, QASR_O16, 16, 17, 18, 16, 17, 18, 19, 20, 21)
-QASR_WGMMA(64, QASR_D32, QASR_O32, 32, 33, 34, 32, 33, 34, 35, 36, 37)
-
 // ------------------------------------------------------------- kernel ------
 
 // O[:, N0:W] += A V for one k-step, in slices of at most 64 columns; V is
@@ -307,7 +148,7 @@ __device__ void plain_tile(T* dst, const TcOperand& x, int b, int h, int row0, i
   __syncwarp();
 }
 
-template <typename T, int W>
+template <typename T, int W, bool kRoundedSum>
 __global__ void __launch_bounds__(TcCfg<T, W>::THREADS, 1)
 attn_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
                const __grid_constant__ CUtensorMap mv, const TcArgs a) {
@@ -334,7 +175,7 @@ attn_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ C
       mbar_init(&empty[s], NWG);
     }
     mbar_init(qbar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -459,7 +300,7 @@ attn_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ C
         for (int e = 0; e < 2; ++e) {
           const float p = expf(sacc[4 * i + 2 * r + e] - m_new);
           sacc[4 * i + 2 * r + e] = p;
-          ls += p;  // the unrounded fp32 p
+          ls += kRoundedSum ? rnd<T>(p) : p;  // K4: the p PV multiplies
         }
       l_part[r] = l_part[r] * alpha + ls;
       m_run[r] = m_new;
@@ -525,26 +366,6 @@ attn_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ C
 
 // ---------------------------------------------------------------- host -----
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled lives in libcuda, which the CUDA runtime has
-// already loaded; the library links only the runtime, so it looks the
-// function up there.
-inline EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
-    if (lib != nullptr)
-      fn = reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"));
-  }
-  return fn;
-}
-
 // Whether TMA can address operand x: a 16-byte-aligned base, row, head and
 // batch strides of whole 16-byte units (where that dimension has more than
 // one entry), and dh a whole number of chunks.
@@ -575,7 +396,7 @@ inline cudaError_t encode_operand(CUtensorMap* map, const TcOperand& x, bool f32
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <typename T, int W>
+template <typename T, int W, bool kRoundedSum = false>
 inline cudaError_t launch_attn_tc_width(TcArgs a, int B, int H, cudaStream_t s) {
   using C = TcCfg<T, W>;
   constexpr bool f32 = C::kF32;
@@ -589,10 +410,11 @@ inline cudaError_t launch_attn_tc_width(TcArgs a, int B, int H, cudaStream_t s) 
     if (e != cudaSuccess) return e;
   }
   const cudaError_t e = cudaFuncSetAttribute(
-      attn_tc_kernel<T, W>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+      attn_tc_kernel<T, W, kRoundedSum>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::kSmem);
   if (e != cudaSuccess) return e;
   const dim3 grid((a.Tq + C::QR - 1) / C::QR, H, B);
-  attn_tc_kernel<T, W><<<grid, C::THREADS, C::kSmem, s>>>(mq, mk, mv, a);
+  attn_tc_kernel<T, W, kRoundedSum><<<grid, C::THREADS, C::kSmem, s>>>(mq, mk, mv, a);
   return cudaGetLastError();
 }
 

@@ -11,8 +11,8 @@
 //   full     p = bf16(softmax(fp32 q.k^T)), normalised before PV;
 //            out = bf16(p v)
 //
-// Each mode keeps the thread layout and tiles of the attention core
-// (attention.cuh: one block per 64 query rows of one head of one batch item,
+// Each mode keeps the thread layout and tiles of K4's former SIMT attention
+// core (attention.cuh: one block per 64 query rows of one head of one batch item,
 // 32-key shared-memory tiles, four threads a row) and runs its own product
 // loops (`tile_logits`, `tile_pv`), so the three times split the core's own
 // costs.  The TPU kernel normalised p before PV, which needs

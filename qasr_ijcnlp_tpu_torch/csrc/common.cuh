@@ -1,13 +1,14 @@
 // Shared device code of the port's hand-written kernels (sm_90a).
 //
-// One tiled SIMT GEMM with fp32 accumulation serves every kernel of the
-// slice.  The operands are not plain pointers but small loader functors, so
-// each caller fuses its own prologue into the tile loads (conv taps read mel
-// or y1 at shifted/strided offsets, the DFT reads framed audio times the
-// Hann window, the mel product squares the spectrum on the fly) and its own
-// epilogue into the store (bias, exact-erf GELU, residual, scale, log10).
-// Tensor-core paths (wgmma, TMA) are later work; this version is the simple,
-// exact-fp32-FMA one.
+// One tiled SIMT GEMM with fp32 accumulation serves the kernels whose
+// operands are not plain row-major tensors: K1 (melfront.cu) and the conv
+// stem K2/K3 (conv_stem.cu).  Its operands are small loader functors, so
+// each caller fuses its own prologue into the tile loads (conv taps read
+// mel or y1 at shifted/strided offsets, the DFT reads framed audio times
+// the Hann window, the mel product squares the spectrum on the fly) and its
+// own epilogue into the store (bias, exact-erf GELU, residual, scale,
+// log10).  The fused encoder block's products run on the tensor cores
+// instead (gemm_tc.cuh, wgmma + TMA); moving K1-K3 there is later work.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -137,51 +138,6 @@ struct WeightNK {
     return to_f(w[(size_t)n * K + k]);
   }
 };
-
-// Loader for a row-major (M, K) activation with leading dimension ld.
-template <typename T>
-struct RowMajor {
-  const T* x;
-  int ld;
-  __device__ __forceinline__ float operator()(int, int m, int k) const {
-    return to_f(x[(size_t)m * ld + k]);
-  }
-};
-
-// ---------------------------------------------------------------------------
-// fp32 LayerNorm over the last dim, one warp per row; output rounded to T
-// (the reference computes LN in fp32 and casts back to the activation dtype).
-// ---------------------------------------------------------------------------
-template <typename T>
-__global__ void layer_norm_kernel(const T* __restrict__ x, const float* __restrict__ g,
-                                  const float* __restrict__ beta, T* __restrict__ y,
-                                  int rows, int D) {
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= rows) return;
-  const T* xr = x + (size_t)row * D;
-  T* yr = y + (size_t)row * D;
-  float s = 0.f;
-  for (int i = lane; i < D; i += 32) s += to_f(xr[i]);
-  const float mean = warp_sum(s) / D;
-  float v = 0.f;
-  for (int i = lane; i < D; i += 32) {
-    const float d = to_f(xr[i]) - mean;
-    v += d * d;
-  }
-  const float rstd = rsqrtf(warp_sum(v) / D + 1e-5f);
-  for (int i = lane; i < D; i += 32)
-    yr[i] = from_f<T>((to_f(xr[i]) - mean) * rstd * g[i] + beta[i]);
-}
-
-template <typename T>
-inline cudaError_t launch_layer_norm(const T* x, const float* g, const float* b, T* y,
-                                     int rows, int D, cudaStream_t stream) {
-  const int warps_per_block = 8;
-  const int blocks = (rows + warps_per_block - 1) / warps_per_block;
-  layer_norm_kernel<T><<<blocks, warps_per_block * 32, 0, stream>>>(x, g, b, y, rows, D);
-  return cudaGetLastError();
-}
 
 }  // namespace qasr
 

@@ -18,8 +18,9 @@ heads), no mask, no scale, in three modes, each as the TPU body writes it:
   out = bf16(p v).
 
 The kernel (``csrc/attn_parts.cu``) keeps the tiles, thread layout and
-loops of the attention core behind K4, K7 and K8 (``csrc/attention.cuh``),
-so its three times say where the core's time goes.  The TPU grid ran its
+loops of the SIMT attention core that K4 ran until it moved to the tensor
+cores (``csrc/attention.cuh``), so its three times say where that core's
+time went.  The TPU grid ran its
 head pairs in order into one (B, Tp, 128) output block, so only heads 4-5
 remained; blocks on the card run in no order, so every head writes its own
 columns of a (B, Tp, D) output, whose columns 256-383 are the TPU

@@ -352,7 +352,7 @@ def decoder_apply(decoder: TextDecoder, tokens, xa, dims: ModelDimensions,
 
 
 def init_kv_cache(
-    dims: ModelDimensions, batch: int, dtype=torch.float32, device="cpu",
+    dims: ModelDimensions, batch: int, dtype=torch.float32, device="cuda",
     cross_batch: Optional[int] = None, ctx: Optional[int] = None,
     cross_int8: bool = False,
 ) -> Dict:

@@ -21,8 +21,9 @@ launches in a plain module-level int.
 import torch
 import torch.nn.functional as F
 
-# The widest head the attention kernels take (csrc/attention.cuh for K4,
-# csrc/attention_tc.cuh for K7 and K8, csrc/decode_attn.cu for K9).
+# The widest head the attention kernels take (csrc/attention_tc.cuh for K7
+# and K8, csrc/decode_attn.cu for K9; K4 takes the fused-block gate's heads
+# of 64 and 128 on the same core).
 MAX_HEAD_WIDTH = 256
 
 

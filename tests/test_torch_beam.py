@@ -181,17 +181,18 @@ def test_grouped_step_equals_repeated_cache(int8):
         (B, dims.n_audio_ctx, dims.n_audio_state)).astype(np.float32))
     toks = torch.randint(0, 50000, (B * G, 3), generator=torch.Generator().manual_seed(0))
     grouped = tmodel.precompute_cross_kv(
-        dec, xa, tmodel.init_kv_cache(dims, B * G, cross_batch=B, ctx=16, cross_int8=int8))
+        dec, xa, tmodel.init_kv_cache(dims, B * G, device="cpu", cross_batch=B, ctx=16,
+                                         cross_int8=int8))
     rep = tmodel.precompute_cross_kv(
         dec, xa.repeat_interleave(G, 0),
-        tmodel.init_kv_cache(dims, B * G, ctx=16, cross_int8=int8))
+        tmodel.init_kv_cache(dims, B * G, device="cpu", ctx=16, cross_int8=int8))
     key = "cross_k8" if int8 else "cross_k"
     assert grouped[key][0].shape[0] == B and rep[key][0].shape[0] == B * G
     a, _ = tmodel.decoder_step(dec, toks, grouped, dims)
     b, _ = tmodel.decoder_step(dec, toks, rep, dims)
     torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
     with pytest.raises(ValueError):
-        tmodel.init_kv_cache(dims, 5, cross_batch=2)
+        tmodel.init_kv_cache(dims, 5, device="cpu", cross_batch=2)
 
 
 def _transition_inputs(rng, B, K, V, W, cur, eot):

@@ -115,7 +115,7 @@ def test_int8_precompute_matches_jax(models, features):
         jmodel.init_kv_cache(DIMS, 2, ctx=16, cross_int8=True))
     tc = tmodel.precompute_cross_kv(
         m.module.decoder, torch.from_numpy(features),
-        tmodel.init_kv_cache(DIMS, 2, ctx=16, cross_int8=True))
+        tmodel.init_kv_cache(DIMS, 2, device="cpu", ctx=16, cross_int8=True))
     for name in ("k", "v"):
         for l in range(DIMS.n_text_layer):
             codes, scales = _port_layout(jc[f"cross_{name}8"][l], jc[f"cross_s{name}"][l])
@@ -140,12 +140,12 @@ def test_int8_decoder_step_matches_jax(models, features, dtype):
         jmodel.init_kv_cache(DIMS, 2, jdt, ctx=ctx, cross_int8=True))
     tc = tmodel.precompute_cross_kv(
         m.module.decoder, torch.from_numpy(features),
-        tmodel.init_kv_cache(DIMS, 2, tdt, ctx=ctx, cross_int8=True))
+        tmodel.init_kv_cache(DIMS, 2, tdt, "cpu", ctx=ctx, cross_int8=True))
     decoder = m.decoder_for(tdt)
     if dtype == "bfloat16":
         with pytest.raises(ValueError, match="fp32"):
             tmodel.precompute_cross_kv(decoder, torch.from_numpy(features),
-                                       tmodel.init_kv_cache(DIMS, 2, tdt, ctx=ctx,
+                                       tmodel.init_kv_cache(DIMS, 2, tdt, "cpu", ctx=ctx,
                                                             cross_int8=True))
     # f32: the fp step's bound; bf16: 2.5 bf16 ulps of the O(1) logits (the
     # two frameworks round bf16 products summed in different orders)

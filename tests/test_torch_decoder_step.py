@@ -91,7 +91,7 @@ def test_fused_step_matches_jax(models, dtype, monkeypatch):
     jf = jstep.to_fused_cache(jc, DIMS)
 
     dec = port.decoder_for(tdt)
-    tc = tmodel.init_kv_cache(DIMS, B, tdt)
+    tc = tmodel.init_kv_cache(DIMS, B, tdt, "cpu")
     tc = tmodel.precompute_cross_kv(dec, torch.from_numpy(feats), tc)
     _, tc = tmodel.decoder_step(dec, torch.from_numpy(prompt), tc, DIMS, tdt)
     assert decoder_step.fused_cache_applicable(tc, DIMS, B)
@@ -126,7 +126,7 @@ def test_fused_step_matches_unfused_port_step(models):
     dec = port.decoder_for(torch.float32)
     caches = []
     for _ in range(2):
-        c = tmodel.init_kv_cache(DIMS, B, ctx=16)
+        c = tmodel.init_kv_cache(DIMS, B, device="cpu", ctx=16)
         c = tmodel.precompute_cross_kv(dec, torch.from_numpy(feats), c)
         _, c = tmodel.decoder_step(dec, torch.from_numpy(prompt), c, DIMS)
         caches.append(c)
@@ -215,14 +215,14 @@ def test_gates_match_jax(name):
         want = jstep.fused_step_applicable(jd.n_text_head, jd.n_text_state, batch)
         assert decoder_step.fused_step_applicable(H, D, batch) == want
         jc = jmodel.init_kv_cache(jd, batch, ctx=8)
-        tc = tmodel.init_kv_cache(td, batch, ctx=8)
+        tc = tmodel.init_kv_cache(td, batch, device="cpu", ctx=8)
         assert not decoder_step.fused_cache_applicable(tc, td, batch)  # not filled yet
         filled = torch.zeros(batch, H, 8, D // H)
         tc = {**tc, "cross_k": [filled], "cross_v": [filled]}
         assert decoder_step.fused_cache_applicable(tc, td, batch) == \
             jstep.fused_cache_applicable(jc, jd, batch)
         j8 = jmodel.init_kv_cache(jd, batch, ctx=8, cross_int8=True)
-        t8 = tmodel.init_kv_cache(td, batch, ctx=8, cross_int8=True)
+        t8 = tmodel.init_kv_cache(td, batch, device="cpu", ctx=8, cross_int8=True)
         assert not jstep.fused_cache_applicable(j8, jd, batch)
         assert not decoder_step.fused_cache_applicable(t8, td, batch)
     assert not decoder_step.fused_step_applicable(6, 384, 8, groups=2)

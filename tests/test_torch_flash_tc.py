@@ -57,10 +57,12 @@ def split_dot(a, b, terms):
     return ah @ bl + al @ bh + ah @ bh
 
 
-def emulate(q, k, v, t_real, dtype, W, KT, terms=3):
+def emulate(q, k, v, t_real, dtype, W, KT, terms=3, rounded_sum=False):
     """The core's arithmetic on (B, H, T, dh) fp32 tensors holding values of
     ``dtype``: head width zero-padded to W, keys walked in tiles of KT with
-    keys >= t_real zero-filled and masked; returns (B, H, Tq, dh) fp32."""
+    keys >= t_real zero-filled and masked; returns (B, H, Tq, dh) fp32.
+    ``rounded_sum`` is K4's rule: the denominator sums the p rounded to
+    ``dtype`` that PV multiplies (K7/K8 sum the unrounded fp32 p)."""
     dh = q.shape[-1]
     pad = lambda x: torch.nn.functional.pad(x, (0, W - dh))
     q, k, v = pad(q), pad(k[:, :, :t_real]), pad(v[:, :, :t_real])
@@ -79,9 +81,12 @@ def emulate(q, k, v, t_real, dtype, W, KT, terms=3):
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
         alpha = torch.exp(m - m_new)
         p = torch.exp(s - m_new)
-        l = l * alpha + p.sum(-1, keepdim=True)  # the unrounded fp32 p
         if dtype == "bf16":
-            p = p.to(torch.bfloat16).float()
+            pr = p.to(torch.bfloat16).float()
+            l = l * alpha + (pr if rounded_sum else p).sum(-1, keepdim=True)
+            p = pr
+        else:
+            l = l * alpha + p.sum(-1, keepdim=True)
         o = o * alpha + split_dot(p, vt, terms)
         m = m_new
     return (o / l)[..., :dh]

@@ -199,6 +199,84 @@ def test_attention_and_finish_kernels_d1024(wide, dtype):
            lambda: encoder_block._plain_finish(x.float(), a.float(), blk))
 
 
+# The fused-block gate's widths (D, heads): heads of 64 in pairs at every
+# width the GEMM takes (D a multiple of 128: the probe test's 128 and the
+# family's 384, 512, 768, 1024), and heads of 128.
+BLOCK_WIDTHS = [(128, 2), (384, 6), (512, 8), (768, 12), (1024, 16), (768, 6), (1024, 8)]
+# (N, K) of each GEMM epilogue at width D
+GEMM_SHAPES = {"qkv": (3, 1), "out_proj": (1, 1), "fc": (4, 1), "proj": (1, 4)}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("D", [128, 384, 512, 768, 1024])
+@pytest.mark.parametrize("epilogue", encoder_block.EPILOGUES)
+def test_block_gemm_kernel(cuda_dev, dtype, D, epilogue):
+    """The tensor-core GEMM with each of the block's four epilogues against
+    its plain version at that product's (M, N, K) for width D (M = 1000
+    rows, so the last row tile is ragged): weights N(0, 1/K), activations
+    and residual N(0, 1), biases N(0, 0.1^2); f32 by 3xTF32 within 1e-4."""
+    nN, nK = GEMM_SHAPES[epilogue]
+    M, N, K = 1000, nN * D, nK * D
+    g = torch.Generator(device="cuda").manual_seed(D + len(epilogue))
+    randn = lambda *shape, sd=1.0: (torch.randn(*shape, generator=g, device="cuda")
+                                    * sd).to(dtype)
+    a, w, bias, res = randn(M, K), randn(N, K, sd=K ** -0.5), randn(N, sd=0.1), randn(M, N)
+    if epilogue in ("qkv", "fc"):
+        res = None
+    scale = head_scale(64, dtype)
+    before = encoder_block.gemm_launches
+    out = encoder_block.block_gemm(encoder_block.gemm_operand(a, dtype),
+                                   encoder_block.gemm_operand(w, dtype), bias, epilogue,
+                                   res, scale)
+    assert encoder_block.gemm_launches == before + 1
+    if epilogue == "fc" and dtype == torch.float32:
+        out = out[0] + out[1]  # t's hi/lo slabs
+    f32 = lambda t: None if t is None else t.float()
+    _close(out, encoder_block.block_gemm_plain(a, w, bias, epilogue, res, scale),
+           lambda: encoder_block.block_gemm_plain(a.float(), w.float(), bias.float(),
+                                                  epilogue, f32(res), scale))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("D,H", BLOCK_WIDTHS, ids=lambda v: str(v))
+@pytest.mark.parametrize("pad", [True, False], ids=["t_real<Tp", "t_real==Tp"])
+def test_fused_block_kernels_at_gate_widths(cuda_dev, dtype, D, H, pad):
+    """K4 and the finish (K5 at D <= 512, K6 above) at every width the
+    fused-block gate admits, Tp 512, padding rows one repeated row."""
+    torch.manual_seed(D + H)
+    blk = ResidualAttentionBlock(D, H).to(cuda_dev).requires_grad_(False)
+    g = torch.Generator(device="cuda").manual_seed(D * H)
+    x, a = (torch.randn(2, 512, D, generator=g, device="cuda") for _ in range(2))
+    t_real = 500 if pad else 512
+    x[:, t_real:] = x[:, -1:]
+    x, a = x.to(dtype), a.to(dtype)
+    before = (encoder_block.attn_launches, encoder_block.finish_launches)
+    k_attn = encoder_block.fused_attention_ln(x, blk.attn_ln, blk.attn, H, t_real)
+    k_fin = encoder_block.fused_block_finish(x, a, blk)
+    assert (encoder_block.attn_launches, encoder_block.finish_launches) == \
+        (before[0] + 1, before[1] + 1)
+    plain = lambda x: encoder_block._plain_attn_ln(x, blk.attn_ln, blk.attn, H, t_real)
+    _close(k_attn, plain(x), lambda: plain(x.float()))
+    _close(k_fin, encoder_block._plain_finish(x, a, blk),
+           lambda: encoder_block._plain_finish(x.float(), a.float(), blk))
+
+
+def test_block_wrappers_raise_off_the_gate(cuda_dev):
+    """K4 takes heads of 64 and 128 over D a multiple of 128, the finish D
+    and an MLP width in multiples of 128: anything else raises before a
+    launch."""
+    x = torch.zeros(1, 512, 384, device="cuda")
+    blk = ResidualAttentionBlock(384, 4).to(cuda_dev).requires_grad_(False)  # heads of 96
+    with pytest.raises(ValueError):
+        encoder_block.fused_attention_ln(x, blk.attn_ln, blk.attn, 4, 500)
+    blk = ResidualAttentionBlock(192, 3).to(cuda_dev).requires_grad_(False)  # D % 128
+    x = torch.zeros(1, 512, 192, device="cuda")
+    with pytest.raises(ValueError):
+        encoder_block.fused_attention_ln(x, blk.attn_ln, blk.attn, 3, 500)
+    with pytest.raises(ValueError):
+        encoder_block.fused_block_finish(x, x, blk)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("tq,tk,t_real", [(1536, 1536, 1500), (1536, 1536, 1536),
                                           (300, 700, 650), (700, 300, 300)],
@@ -223,6 +301,21 @@ def test_packed_attention_ignores_padding_values(cuda_dev):
     k[:, 500:], v[:, 500:] = float("inf"), float("nan")
     b = flash.flash_attention_packed(q, k, v, 2, 500)
     assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("D,H", [(128, 2), (256, 2)], ids=["dh64", "dh128"])
+def test_attention_kernel_ignores_padding_values(cuda_dev, dtype, D, H):
+    """K4 with non-finite padding rows in x: their q, k and v rows are NaN,
+    and the key mask's zero-fill keeps them out of every real row."""
+    torch.manual_seed(D)
+    blk = ResidualAttentionBlock(D, H).to(cuda_dev).requires_grad_(False)
+    g = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn(1, 512, D, generator=g, device="cuda").to(dtype)
+    a = encoder_block.fused_attention_ln(x, blk.attn_ln, blk.attn, H, 500)
+    x[:, 500:] = float("nan")
+    b = encoder_block.fused_attention_ln(x, blk.attn_ln, blk.attn, H, 500)
+    assert torch.equal(a[:, :500], b[:, :500])
 
 
 def test_unpackable_long_attention_raises_on_card(cuda_dev):

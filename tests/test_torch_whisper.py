@@ -124,7 +124,7 @@ def test_decoder_step_matches_jax(models, features):
 
     jc = jmodel.init_kv_cache(DIMS, 2, ctx=ctx)
     jc = jmodel.precompute_cross_kv(params["decoder"], jnp.asarray(features), jc)
-    tc = tmodel.init_kv_cache(DIMS, 2, ctx=ctx)
+    tc = tmodel.init_kv_cache(DIMS, 2, device="cpu", ctx=ctx)
     tc = tmodel.precompute_cross_kv(m.module.decoder, torch.from_numpy(features), tc)
     for toks in [prompt] + steps:
         ref, jc = jmodel.decoder_step(params["decoder"], jnp.asarray(toks), jc, DIMS)
@@ -138,7 +138,7 @@ def test_unported_decoder_features_raise(models, feature):
     """Per-row offsets (speculative decode) still raise; grouped caches are
     ported (tests/test_torch_beam.py)."""
     _, m = models
-    cache = tmodel.init_kv_cache(DIMS, 1, ctx=8)
+    cache = tmodel.init_kv_cache(DIMS, 1, device="cpu", ctx=8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tmodel.decoder_step(m.module.decoder, torch.zeros(1, 1, dtype=torch.long),
                             cache, DIMS, offsets=torch.zeros(1))
