@@ -2,6 +2,7 @@
 """Smoke check of the PyTorch port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --k9 [--stages]   # K9 alone (and the int8 decode stages)
 
 Drives the port's request path (qasr_ijcnlp_tpu_torch) at the full width of
 three Whisper sizes and of two head geometries at small's width, with random
@@ -44,7 +45,10 @@ and the opt-in fused step) and its grouped decodes (beam search, best-of):
    and t_real 1500 (timed beside ``scaled_dot_product_attention`` as its
    library yardstick; K4-K8 run on the tensor cores, so their f32 bound
    counts three TF32 products per product at 495 TFLOP/s), and K9 at B=8, 20 heads, for one query row (a step)
-   and four (the prompt), and at G=5 (five beam rows per request); then a
+   and four (the prompt), and at G=5 (five beam rows per request), each
+   K9 row timed cold (rotating over >= 128 MB of distinct caches, as the
+   decode loop reads each layer's cache from device memory: ``ms``) and
+   hot (one cache in L2: ``hot_ms``); then a
    batch of 8 end to end, where K1 and the stem must launch, K8 exactly 32
    times, K4 and the finish never; then the same batch with ``kv_int8`` in
    f32 and bf16 (K9 exactly 32 x 64 times), request 0 teacher-forced
@@ -100,6 +104,7 @@ import math
 import subprocess
 import sys
 import time
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -190,6 +195,36 @@ def cuda_ms(fn, iters=10, warmup=2):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fns, rounds=6, replays=3):
+    """Device ms of one call of ``fns[i % n]``: ``rounds`` passes through
+    the n functions captured once in a CUDA graph and the graph replayed,
+    so the host's launch overhead is not timed (an eager loop of a kernel
+    shorter than its wrapper's host time measures the host).  With each
+    function on inputs of its own and n chosen so that the inputs exceed
+    the 50-MB L2 twice over, every call reads its inputs from device
+    memory, as the decode loop does (cold); with n = 1, from L2 (hot)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in fns:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        for _ in range(rounds):
+            for fn in fns:
+                fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (replays * rounds * len(fns))
 
 
 def bound(flops, nbytes, key):
@@ -632,12 +667,21 @@ def large_kernel_phase(model, dev):
     return int8_phase(res, "K9_g5", B, dims.n_text_head, dev, SEED + 23, groups=5)
 
 
+COLD_BYTES = 128e6  # the int8 caches a cold K9 timing rotates over: > 2 x L2
+
+
 def int8_phase(res, kid, B, H, dev, seed, row_counts=(1,), dh=64, groups=1):
     """K9 against its plain version in f32 (its arithmetic is fp32 whatever
     the compute dtype) for each query row count in ``rows``, recorded under
     ``kid`` (one row, a decode step) and ``kid + "_prompt"`` (four rows);
     ``groups`` query rows of each count share each cached segment (beam).
-    Beside it, SDPA over the f32 fp cross cache is timed as the fp path's
+    K9's device time is taken from CUDA-graph replays (``graph_ms``) cold
+    (``ms``), rotating over at least 4 distinct quantized caches of
+    ``COLD_BYTES`` in all, so that each call reads from device memory as
+    the decode loop does, and hot (``hot_ms``), one cache in L2; beside
+    them ``eager_ms``, eager calls on one cache (the earlier timing of K9), which
+    include the wrapper's host time where it is the longer.  Beside it,
+    SDPA over the f32 fp cross cache is timed as the fp path's
     cross-attention, which the int8 path replaces (not the same function,
     so not its library yardstick: K9 has none)."""
     import torch.nn.functional as F
@@ -651,6 +695,11 @@ def int8_phase(res, kid, B, H, dev, seed, row_counts=(1,), dh=64, groups=1):
     v8, sv = decode_attn.quantize_kv(v, H)
     heads = lambda z: z.view(B, -1, H, dh).transpose(1, 2)
     kh, vh = (heads(k) * dh ** -0.25).contiguous(), heads(v).contiguous()
+    cache_bytes = 2 * (k8.numel() + 4 * sk.numel())
+    caches = [(k8, sk, v8, sv)]
+    while len(caches) < max(4, math.ceil(COLD_BYTES / cache_bytes)):
+        caches.append((*decode_attn.quantize_kv(randn(rng, (B, T, D), dev), H),
+                       *decode_attn.quantize_kv(randn(rng, (B, T, D), dev), H)))
     for R in row_counts:
         q = randn(rng, (B * groups, R, D), dev)
         qh = (heads(q) * dh ** -0.25).contiguous()
@@ -659,9 +708,17 @@ def int8_phase(res, kid, B, H, dev, seed, row_counts=(1,), dh=64, groups=1):
             lambda: decode_attn.int8_cross_attention(q, k8, sk, v8, sv, H, T),
             lambda: decode_attn.int8_cross_attention_plain(q, k8, sk, v8, sv, H, T),
             int8_work(B, H, R * groups, T, dh))
+        calls = [lambda c=c: decode_attn.int8_cross_attention(q, *c, H, T) for c in caches]
+        r["eager_ms"] = r["ms"]
+        r["ms"] = graph_ms(calls)
+        r["hot_ms"] = graph_ms(calls[:1], rounds=6 * len(calls))
         r["fp_path_sdpa_ms"] = cuda_ms(
             lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=1.0))
-        log(f"{kid} R={R}: the fp path's cross-attention (SDPA over the f32 cache of "
+        r["split"] = decode_attn._card_split(dev, 0, groups, R, dh, T, B * H)
+        log(f"{kid} R={R}: S, cs = {r['split']}; cold {r['ms']:.4f} ms over {len(caches)} "
+            f"caches of {cache_bytes / 1e6:.1f} MB, hot {r['hot_ms']:.4f} ms (graph replays), eager "
+            f"{r['eager_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_ms'] / r['ms']:.0%} "
+            f"of it cold); the fp path's cross-attention (SDPA over the f32 cache of "
             f"{2 * B * T * D * 4 / 1e6:.1f} MB) {r['fp_path_sdpa_ms']:.4f} ms")
         res[kid if R == 1 else f"{kid}_prompt"] = {"f32": r}
     return res
@@ -1537,13 +1594,52 @@ def kernel_table(kres, by_path):
     return kernels
 
 
+def k9_run(port, dev, smi, stages, repeats=2):
+    """``python3 chip_smoke.py --k9 [--stages]``: K9 alone, for a quick loop
+    on the card and for comparing two trees in one call.  K9 against its
+    plain version, hot and cold, at its five paths (large-v3 step and
+    prompt, G = 5, tiny B=16, small-h128); with ``stages``, then the decode
+    stage of each int8 path (tiny B=16, small-h128, large-v3 and its beam 5
+    at B=8; full width and depth, random weights) from ``repeats`` warm
+    batches per dtype (``stage_times``, host clock).  Prints the K9 rows
+    (and stages) as one JSON line; no launch counts, no token checks (the
+    full run has them)."""
+    from qasr_ijcnlp_tpu_torch.models.dims import dims_for, tiny_dims
+    from qasr_ijcnlp_tpu_torch.models.whisper import init_params
+
+    kres = {}
+    with torch.inference_mode():
+        int8_phase(kres, "K9", B_KERNEL, 20, dev, SEED + 9, row_counts=(1, 4))
+        int8_phase(kres, "K9_g5", B_KERNEL, 20, dev, SEED + 23, groups=5)
+        int8_phase(kres, "K9_tiny", 16, 6, dev, SEED + 4)
+        int8_phase(kres, "K9_d128", B_KERNEL, 6, dev, SEED + 18, dh=128)
+    h128 = replace(dims_for("small"), n_audio_head=6, n_text_head=6)
+    decode_ms = {}
+    paths = (("tiny", tiny_dims(), 16, (None,)), ("small-h128", h128, B_KERNEL, (None,)),
+             ("large-v3", dims_for("large-v3"), B_KERNEL, (None, BEAM)))
+    for name, dims, B, beams in paths if stages else ():
+        sd = init_params(torch.Generator().manual_seed(SEED), dims)
+        gpu = port.WhisperModel.from_state_dict(sd, dims, dev, name=f"{name} (random)")
+        pcm = synthetic_pcm(B, SEED + 7, dims.n_audio_ctx * 320)
+        for extra in beams:
+            label = f"{name}{' beam' if extra else ''} int8"
+            for fp16 in (False, True):
+                run_requests(port, gpu, pcm, fp16, True, extra)  # warm-up
+                key = f"{label} {'bf16' if fp16 else 'f32'}"
+                decode_ms[key] = [stage_times(port, gpu, pcm, fp16, label, True, extra)[2]
+                                  for _ in range(repeats)]
+        del gpu, sd
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(json.dumps({"k9": {k: v["f32"] for k, v in kres.items()}, "decode_ms": decode_ms}))
+    log(smi)
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: torch.cuda.is_available() is False; this "
                          "check runs only on an NVIDIA GPU")
-    from dataclasses import replace
-
     import qasr_ijcnlp_tpu_torch as port
     from qasr_ijcnlp_tpu_torch.models.dims import dims_for, tiny_dims
 
@@ -1554,6 +1650,11 @@ def main():
 
     smi = device_lines()
     build_kernels()
+    if sys.argv[1:2] == ["--k9"] and sys.argv[2:] in ([], ["--stages"]):
+        k9_run(port, dev, smi, stages=sys.argv[2:] == ["--stages"])
+        return
+    if sys.argv[1:]:
+        raise SystemExit(f"usage: python3 chip_smoke.py [--k9 [--stages]]; got {sys.argv[1:]}")
 
     kres, by_path = tiny_path(port, tiny_dims(), dev, smi)
     # == medium and large-v3, full width and depth ==================================

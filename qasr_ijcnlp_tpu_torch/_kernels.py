@@ -49,7 +49,8 @@ _SIGNATURES = {
     "qasr_packed_attention": [_I] + [_P] * 4 + [_I] * 6 + [_P],
     "qasr_flash_attention": [_I] + [_P] * 4 + [_I] * 6 + [_STRIDES, _P],
     "qasr_log_mel": [_P] * 6 + [_I] * 4 + [_P],
-    "qasr_int8_cross_attention": [_I] + [_P] * 6 + [_I] * 7 + [_F, _P],
+    "qasr_int8_cross_attention": [_I] + [_P] * 6 + [_I] * 9 + [_F, _P],
+    "qasr_int8_cross_attention_clusters": [_I] * 7 + [_P, _P],
     "qasr_decoder_layer_step": [_I] + [_P] * 9 + [_I] * 6 + [_P],
     "qasr_attn_parts": [_I] + [_P] * 4 + [_I] * 3 + [_P],
     "qasr_step_formulations": [_I] + [_P] * 5 + [_I] * 3 + [_P],

@@ -1,13 +1,16 @@
 // Hopper building blocks shared by the tensor-core kernels: the attention
 // core of K4, K7 and K8 (attention_tc.cuh) and the GEMM of K4's and
-// K5/K6's projections (gemm_tc.cuh).
+// K5/K6's projections (gemm_tc.cuh); K9 (decode_attn.cu) takes the
+// mbarriers and the 1D bulk copy.
 //
 // * mbarrier helpers for a producer/consumer ring; a wait of over 10 s
 //   traps, so a broken pipeline fails its launch instead of hanging the
 //   card.
 // * TMA (cp.async.bulk.tensor) loads of 3D and 5D boxes, and
 //   cuTensorMapEncodeTiled, looked up in the already loaded libcuda with
-//   dlsym (the library links only the CUDA runtime, no -lcuda).
+//   dlsym (the library links only the CUDA runtime, no -lcuda); the 1D
+//   bulk copy (cp.async.bulk, no tensor map) of a contiguous run of bytes
+//   (K9's chunks of int8 codes and fp32 scales).
 // * wgmma: shared-memory matrix descriptors (no swizzle, and the 128-byte
 //   swizzle of a K-major operand whose rows are 128 bytes), and
 //   Wgmma<N>::ss / ::rs, D (64 x N, fp32) += A B for one k-step of bf16
@@ -99,6 +102,18 @@ __device__ __forceinline__ void tma_load5(void* dst, const CUtensorMap* map, uin
       "[%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3), "r"(c4)
+      : "memory");
+}
+
+// 1D bulk copy of ``bytes`` contiguous bytes from global to this block's
+// shared memory, completing on ``bar`` (complete_tx).  ``dst``, ``src`` and
+// ``bytes`` must be multiples of 16.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

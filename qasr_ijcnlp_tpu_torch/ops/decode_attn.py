@@ -18,17 +18,31 @@ round_up(Ta, 128) and the padding positions' codes and scales 0.  (The
 TPU's (B, H, Dh, Tp) "T-on-lanes" layout existed for its int8 (32, 128)
 tile; the tests compare codes and scales after a transpose.)
 
-On the H100 (``csrc/decode_attn.cu``) one block serves one (batch item,
-head) and all of its G x T_new query rows, so each code is read from
-device memory once per step whatever the group size.  Like the reference's
-kernel it takes any head width, up to ``MAX_HEAD_WIDTH``: 16-byte loads
-where Dh is a multiple of 16, single bytes otherwise.  The kernel is bound
-by those bytes: at large-v3, B = 8, one layer's step reads 31.5 MB of codes
-and 2.0 MB of scales.  No single PyTorch call attends over int8 codes with
-per-position scales, so the kernel has no library twin.
+On the H100 (``csrc/decode_attn.cu``) the kernel is bound by the bytes of
+the codes and scales: at large-v3, B = 8, one layer's step reads 30.7 MB of
+codes and 1.9 MB of scales (the 1,500 real positions), 9.8 us at the HBM
+rate.  The TPU kernel's grid (one (batch item, head) per step, its whole
+cache in VMEM) carried over as one block per (batch item, head) gave 160
+blocks on 132 SMs at large-v3, each reading its cache phase after phase,
+and reached 8-15% of that rate.  So the kernel splits the audio axis: a
+cluster of S blocks (``split``: 6 to 8, as many as let every cluster fit on
+the card at once) serves one (batch item, head), each block a chunk of
+``cs`` positions (a multiple of 16) that reaches shared memory by 1D bulk
+copies: K's codes and both scales at the start, V's codes into the same
+buffer once the logits are done, landing while the softmax runs.  Each
+block serves all G x T_new query rows of its chunk, so every code is still
+read once per call whatever the group size, and leaves a local max m, sum
+l and unnormalised PV sum acc; the cluster merges them in distributed
+shared memory, out = sum_s e^(m_s - M) acc_s / sum_s e^(m_s - M) l_s, in
+the same single launch.  Like the reference's kernel it takes any head
+width, up to ``MAX_HEAD_WIDTH``.  No single PyTorch call attends over int8
+codes with per-position scales, so the kernel has no library twin.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -36,8 +50,46 @@ from .. import _kernels
 from . import MAX_HEAD_WIDTH, round_up
 
 LANE = 128  # audio positions are padded to a multiple of this
+MAX_SPLIT = 8  # blocks per (batch item, head): the portable cluster size
 
 launches = 0
+
+
+def chunk(t_real: int, S: int) -> int:
+    """cs, the positions of each of S chunks of [0, t_real): block s takes
+    [s cs, min(t_real, (s + 1) cs)).  A multiple of 16, so every chunk's
+    bytes start 16-byte aligned at any head width.  A chunk may hold no
+    real position (t_real = 200, S = 8: cs = 32, the 8th starts at 224)."""
+    return round_up(-(-t_real // S), 16)
+
+
+def split(t_real: int, fits=lambda S, cs: True):
+    """(S, cs): the kernel's split of the audio axis.  S is the largest of
+    8, 7 and 6 (at most the chunks of 16 positions t_real holds) whose
+    clusters all fit on the card at once (``fits(S, cs)``), so that every
+    block's copies are in flight together in one round: a second round
+    waits for the first to finish, its copies overlapping no compute.
+    Where none fits, the most t_real allows (8 from 113 positions up)."""
+    top = min(MAX_SPLIT, -(-t_real // 16))
+    for S in (8, 7, 6):
+        if S <= top and fits(S, chunk(t_real, S)):
+            return S, chunk(t_real, S)
+    return top, chunk(t_real, top)
+
+
+@functools.lru_cache(maxsize=None)
+def _card_split(device: torch.device, dtype_code: int, G: int, T_new: int, Dh: int,
+                t_real: int, n_bh: int):
+    """``split`` with ``fits`` asking the card how many clusters of each
+    candidate it holds at once (cudaOccupancyMaxActiveClusters), once per
+    shape."""
+    def fits(S, cs):
+        n = ctypes.c_int(0)
+        _kernels.library().call("qasr_int8_cross_attention_clusters", device, dtype_code, G,
+                                T_new, Dh, t_real, S, cs, ctypes.addressof(n))
+        return n.value >= n_bh
+
+    return split(t_real, fits)
 
 
 def quantize_kv(x: torch.Tensor, heads: int):
@@ -113,6 +165,8 @@ def int8_cross_attention(q, k8, sk, v8, sv, n_head: int, t_real: int):
         raise ValueError(f"int8_cross_attention: head width {Dh} > {MAX_HEAD_WIDTH}")
     if not 1 <= t_real <= Tp:
         raise ValueError(f"int8_cross_attention: t_real={t_real} outside [1, {Tp}]")
+    if Tp % 16:
+        raise ValueError(f"int8_cross_attention: Tp={Tp} is not a multiple of 16")
     q = q.contiguous()
     out = torch.empty(BG, T_new, D, dtype=torch.float32, device=q.device)
     _kernels.check_cuda("int8_cross_attention", q, k8, v8, out)
@@ -120,12 +174,14 @@ def int8_cross_attention(q, k8, sk, v8, sv, n_head: int, t_real: int):
     _kernels.check_cuda("int8_cross_attention", sk, sv, dtype=torch.float32)
     if sk.device != q.device:
         raise ValueError("int8_cross_attention: scales are not on q's device")
-    if k8.data_ptr() % 16 or v8.data_ptr() % 16:
-        raise ValueError("int8_cross_attention: codes must be 16-byte aligned")
+    if any(t.data_ptr() % 16 for t in (k8, v8, sk, sv)):
+        raise ValueError("int8_cross_attention: codes and scales must be 16-byte aligned")
     _kernels.library().call(
         "qasr_int8_cross_attention", q.device, _kernels.DTYPE_CODES[q.dtype],
         q.data_ptr(), k8.data_ptr(), sk.data_ptr(), v8.data_ptr(), sv.data_ptr(),
-        out.data_ptr(), B, BG // B, T_new, H, Tp, Dh, t_real, float(Dh) ** -0.5,
+        out.data_ptr(), B, BG // B, T_new, H, Tp, Dh, t_real,
+        *_card_split(q.device, _kernels.DTYPE_CODES[q.dtype], BG // B, T_new, Dh, t_real, B * H),
+        float(Dh) ** -0.5,
     )
     launches += 1
     return out

@@ -17,7 +17,7 @@ from qasr_ijcnlp_tpu.models import whisper as jmodel
 from qasr_ijcnlp_tpu.ops import decode_attn as jattn
 from qasr_ijcnlp_tpu_torch.models import whisper as tmodel
 from qasr_ijcnlp_tpu_torch.ops import decode_attn
-from tests.torch_port_common import DIMS, jax_params, torch_model
+from tests.torch_port_common import DIMS, int8_attention_split, jax_params, torch_model
 
 
 def _port_layout(codes, scales):
@@ -84,6 +84,70 @@ def test_int8_cross_attention_wide_heads_match_jax_kernel(Dh):
             torch.from_numpy(q), *_port_layout(k8, sk), *_port_layout(v8, sv), H, Ta)
         assert ours.shape == (B, T_new, D)
         np.testing.assert_allclose(ours.numpy(), ref, atol=2e-5, rtol=1e-5)
+
+
+def test_split_rule():
+    """The kernel's split of the audio axis: the largest of 8, 7 and 6
+    blocks whose clusters the card holds at once (``fits``; 8 where none
+    does), fewer where t_real holds fewer chunks of 16 positions (at every
+    driven shape, t_real 1500, 6 to 8); the chunks cover [0, t_real), the
+    first is never empty, and each chunk's copy (rounded up to 16
+    positions) stays inside round_up(t_real, 16) <= Tp."""
+    assert decode_attn.split(1500) == (8, 192)
+    assert decode_attn.split(1500, lambda S, cs: S <= 6) == (6, 256)
+    assert decode_attn.split(1500, lambda S, cs: S == 7 and cs == 224) == (7, 224)
+    assert decode_attn.split(1500, lambda S, cs: False) == (8, 192)
+    assert decode_attn.split(100, lambda S, cs: S <= 6) == (6, 32)
+    assert decode_attn.split(200) == (8, 32)   # the 8th chunk, at 224, is empty
+    assert decode_attn.split(40) == (3, 16)
+    assert decode_attn.split(16) == (1, 16)
+    assert decode_attn.split(1) == (1, 16)
+    for t_real in range(1, 1537):
+        S, cs = decode_attn.split(t_real)
+        assert 1 <= S <= decode_attn.MAX_SPLIT and cs % 16 == 0
+        assert S * cs >= t_real and cs <= decode_attn.round_up(t_real, 16)
+        assert S == min(8, -(-t_real // 16))
+        for s in range(S):
+            t0 = min(s * cs, t_real)
+            n = min(t_real, t0 + cs) - t0
+            assert t0 + decode_attn.round_up(n, 16) <= decode_attn.round_up(t_real, 16)
+
+
+# name: (B, G, T_new, H, Dh, Ta, t_real, S); S None = the kernel's split
+SPLIT_CASES = {
+    "large-v3-step": (1, 1, 1, 20, 64, 1500, 1500, None),
+    "g5": (2, 5, 1, 4, 64, 200, 190, None),
+    "r9": (2, 3, 3, 2, 64, 300, 300, None),
+    "empty-chunk": (2, 1, 4, 2, 64, 200, 197, None),     # cs 32: the 8th holds nothing
+    "short": (2, 2, 1, 2, 64, 40, 40, 8),                # t_real < 16 S: 5 empty
+}
+
+
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_int8_split_merge_matches_plain_and_jax(case):
+    """The kernel's split-and-merge arithmetic (``int8_attention_split``)
+    against the plain version (1e-6) and the JAX kernel in interpret mode
+    (the file's 2e-5 / 1e-5)."""
+    B, G, T_new, H, Dh, Ta, t_real, S = SPLIT_CASES[case]
+    S = S or decode_attn.split(t_real)[0]
+    cs = decode_attn.chunk(t_real, S)
+    if case in ("empty-chunk", "short"):
+        assert (S - 1) * cs >= t_real
+    rng = np.random.default_rng(sum(map(ord, case)))
+    D = H * Dh
+    k = jnp.asarray(rng.standard_normal((B, Ta, D)), jnp.float32)
+    v = jnp.asarray(rng.standard_normal((B, Ta, D)), jnp.float32)
+    q = rng.standard_normal((B * G, T_new, D)).astype(np.float32)
+    k8, sk = jattn.quantize_kv(k, H)
+    v8, sv = jattn.quantize_kv(v, H)
+    cache = (*_port_layout(k8, sk), *_port_layout(v8, sv))
+    split = int8_attention_split(torch.from_numpy(q), *cache, H, t_real, S)
+    plain = decode_attn.int8_cross_attention_plain(torch.from_numpy(q), *cache, H, t_real)
+    assert split.dtype == torch.float32 and split.shape == (B * G, T_new, D)
+    assert torch.isfinite(split).all()
+    assert float((split - plain).abs().max()) <= 1e-6
+    ref = np.asarray(jattn.int8_cross_attention(jnp.asarray(q), k8, sk, v8, sv, H, t_real))
+    np.testing.assert_allclose(split.numpy(), ref, atol=2e-5, rtol=1e-5)
 
 
 @pytest.fixture(scope="module")

@@ -463,13 +463,19 @@ def test_rounding_probes_exact(cuda_dev, shape):
                                              (1, 1, 6, 1500, 64), (3, 2, 6, 200, 64),
                                              (1, 9, 2, 500, 64), (1, 1, 6, 1500, 128),
                                              (1, 4, 6, 1500, 128), (3, 3, 2, 300, 256),
-                                             (1, 4, 3, 300, 40)],
+                                             (1, 4, 3, 300, 40), (5, 1, 20, 1500, 64),
+                                             (1, 4, 4, 203, 64), (2, 3, 2, 40, 64),
+                                             (1, 4, 2, 4, 64), (3, 3, 2, 1500, 256)],
                          ids=["large-v3-step", "large-v3-prompt", "tiny-step",
                               "grouped", "two-passes", "dh128-step", "dh128-prompt",
-                              "dh256-grouped", "dh40-bytes"])
+                              "dh256-grouped", "dh40-bytes", "g5", "empty-chunk",
+                              "short", "t_real-1", "dh256-r9"])
 def test_int8_cross_attention_kernel(cuda_dev, dtype, G, T_new, H, Ta, Dh):
     """K9 against its plain version; codes and scales past t_real hold
-    garbage, which the kernel must never read."""
+    garbage, which the kernel must never read.  t_real = Ta - 3 splits the
+    audio over 8 blocks from 128 positions up (``decode_attn.split``); at
+    200 (empty-chunk) the 8th block's chunk holds no position, at 37
+    (short) 3 blocks split it, at 1 one block takes it."""
     B, D = 2, H * Dh
     g = torch.Generator(device="cuda").manual_seed(Ta + H + T_new)
     k, v = (torch.randn(B, Ta, D, generator=g, device="cuda") for _ in range(2))
