@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --k9 [--stages]   # K9 alone (and the int8 decode stages)
+    python3 chip_smoke.py --k10 [--stages]  # K10 alone (and the fused decode stages)
 
 Drives the port's request path (qasr_ijcnlp_tpu_torch) at the full width of
 three Whisper sizes and of two head geometries at small's width, with random
@@ -20,7 +21,9 @@ and the opt-in fused step) and its grouped decodes (beam search, best-of):
    t_real 1500), kernel vs its plain PyTorch version on the card in f32 and
    bf16 (K1 is f32 only, as in the reference); the int8 cross attention
    (K9) at B=16, 6 heads, and the fused decoder layer (K10) at B=16 and
-   B=64 and at base's width (D 512, B=8); then 16 requests end to end in
+   B=64 and at base's width (D 512, B=8), each K10 row timed by CUDA-graph
+   replay cold (rotating over >= 128 MB of distinct inputs) and hot, beside
+   its eager time; then 16 requests end to end in
    f32 (every kernel must launch, K8 never; two requests must give exactly
    the CPU plain path's tokens), bf16 token agreement, and wall time at B=16
    and B=64, with one more batch split into its stages (log-mel, encoder,
@@ -667,7 +670,7 @@ def large_kernel_phase(model, dev):
     return int8_phase(res, "K9_g5", B, dims.n_text_head, dev, SEED + 23, groups=5)
 
 
-COLD_BYTES = 128e6  # the int8 caches a cold K9 timing rotates over: > 2 x L2
+COLD_BYTES = 128e6  # the inputs a cold K9 or K10 timing rotates over: > 2 x L2
 
 
 def int8_phase(res, kid, B, H, dev, seed, row_counts=(1,), dh=64, groups=1):
@@ -944,9 +947,14 @@ def step_phase(res, kid, block_for, B, dev, seed, ctx=80, idx=66, Ta=1500):
     """K10 against its plain version in f32 and bf16 at one decoder layer's
     last step of a 64-token decode (self positions 0..idx of ``ctx``, Ta
     audio positions): the layer output, then the fresh k/v it wrote at idx.
-    Beside it, the port's unfused layer (``models.whisper.decoder_layer``)
-    is timed on the same inputs as the path it replaces (K10 has no library
-    yardstick)."""
+    K10's device time is taken from CUDA-graph replays (``graph_ms``) cold
+    (``ms``), rotating over at least 4 sets of inputs (x, weights, self and
+    cross caches) of ``COLD_BYTES`` in all, so that each call reads from
+    device memory as the decode loop does, and hot (``hot_ms``), one set;
+    beside them ``eager_ms``, eager calls on one set, which include the
+    wrapper's host time where it is the longer.  Beside it, the port's
+    unfused layer (``models.whisper.decoder_layer``) is timed on the same
+    inputs as the path it replaces (K10 has no library yardstick)."""
     from qasr_ijcnlp_tpu_torch.models.whisper import decoder_layer
     from qasr_ijcnlp_tpu_torch.ops import decoder_step
 
@@ -985,13 +993,26 @@ def step_phase(res, kid, block_for, B, dev, seed, ctx=80, idx=66, Ta=1500):
         if err > limit:
             raise AssertionError(f"{kid} {key}: the fresh k/v written at idx are {err} "
                                  f"from the plain version's, outside {limit:.3e}")
+        set_bytes = sum(t.numel() * t.element_size() for t in (x, packed, sk, sv, ck, cv))
+        sets = [(x, packed, ln, sk.clone(), sv.clone(), ck, cv)]
+        while len(sets) < max(4, math.ceil(COLD_BYTES / set_bytes)):
+            sets.append((x.clone(), packed.clone(), ln, sk.clone(), sv.clone(), ck.clone(),
+                         cv.clone()))
+        calls = [lambda z=z: decoder_step.fused_decoder_layer_step(*z, idx, H) for z in sets]
+        r["eager_ms"] = r["ms"]
+        r["ms"] = graph_ms(calls)
+        r["hot_ms"] = graph_ms(calls[:1], rounds=6 * len(calls))
         cache = {"self_k": [sk.clone()], "self_v": [sv.clone()], "cross_k": [ck],
                  "cross_v": [cv]}
         blk = block_for(dt)
         r["unfused_layer_ms"] = cuda_ms(
             lambda: decoder_layer(blk, x[:, None], cache, 0, idx, mask, H, Ta))
-        log(f"{kid} {key}: fresh k/v max_abs_err {err:.3e} (tol {limit:.3e}); the port's "
+        log(f"{kid} {key}: fresh k/v max_abs_err {err:.3e} (tol {limit:.3e}); cold "
+            f"{r['ms']:.4f} ms over {len(sets)} input sets of {set_bytes / 1e6:.1f} MB, hot "
+            f"{r['hot_ms']:.4f} ms (graph replays), eager {r['eager_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_ms'] / r['ms']:.0%} of it cold); the port's "
             f"unfused layer on the same inputs {r['unfused_layer_ms']:.4f} ms")
+        del sets, calls
         res.setdefault(kid, {})[key] = r
     return res
 
@@ -1635,6 +1656,45 @@ def k9_run(port, dev, smi, stages, repeats=2):
     log(smi)
 
 
+def k10_run(port, dev, smi, stages, repeats=2):
+    """``python3 chip_smoke.py --k10 [--stages]``: K10 alone, for a quick
+    loop on the card and for comparing two trees in one call.  K10 against
+    its plain version, cold and hot, at its three shapes (tiny B=16 and
+    B=64, base width B=8); with ``stages``, then the decode stage of the
+    tiny fused path at B=16 and B=64 (full width and depth, random weights)
+    from ``repeats`` warm batches per dtype (``stage_times``, host clock).
+    Prints the K10 rows (and stages) as one JSON line; no launch counts, no
+    token checks (the full run has them)."""
+    from qasr_ijcnlp_tpu_torch.models.dims import tiny_dims
+    from qasr_ijcnlp_tpu_torch.models.whisper import init_params
+    from qasr_ijcnlp_tpu_torch.ops import decoder_step
+
+    dims = tiny_dims()
+    sd = init_params(torch.Generator().manual_seed(SEED), dims)
+    gpu = port.WhisperModel.from_state_dict(sd, dims, dev, name="tiny (random)")
+    kres = {}
+    with torch.inference_mode():
+        block_for = lambda dt: gpu.decoder_for(dt).blocks[0]
+        step_phase(kres, "K10", block_for, 16, dev, SEED + 5)
+        step_phase(kres, "K10_b64", block_for, 64, dev, SEED + 6)
+        step_phase(kres, "K10_d512", base_block_for(dev), 8, dev, SEED + 8)
+    decode_ms = {}
+    decoder_step.set_fused_decoder_step(True)
+    try:
+        for B in (16, 64) if stages else ():
+            pcm = synthetic_pcm(B, SEED + 7)
+            label = f"tiny fused B={B}"
+            for fp16 in (False, True):
+                run_requests(port, gpu, pcm, fp16)  # warm-up
+                key = f"{label} {'bf16' if fp16 else 'f32'}"
+                decode_ms[key] = [stage_times(port, gpu, pcm, fp16, label)[2]
+                                  for _ in range(repeats)]
+    finally:
+        decoder_step.set_fused_decoder_step(None)
+    log(json.dumps({"k10": kres, "decode_ms": decode_ms}))
+    log(smi)
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1650,11 +1710,13 @@ def main():
 
     smi = device_lines()
     build_kernels()
-    if sys.argv[1:2] == ["--k9"] and sys.argv[2:] in ([], ["--stages"]):
-        k9_run(port, dev, smi, stages=sys.argv[2:] == ["--stages"])
+    if sys.argv[1:2] in (["--k9"], ["--k10"]) and sys.argv[2:] in ([], ["--stages"]):
+        run = k9_run if sys.argv[1] == "--k9" else k10_run
+        run(port, dev, smi, stages=sys.argv[2:] == ["--stages"])
         return
     if sys.argv[1:]:
-        raise SystemExit(f"usage: python3 chip_smoke.py [--k9 [--stages]]; got {sys.argv[1:]}")
+        raise SystemExit(f"usage: python3 chip_smoke.py [--k9 | --k10 [--stages]]; "
+                         f"got {sys.argv[1:]}")
 
     kres, by_path = tiny_path(port, tiny_dims(), dev, smi)
     # == medium and large-v3, full width and depth ==================================

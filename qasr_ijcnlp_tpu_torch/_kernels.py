@@ -51,7 +51,7 @@ _SIGNATURES = {
     "qasr_log_mel": [_P] * 6 + [_I] * 4 + [_P],
     "qasr_int8_cross_attention": [_I] + [_P] * 6 + [_I] * 9 + [_F, _P],
     "qasr_int8_cross_attention_clusters": [_I] * 7 + [_P, _P],
-    "qasr_decoder_layer_step": [_I] + [_P] * 9 + [_I] * 6 + [_P],
+    "qasr_decoder_layer_step": [_I] + [_P] * 9 + [_I] * 11 + [_P],
     "qasr_attn_parts": [_I] + [_P] * 4 + [_I] * 3 + [_P],
     "qasr_step_formulations": [_I] + [_P] * 5 + [_I] * 3 + [_P],
 }

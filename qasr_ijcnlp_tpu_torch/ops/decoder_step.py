@@ -23,13 +23,18 @@ of K's scale, inside the parity tolerances of the reference's own test.
 The kernel writes the fresh k/v into the self cache at ``idx`` in place
 and attends over positions 0..idx.
 
-On the H100 (``csrc/decoder_step.cu``) it is one cooperative launch whose
-blocks split each product's output columns and each (row, head) attention,
-with a grid-wide barrier between the eight phases: LN + q/k/v; self-
-attention; out-proj; cross LN + q; cross-attention; out-proj; LN + fc +
-GELU; proj.  (A literal copy of the TPU grid, batch tiles of 8 rows, would
-put 2 blocks on 132 SMs at B = 16.)  It is bound by the bytes it streams:
-the layer's weights once and the cross K/V (73.7 MB at tiny, B = 16, f32).
+On the H100 (``csrc/decoder_step.cu``) it is one cooperative launch with a
+grid-wide barrier between the eight phases: LN + q/k/v; self-attention;
+out-proj; cross LN + q; cross-attention; out-proj; LN + fc + GELU; proj.
+It is bound by the bytes it streams, the cross K/V above all (73.7 MB of
+its 85 MB at tiny, B = 16, f32).  Both attentions split over (row, head,
+chunk) items (:func:`attention_split`, which the wrapper passes the
+kernel), the chunks' softmax partials merged in fp32 in the next phase's
+input; the cross K/V reach shared memory by bulk copies in a ring of
+stages, issued by a producer warpgroup; the products run in units of 8 or
+16 rows x a slab of columns that read each weight element once per row
+tile.  (A literal copy of the TPU grid, batch tiles of 8 rows, would put 2
+blocks on 132 SMs at B = 16.)
 
 A layer's weights are packed once per decoder and compute dtype
 (:func:`layer_packs`) into one tensor in the compute dtype and one fp32
@@ -45,10 +50,11 @@ import torch
 import torch.nn.functional as F
 
 from .. import _kernels
-from . import layer_norm
+from . import layer_norm, round_up
 
 BT = 8    # batch rows per tile: the batch must be a multiple of it
 DH = 64   # head width
+CHUNK_BYTES = 32768  # an attention item's K rows, at most: a ring stage holds its K and V
 
 # Default OFF, as in the reference: it ships as an opt-in path.  None = OFF.
 _ENABLED: Optional[bool] = None
@@ -90,6 +96,25 @@ def fused_cache_applicable(cache: Dict, dims, batch: int) -> bool:
         and cross[0].shape[0] == batch
         and fused_step_applicable(dims.n_text_head, dims.n_text_state, batch)
     )
+
+
+def attention_split(t_vis: int, elem: int = 4) -> Tuple[int, int]:
+    """(C, S): the kernel's split of ``t_vis`` visible positions into S
+    chunks of C, item s taking [s C, min(t_vis, (s + 1) C)), for a compute
+    dtype of ``elem`` bytes.  C is the least multiple of 16 that holds
+    t_vis, up to the ``CHUNK_BYTES`` of K rows a ring stage takes (128
+    positions in f32, 256 in bf16), so no chunk is empty: 12 chunks of 128
+    over 1,500 audio positions in f32 (6 of 256 in bf16), one of 80 over 67
+    self positions."""
+    C = min(CHUNK_BYTES // (DH * elem), round_up(t_vis, 16))
+    return C, -(-t_vis // C)
+
+
+def _work_floats(B: int, D: int, n_head: int, self_chunks: int, cross_chunks: int) -> int:
+    """fp32 scratch of one launch: q, cross q, the two residual streams and
+    the MLP's hidden rows (8 B D), then each attention item's (acc[64], m,
+    l)."""
+    return B * 8 * D + B * n_head * (self_chunks + cross_chunks) * (DH + 2)
 
 
 def to_fused_cache(cache: Dict, dims) -> Dict:
@@ -245,17 +270,22 @@ def fused_decoder_layer_step(x, packed, ln, self_k, self_v, cross_k, cross_v,
                          f"of {ctx} positions")
     x = x.contiguous()
     out = torch.empty_like(x)
-    work = torch.empty(B * (10 * D), dtype=torch.float32, device=x.device)
+    cs, ss = attention_split(idx + 1, x.element_size())
+    cx, sx = attention_split(Ta, x.element_size())
+    work = torch.empty(_work_floats(B, D, H, ss, sx), dtype=torch.float32, device=x.device)
     _kernels.check_cuda("fused_decoder_layer_step", x, packed, self_k, self_v, cross_k,
                         cross_v, out, dtype=dt)
     _kernels.check_cuda("fused_decoder_layer_step", x, ln, work)
     if ln.dtype != torch.float32:
         raise ValueError("fused_decoder_layer_step: LayerNorm parameters must be fp32")
+    if any(t.data_ptr() % 16 for t in (x, packed, self_k, self_v, cross_k, cross_v)):
+        raise ValueError("fused_decoder_layer_step: x, weights and caches must be "
+                         "16-byte aligned")
     _kernels.library().call(
         "qasr_decoder_layer_step", x.device, _kernels.DTYPE_CODES[dt],
         x.data_ptr(), packed.data_ptr(), ln.data_ptr(), self_k.data_ptr(),
         self_v.data_ptr(), cross_k.data_ptr(), cross_v.data_ptr(), out.data_ptr(),
-        work.data_ptr(), B, D, H, ctx, Ta, idx,
+        work.data_ptr(), B, D, H, ctx, Ta, idx, cs, ss, cx, sx, x.device.index or 0,
     )
     launches += 1
     return out

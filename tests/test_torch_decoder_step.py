@@ -31,6 +31,7 @@ from qasr_ijcnlp_tpu_torch.models.convert import from_jax_params
 from qasr_ijcnlp_tpu_torch.models.dims import dims_for as tdims_for
 from qasr_ijcnlp_tpu_torch.models.registry import WhisperModel
 from qasr_ijcnlp_tpu_torch.ops import decoder_step
+from tests import torch_port_common as tpc
 
 DIMS = ModelDimensions(
     n_mels=80, n_audio_ctx=64, n_audio_state=384, n_audio_head=6, n_audio_layer=1,
@@ -226,3 +227,152 @@ def test_gates_match_jax(name):
         assert not jstep.fused_cache_applicable(j8, jd, batch)
         assert not decoder_step.fused_cache_applicable(t8, td, batch)
     assert not decoder_step.fused_step_applicable(6, 384, 8, groups=2)
+
+
+# ---------------------------------------------------------------------------
+# K10's split of the attentions over (row, head, chunk) items and their merge
+# (tests/torch_port_common.py ``decoder_layer_split``), at tiny's width
+# ---------------------------------------------------------------------------
+
+SPLIT_D, SPLIT_H, SPLIT_B = 384, 6, 8
+# name: (idx, ctx, Ta, self plan, cross plan); None = the wrapper's plan
+SPLIT_CASES = {
+    "t1-idx0": (0, 16, 1500, None, None),
+    "t37-Ta200": (36, 48, 200, None, None),  # one partial self chunk; Ta not a multiple of C
+    "t67": (66, 80, 1500, None, None),
+    "t448": (447, 448, 1500, None, None),    # a full self cache: four self chunks
+    "empty-chunks": (36, 48, 200, (16, 4), (64, 5)),  # the last of each plan holds nothing
+    "t448-peaked": (447, 448, 1500, None, None),  # chunk maxima units apart (PEAK below)
+}
+# Keys scaled by PEAK at self positions [128, 256) and audio positions [1280,
+# 1408): those chunks' maxima stand several units above the others', so a
+# merge that drops the e^(m_s - M) rescale is off by tenths in bf16 too.
+PEAK, SELF_PEAK, CROSS_PEAK = 4.0, slice(128, 256), slice(1280, 1408)
+
+
+def test_attention_split_rule():
+    """The kernel's chunk C: the least multiple of 16 holding t_vis, up to
+    32 KB of K rows (128 positions in f32, 256 in bf16); S = ceil(t_vis / C)
+    chunks, none of them empty."""
+    split = decoder_step.attention_split
+    assert split(1) == (16, 1)
+    assert split(37) == (48, 1)
+    assert split(67) == (80, 1)
+    assert split(128) == (128, 1)
+    assert split(129) == (128, 2)
+    assert split(448) == (128, 4)
+    assert split(1500) == (128, 12)
+    assert split(1500, 2) == (256, 6)
+    assert split(448, 2) == (256, 2)
+    assert split(200, 2) == (208, 1)
+    for elem in (4, 2):
+        for t_vis in range(1, 1537):
+            C, S = split(t_vis, elem)
+            assert C % 16 == 0 and 16 <= C <= decoder_step.CHUNK_BYTES // (64 * elem)
+            assert C * S >= t_vis and C * (S - 1) < t_vis
+
+
+def _split_inputs(case, dt):
+    idx, ctx, Ta, _, _ = SPLIT_CASES[case]
+    rng = np.random.default_rng(sum(map(ord, case)))
+    bp = tpc.jax_decoder_block(3, SPLIT_D)
+    packed, ln = decoder_step.pack_layer(tpc.port_decoder_block(bp, SPLIT_D, SPLIT_H), dt)
+    shape = (SPLIT_B, SPLIT_H)
+    t = lambda *s, scale=1.0: torch.from_numpy(
+        (rng.standard_normal(s) * scale).astype(np.float32)).to(dt)
+    x = t(SPLIT_B, SPLIT_D)
+    sk, sv = t(*shape, ctx, 64), t(*shape, ctx, 64)
+    ck, cv = t(*shape, Ta, 64, scale=64 ** -0.25), t(*shape, Ta, 64)
+    if case.endswith("peaked"):
+        sk[:, :, SELF_PEAK] *= PEAK
+        ck[:, :, CROSS_PEAK] *= PEAK
+    return bp, (x, packed, ln, sk, sv, ck, cv)
+
+
+def _run_layer(fn, inputs, idx, dt=None, **kw):
+    """``fn`` on copies of the inputs (cast to ``dt``) -> (out, self k and v at idx)."""
+    x, packed, ln, sk, sv, ck, cv = (z if dt is None or z.dtype == torch.float32 and z.dim() == 1
+                                     else z.to(dt) for z in inputs)
+    sk, sv = sk.clone(), sv.clone()
+    out = fn(x, packed, ln, sk, sv, ck, cv, idx, SPLIT_H, **kw)
+    return out, sk[:, :, idx], sv[:, :, idx]
+
+
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_split_merge_matches_plain(case, dtype):
+    """The split-and-merge against ``fused_decoder_layer_step_plain``: the
+    layer output and the fresh k/v at idx within 1e-6 in f32; in bf16
+    within twice the plain bf16 version's own distance from the plain
+    version in f32 on the same bf16-valued inputs."""
+    dt = getattr(torch, dtype)
+    idx, _, _, self_plan, cross_plan = SPLIT_CASES[case]
+    if self_plan:
+        assert (self_plan[1] - 1) * self_plan[0] >= idx + 1  # an empty self chunk
+    _, inputs = _split_inputs(case, dt)
+    split = _run_layer(tpc.decoder_layer_split, inputs, idx, self_plan=self_plan,
+                       cross_plan=cross_plan)
+    plain = _run_layer(decoder_step.fused_decoder_layer_step_plain, inputs, idx)
+    plain32 = _run_layer(decoder_step.fused_decoder_layer_step_plain, inputs, idx,
+                         dt=torch.float32)
+    for s, p, p32 in zip(split, plain, plain32):
+        assert s.dtype == dt and torch.isfinite(s.float()).all()
+        err = float((s.float() - p.float()).abs().max())
+        if dt == torch.float32:
+            assert err <= 1e-6, err
+        else:
+            noise = float((p.float() - p32.float()).abs().max())
+            assert 0 < noise and err <= 2 * noise, (err, noise)
+
+
+def test_split_merge_matches_jax_fused_step():
+    """The split-and-merge against the JAX package's fused layer step (its
+    Pallas kernel in interpret mode, as tests/test_decoder_step_kernel.py
+    runs it), f32, within that test's 5e-4: the layer output and the fresh
+    k/v.  The JAX kernel takes T-on-lanes caches and an unscaled cross K."""
+    case = "t37-Ta200"
+    idx, ctx, Ta, _, _ = SPLIT_CASES[case]
+    bp, inputs = _split_inputs(case, torch.float32)
+    x, _, _, sk, sv, ck, cv = inputs
+    out, kn, vn = _run_layer(tpc.decoder_layer_split, inputs, idx)
+
+    def lanes(c, mult):  # (B, H, T, 64) -> (B, D, round_up(T, mult))
+        z = c.permute(0, 1, 3, 2).reshape(SPLIT_B, SPLIT_D, c.shape[2]).numpy()
+        pad = -z.shape[2] % mult
+        return jnp.asarray(np.pad(z, ((0, 0), (0, 0), (0, pad))))
+
+    cc = 256  # the JAX kernel's cross chunk at D 384
+    jout, jkn, jvn = jstep.fused_decoder_layer_step(
+        jnp.asarray(x.numpy()), jax.tree.map(jnp.asarray, bp), lanes(sk, 128), lanes(sv, 128),
+        lanes(ck * 64 ** 0.25, cc), lanes(cv, cc), jnp.int32(idx), SPLIT_H, t_real_cross=Ta)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout), atol=5e-4)
+    np.testing.assert_allclose(kn.reshape(SPLIT_B, SPLIT_D).numpy(), np.asarray(jkn), atol=5e-4)
+    np.testing.assert_allclose(vn.reshape(SPLIT_B, SPLIT_D).numpy(), np.asarray(jvn), atol=5e-4)
+
+
+def test_stamps_instrument_the_phase_loop():
+    """The phase-stamp diagnostic (``diagnostics.decoder_step_stamps``)
+    stamps K10's entry and both sides of the grid barrier in each role's
+    phase loop, and reads the per-phase, per-barrier and whole times off a
+    launch's stamps."""
+    import os
+
+    from qasr_ijcnlp_tpu_torch import _kernels
+    from qasr_ijcnlp_tpu_torch.diagnostics import decoder_step_stamps as stamps
+
+    with open(os.path.join(_kernels.CSRC, "decoder_step.cu")) as f:
+        src = f.read()
+    out = stamps.instrument(src)
+    assert out.count("STAMP(2 * step + 1)") == 2 and out.count("STAMP(0);") == 1
+    assert "qasr_read_stamps" in out
+    with pytest.raises(ValueError):
+        stamps.instrument(src.replace("if (step < 7) grid.sync();", "grid.sync();"))
+    # two blocks: entry at 0 / 100 ns, each phase 1,000 ns, each barrier 500
+    st = np.zeros((2, stamps.SLOTS), np.uint64)
+    st[:, 0] = (0, 100)
+    for p in range(stamps.BARRIERS + 1):
+        st[:, 2 * p + 1] = 1500 * p + 1000
+        if p < stamps.BARRIERS:
+            st[:, 2 * p + 2] = 1500 * p + 1500
+    phases, bars, total = stamps.phase_times(st)
+    assert phases == [1.0] * 8 and bars == [0.5] * 7 and total == 11.5

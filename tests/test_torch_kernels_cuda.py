@@ -506,12 +506,23 @@ def _decoder_block(D, seed, device):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("D,B,idx", [(384, 16, 5), (384, 64, 66), (512, 8, 0)],
-                         ids=["tiny-B16", "tiny-B64", "base-B8"])
-def test_fused_decoder_layer_kernel(cuda_dev, dtype, D, B, idx):
+@pytest.mark.parametrize(
+    "D,B,idx,ctx,Ta,peak",
+    [(384, 16, 5, 80, 1500, 1.0), (384, 64, 66, 80, 1500, 1.0), (512, 8, 0, 80, 1500, 1.0),
+     (384, 72, 40, 80, 1500, 1.0), (384, 16, 20, 80, 37, 1.0), (384, 8, 0, 80, 1, 1.0),
+     (384, 16, 447, 448, 1500, 1.0), (384, 16, 447, 448, 1500, 4.0)],
+    ids=["tiny-B16", "tiny-B64", "base-B8", "tiny-B72", "tiny-Ta37", "tiny-Ta1-idx0",
+         "tiny-full-self", "tiny-peaked"])
+def test_fused_decoder_layer_kernel(cuda_dev, dtype, D, B, idx, ctx, Ta, peak):
     """K10 against its plain version: the layer output and the fresh k/v it
-    writes into the self cache at idx (and nowhere else)."""
-    H, ctx, Ta = D // 64, 80, 1500
+    writes into the self cache at idx (and nowhere else).  B = 72 runs a
+    full row tile of 64 and a partial one; Ta 37 and 1 one short cross
+    chunk; idx 447 a full 448-position self cache (four self chunks).
+    ``peak`` scales the keys at self positions [128, 256) and audio
+    positions [1280, 1408): those chunks' maxima stand several units above
+    the others', so a merge without the e^(m_s - M) rescale fails in bf16
+    too (on random keys the chunk maxima are nearly equal)."""
+    H = D // 64
     packed, ln = decoder_step.pack_layer(_decoder_block(D, D + B, cuda_dev), dtype)
     g = torch.Generator(device="cuda").manual_seed(idx + B)
     # every input holds values of ``dtype``, so the fp32 plain run below sees
@@ -521,6 +532,8 @@ def test_fused_decoder_layer_kernel(cuda_dev, dtype, D, B, idx):
               for _ in range(2))
     ck = (torch.randn(B, H, Ta, 64, generator=g, device="cuda") * 64 ** -0.25).to(dtype)
     cv = torch.randn(B, H, Ta, 64, generator=g, device="cuda").to(dtype)
+    sk[:, :, 128:256] *= peak
+    ck[:, :, 1280:1408] *= peak
 
     def run(fn, dt):
         caches = [t.to(dt).clone() for t in (sk, sv)]

@@ -17,7 +17,7 @@ from qasr_ijcnlp_tpu_torch.models import convert
 from qasr_ijcnlp_tpu_torch.models.convert import from_jax_params
 from qasr_ijcnlp_tpu_torch.models.registry import WhisperModel
 from qasr_ijcnlp_tpu_torch.models.whisper import ResidualAttentionBlock
-from qasr_ijcnlp_tpu_torch.ops import decode_attn
+from qasr_ijcnlp_tpu_torch.ops import decode_attn, decoder_step
 
 DIMS = ModelDimensions(
     n_mels=80, n_audio_ctx=500, n_audio_state=128, n_audio_head=2,
@@ -90,3 +90,97 @@ def int8_attention_split(q, k8, sk, v8, sv, n_head: int, t_real: int, S: int):
     den = sum(ej * l for ej, l in zip(e, ls))
     out = (num / den).reshape(B, H, G, T_new, Dh).permute(0, 2, 3, 1, 4)
     return out.reshape(BG, T_new, D)
+
+
+def attention_split(q, k, v, t_vis: int, C: int, S: int, dt):
+    """One token's attention as K10's CUDA kernel computes it, in plain
+    PyTorch: [0, t_vis) cut into S chunks of C (``decoder_step.
+    attention_split``), each chunk's max m_s, sum l_s of the unrounded p =
+    exp(logit - m_s) and PV sum acc_s over p rounded to ``dt``, merged in
+    fp32 as sum_s e^(m_s - M) acc_s / sum_s e^(m_s - M) l_s and rounded to
+    ``dt`` (a chunk with no visible position has m_s = -inf, l_s = 0, acc_s =
+    0 and weighs 0).  The kernel also merges a block's consecutive cross
+    chunks as it goes, by the same formula, before the last merge.  q (B, H,
+    64) fp32 holding ``dt`` values; k, v (B, H, >= t_vis, 64) -> (B, H, 64)
+    fp32 holding ``dt`` values."""
+    ms, ls, accs = [], [], []
+    for s in range(S):
+        t0 = min(s * C, t_vis)
+        t1 = min(t_vis, t0 + C)
+        logits = torch.einsum("bhd,bhtd->bht", q, k[:, :, t0:t1].float())
+        if t1 > t0:
+            m = logits.amax(-1, keepdim=True)
+        else:
+            m = torch.full((*q.shape[:2], 1), float("-inf"))
+        p = torch.exp(logits - m)
+        ms.append(m)
+        ls.append(p.sum(-1, keepdim=True))
+        accs.append(torch.einsum("bht,bhtd->bhd", p.to(dt).float(), v[:, :, t0:t1].float()))
+    M = torch.stack(ms).amax(0)
+    e = [torch.exp(m - M) for m in ms]
+    num = sum(ej * acc for ej, acc in zip(e, accs))
+    den = sum(ej * l for ej, l in zip(e, ls))
+    return (num / den).to(dt).float()
+
+
+def decoder_layer_split(x, packed, ln, self_k, self_v, cross_k, cross_v, idx: int,
+                        n_head: int, self_plan=None, cross_plan=None):
+    """``decoder_step.fused_decoder_layer_step_plain`` with both attentions
+    split and merged as K10 does (``attention_split``), over the plans the wrapper
+    passes the kernel (``attention_split`` of idx + 1 and of Ta, or the
+    (C, S) given).  Writes the fresh k/v into the self cache at idx."""
+    import torch.nn.functional as F
+
+    B, D = x.shape
+    dt, H, DH = x.dtype, n_head, decoder_step.DH
+    elem = x.element_size()
+    Ta = cross_k.shape[2]
+    self_plan = self_plan or decoder_step.attention_split(idx + 1, elem)
+    cross_plan = cross_plan or decoder_step.attention_split(Ta, elem)
+    w = {k: v.float() for k, v in decoder_step._unpack(packed, ln, D).items()}
+    r = lambda t: t.to(dt).float()
+    heads = lambda t: t.reshape(B, H, DH)
+
+    h = decoder_step._ln(x, w["g1"], w["b1"], dt)
+    qkv = h @ w["wqkv"].t() + w["bqkv"]
+    q = r(qkv[:, :D] * float(DH) ** -0.5)
+    self_k[:, :, idx] = heads(qkv[:, D:2 * D]).to(self_k.dtype)
+    self_v[:, :, idx] = heads(qkv[:, 2 * D:]).to(self_v.dtype)
+    a = attention_split(heads(q), self_k, self_v, idx + 1, *self_plan, dt)
+    xmid = r(x.float() + r(a.reshape(B, D) @ w["wo"].t() + w["bo"]))
+
+    hc = decoder_step._ln(xmid, w["gc"], w["bc"], dt)
+    qc = r((hc @ w["wcq"].t() + w["bcq"]) * float(DH) ** -0.25)
+    ca = attention_split(heads(qc), cross_k, cross_v, Ta, *cross_plan, dt)
+    x2 = r(xmid + r(ca.reshape(B, D) @ w["wco"].t() + w["bco"]))
+
+    h2 = decoder_step._ln(x2, w["g2"], w["b2"], dt)
+    t = r(F.gelu(h2 @ w["wf"].t() + w["bf"]))
+    return (x2 + r(t @ w["wp"].t() + w["bp"])).to(dt)
+
+
+def jax_decoder_block(seed: int, n_state: int):
+    """A JAX decoder block (``_init_block`` with cross attention) with numpy
+    leaves, its LayerNorms and biases drawn at random so that none is the
+    identity or zero."""
+    bp = jax.tree.map(np.asarray, jmodel._init_block(jax.random.PRNGKey(seed), n_state,
+                                                       cross_attention=True))
+    rng = np.random.default_rng(seed)
+    for name in ("attn_ln", "cross_attn_ln", "mlp_ln"):
+        bp[name] = {"g": rng.uniform(0.5, 1.5, n_state).astype(np.float32),
+                    "b": rng.uniform(-0.2, 0.2, n_state).astype(np.float32)}
+    for group, lin in (("attn", "query"), ("attn", "value"), ("attn", "out"),
+                       ("cross_attn", "query"), ("cross_attn", "out"), ("mlp", "fc"),
+                       ("mlp", "proj")):
+        b = bp[group][lin]["b"]
+        bp[group][lin]["b"] = rng.uniform(-0.1, 0.1, b.shape).astype(np.float32)
+    return bp
+
+
+def port_decoder_block(bp_np, n_state: int, n_head: int) -> ResidualAttentionBlock:
+    """The port's decoder block holding the values of JAX block ``bp_np``."""
+    sd = {}
+    convert._block(sd, "blk", bp_np)
+    blk = ResidualAttentionBlock(n_state, n_head, cross_attention=True)
+    blk.load_state_dict({k[len("blk."):]: v for k, v in sd.items()})
+    return blk.eval().requires_grad_(False)
