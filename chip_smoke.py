@@ -2,6 +2,7 @@
 """Smoke check of the PyTorch port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --stem            # K1 and the stem alone (and the encoder stage)
     python3 chip_smoke.py --k9 [--stages]   # K9 alone (and the int8 decode stages)
     python3 chip_smoke.py --k10 [--stages]  # K10 alone (and the fused decode stages)
 
@@ -19,7 +20,10 @@ and the opt-in fused step) and its grouped decodes (beam search, best-of):
 3. **tiny** (4 + 4 layers, D 384): per kernel (K1 mel, K2 stem, K4
    attention, K5 finish) at B=8 (mel (8, 80, 3000), trunk (8, 1536, 384),
    t_real 1500), kernel vs its plain PyTorch version on the card in f32 and
-   bf16 (K1 is f32 only, as in the reference); the int8 cross attention
+   bf16 (K1 is f32 only, as in the reference; K1 to K8 run on the tensor
+   cores, so their bound counts f32 products as three TF32 products at 495
+   TFLOP/s; each stem row prints beside it its two ``F.conv1d`` calls
+   alone, cuDNN with TF32 off, as context); the int8 cross attention
    (K9) at B=16, 6 heads, and the fused decoder layer (K10) at B=16 and
    B=64 and at base's width (D 512, B=8), each K10 row timed by CUDA-graph
    replay cold (rotating over >= 128 MB of distinct inputs) and hot, beside
@@ -46,8 +50,7 @@ and the opt-in fused step) and its grouped decodes (beam search, best-of):
 5. **large-v3** (32 + 32 layers, D 1280, 128 mels, vocab 51866, full depth):
    K1 at 128 mels, the stem at D 1280, K8 on (8, 1536, 1280) with 20 heads
    and t_real 1500 (timed beside ``scaled_dot_product_attention`` as its
-   library yardstick; K4-K8 run on the tensor cores, so their f32 bound
-   counts three TF32 products per product at 495 TFLOP/s), and K9 at B=8, 20 heads, for one query row (a step)
+   library yardstick), and K9 at B=8, 20 heads, for one query row (a step)
    and four (the prompt), and at G=5 (five beam rows per request), each
    K9 row timed cold (rotating over >= 128 MB of distinct caches, as the
    decode loop reads each layer's cache from device memory: ``ms``) and
@@ -468,22 +471,49 @@ def elem_size(key):
 
 # -- kernel phases ---------------------------------------------------------------
 
+def stem_rows(res, kid, enc, mel, Tp):
+    """The stem against its plain version in f32 and bf16, bound at the
+    tensor-core peaks, recorded under ``kid``; beside each row, as context,
+    the time of its two ``F.conv1d`` calls alone (cuDNN, TF32 off: no one
+    call adds the GELUs and the position rows), ``conv1d_ms``."""
+    import torch.nn.functional as F
+
+    from qasr_ijcnlp_tpu_torch.ops import conv_stem, gelu
+
+    B, C0, Tm = mel.shape
+    D, T = enc.conv1.weight.shape[0], Tm // 2
+    for dt, key in dtypes():
+        r = res.setdefault(kid, {})[key] = compare(
+            f"{kid} stem D{D} {C0} mels", key,
+            lambda: conv_stem.fused_conv_stem(enc, mel, Tp, dt),
+            lambda: conv_stem._plain_stem(enc, mel, Tp, dt),
+            stem_work(B, C0, Tm, D, T, Tp, elem_size(key)), peak=tc_peak(key),
+            plain32_fn=lambda: conv_stem._plain_stem(enc, mel, Tp, torch.float32))
+        x = mel.to(dt)
+        w1, b1, w2, b2 = (p.to(dt) for p in (enc.conv1.weight, enc.conv1.bias,
+                                               enc.conv2.weight, enc.conv2.bias))
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            y = gelu(F.conv1d(x, w1, b1, padding=1))
+            r["conv1d_ms"] = cuda_ms(lambda: (F.conv1d(x, w1, b1, padding=1),
+                                              F.conv1d(y, w2, b2, stride=2, padding=1)))
+        log(f"{kid} stem D{D} {key}: its two F.conv1d calls alone (cuDNN, TF32 off) "
+            f"{r['conv1d_ms']:.4f} ms beside the kernel's {r['ms']:.4f} ms")
+        del x, y, w1, b1, w2, b2
+    return res
+
+
 def block_phase(res, ids, enc, mel, x32, dims, dev):
     """The stem, K4 and the finish against their plain versions in f32 and
     bf16, recorded under ``ids`` (stem, attention, finish)."""
-    from qasr_ijcnlp_tpu_torch.ops import conv_stem, encoder_block
+    from qasr_ijcnlp_tpu_torch.ops import encoder_block
 
     T, Tp, D, H, C0, Tm = geometry(dims)
     B, blk = x32.shape[0], enc.blocks[0]
+    stem_rows(res, ids[0], enc, mel, Tp)
     for dt, key in dtypes():
         s = elem_size(key)
         x = x32.to(dt)
         attn = encoder_block._plain_attn_ln(x, blk.attn_ln, blk.attn, H, T)
-        res.setdefault(ids[0], {})[key] = compare(
-            f"{ids[0]} stem D{D}", key, lambda: conv_stem.fused_conv_stem(enc, mel, Tp, dt),
-            lambda: conv_stem._plain_stem(enc, mel, Tp, dt),
-            stem_work(B, C0, Tm, D, T, Tp, s),
-            plain32_fn=lambda: conv_stem._plain_stem(enc, mel, Tp, torch.float32))
         res.setdefault(ids[1], {})[key] = compare(
             f"{ids[1]} attention {H} heads", key,
             lambda: encoder_block.fused_attention_ln(x, blk.attn_ln, blk.attn, H, T),
@@ -515,7 +545,7 @@ def tiny_kernel_phase(model, dev):
         "K1 mel", "f32",
         lambda: melfront.clamp_and_scale(melfront.log10_mel(padded, C0)),
         lambda: melfront.clamp_and_scale(melfront._plain_log10_mel(padded, C0)),
-        mel_work(B_KERNEL, padded.shape[1], Tm, C0), tol="mel")}}
+        mel_work(B_KERNEL, padded.shape[1], Tm, C0), tol="mel", peak="tf32x3")}}
     return block_phase(res, ("K2", "K4", "K5"), model.module.encoder, mel, x32, dims, dev)
 
 
@@ -638,7 +668,7 @@ def gemm_phase(dev, M, D):
 
 
 def large_kernel_phase(model, dev):
-    from qasr_ijcnlp_tpu_torch.ops import conv_stem, flash, melfront
+    from qasr_ijcnlp_tpu_torch.ops import flash, melfront
 
     rng = np.random.default_rng(SEED + 2)
     B, dims = B_KERNEL, model.dims
@@ -653,14 +683,8 @@ def large_kernel_phase(model, dev):
         f"K1 mel {C0} bins", "f32",
         lambda: melfront.clamp_and_scale(melfront.log10_mel(padded, C0)),
         lambda: melfront.clamp_and_scale(melfront._plain_log10_mel(padded, C0)),
-        mel_work(B, padded.shape[1], Tm, C0), tol="mel")}
-    for dt, key in dtypes():
-        res.setdefault("stem_1280", {})[key] = compare(
-            f"stem D{D} {C0} mels", key,
-            lambda: conv_stem.fused_conv_stem(enc, mel, Tp, dt),
-            lambda: conv_stem._plain_stem(enc, mel, Tp, dt),
-            stem_work(B, C0, Tm, D, T, Tp, elem_size(key)),
-            plain32_fn=lambda: conv_stem._plain_stem(enc, mel, Tp, torch.float32))
+        mel_work(B, padded.shape[1], Tm, C0), tol="mel", peak="tf32x3")}
+    stem_rows(res, "stem_1280", enc, mel, Tp)
     packed_phase(res, "K8", B, D, H, dev, SEED + 19, T, Tp)
     q, k, v, want = k8_probe(dev, H, 128, Tp, T)
     check_probe("K8", flash.flash_attention_packed(q, k, v, H, T), want, T)
@@ -728,7 +752,7 @@ def int8_phase(res, kid, B, H, dev, seed, row_counts=(1,), dh=64, groups=1):
 
 
 def tc_peak(key):
-    """The peak that bounds the tensor-core kernels (K4-K8) in ``key``."""
+    """The peak that bounds the tensor-core kernels (K1-K8) in ``key``."""
     return "tf32x3" if key == "f32" else "bf16"
 
 
@@ -1545,6 +1569,11 @@ def kernel_table(kres, by_path):
          "(8, 80, 3000) -> (8, 1536, 384)"),
         ("conv_stem_d1024", "K3", src + "conv_stem.cu", tpu + "conv_stem.py:119", "stem",
          "medium", "(8, 80, 3000) -> (8, 1536, 1024)"),
+        ("mel_128", "K1_128", src + "melfront.cu", tpu + "melfront.py:48", "mel", "large-v3",
+         "(8, 480000) -> (8, 128, 3000)"),
+        ("conv_stem_d1280", "stem_1280", src + "conv_stem.cu", tpu + "conv_stem.py:119",
+         "stem", "large-v3", "(8, 128, 3000) -> (8, 1536, 1280): K3's kernel at large-v3, "
+         "whose stem the JAX package leaves to XLA"),
         ("encoder_attention", "K4", src + "encoder_block.cu", tpu + "encoder_block.py:148",
          "attn", "tiny", "(8, 1536, 384), 6 heads, t_real 1500"),
         ("encoder_finish", "K5", src + "encoder_block.cu", tpu + "encoder_block.py:238",
@@ -1695,6 +1724,92 @@ def k10_run(port, dev, smi, stages, repeats=2):
     log(smi)
 
 
+def device_split(label, fn, calls=5):
+    """Device ms per call of each kernel that ``fn`` launches, from
+    ``torch.profiler``'s CUDA (CUPTI) events over ``calls`` warm calls;
+    "not measured" where the trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+        if e.device_type == torch.autograd.DeviceType.CUDA and us:
+            split[e.key[:90]] = us / calls / 1000
+    log(f"{label} device split (torch.profiler, mean of {calls} calls): "
+        + ("; ".join(f"{k} {v:.4f} ms" for k, v in split.items()) or "not measured"))
+    return split
+
+
+def stem_run(port, dev, smi, repeats=3):
+    """``python3 chip_smoke.py --stem``: K1 and the stem alone, for a quick
+    loop on the card and for comparing two trees in one call.  K1 at 80 and
+    128 bins (B=8, 30 s); the stem at tiny, medium and large-v3's shapes
+    (B=8) with its two F.conv1d calls beside it; K4 and the finish at tiny
+    and medium and the GEMM alone at medium's four products, which share
+    the stem's GEMM; then the encoder stage (``encoder_apply``, host clock
+    ending in a synchronize, ``repeats`` warm calls per dtype) of each
+    size's encoder at full depth with PyTorch's default init.  Prints the
+    rows and stages as one JSON line; no launch counts, no token checks
+    (the full run has them)."""
+    from qasr_ijcnlp_tpu_torch.models.dims import dims_for
+    from qasr_ijcnlp_tpu_torch.models.whisper import AudioEncoder, encoder_apply
+    from qasr_ijcnlp_tpu_torch.ops import conv_stem, melfront
+
+    rng = np.random.default_rng(SEED)
+    kres, encoder_ms = {}, {}
+    with torch.inference_mode():
+        padded = melfront.reflect_pad(randn(rng, (B_KERNEL, 480000), dev, 0.1))
+        for C0, kid in ((80, "K1"), (128, "K1_128")):
+            kres[kid] = {"f32": compare(
+                f"{kid} mel {C0} bins", "f32",
+                lambda: melfront.clamp_and_scale(melfront.log10_mel(padded, C0)),
+                lambda: melfront.clamp_and_scale(melfront._plain_log10_mel(padded, C0)),
+                mel_work(B_KERNEL, padded.shape[1], 3000, C0), tol="mel", peak="tf32x3")}
+            kres[kid]["f32"]["split"] = device_split(
+                f"{kid} f32", lambda: melfront.log10_mel(padded, C0))
+        del padded
+        for name, ids in (("tiny", ("K2", "K4", "K5")), ("medium", ("K3", "K4_16h", "K6")),
+                          ("large-v3", ("stem_1280",))):
+            dims = dims_for(name)
+            T, Tp, D, H, C0, Tm = geometry(dims)
+            with torch.device(dev):
+                enc = AudioEncoder(C0, T, D, H, dims.n_audio_layer)
+            enc = enc.to(dev).requires_grad_(False)
+            mel = randn(rng, (B_KERNEL, C0, Tm), dev)
+            if len(ids) == 3:
+                block_phase(kres, ids, enc, mel, rows(rng, B_KERNEL, Tp, D, T, dev), dims, dev)
+            else:
+                stem_rows(kres, ids[0], enc, mel, Tp)
+            for dt, key in dtypes():
+                kres[ids[0]][key]["split"] = device_split(
+                    f"{ids[0]} {key}", lambda: conv_stem.fused_conv_stem(enc, mel, Tp, dt))
+            if name == "medium":
+                gemm_phase(dev, B_KERNEL * Tp, D)
+            for dt, key in dtypes():
+                encoder_apply(enc, mel, dims, dt)  # warm-up
+                ms = []
+                for _ in range(repeats):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    encoder_apply(enc, mel, dims, dt)
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t0) * 1000)
+                encoder_ms[f"{name} {key}"] = ms
+                log(f"{name} encoder stage B={B_KERNEL} {key}: "
+                    + ", ".join(f"{m:.2f}" for m in ms) + " ms")
+            del enc, mel
+            gc.collect()
+            torch.cuda.empty_cache()
+    log(json.dumps({"stem": kres, "encoder_ms": encoder_ms}))
+    log(smi)
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1714,8 +1829,11 @@ def main():
         run = k9_run if sys.argv[1] == "--k9" else k10_run
         run(port, dev, smi, stages=sys.argv[2:] == ["--stages"])
         return
+    if sys.argv[1:] == ["--stem"]:
+        stem_run(port, dev, smi)
+        return
     if sys.argv[1:]:
-        raise SystemExit(f"usage: python3 chip_smoke.py [--k9 | --k10 [--stages]]; "
+        raise SystemExit(f"usage: python3 chip_smoke.py [--stem | --k9 | --k10 [--stages]]; "
                          f"got {sys.argv[1:]}")
 
     kres, by_path = tiny_path(port, tiny_dims(), dev, smi)

@@ -37,17 +37,6 @@ using namespace qasr;
 
 namespace {
 
-// The value v stored at index i of an A operand: bf16 as is; f32 as hi at
-// y[i] and lo at y[i + slab] for the 3xTF32 products.
-__device__ __forceinline__ void store_operand(__nv_bfloat16* y, size_t i, size_t, float v) {
-  y[i] = __float2bfloat16(v);
-}
-__device__ __forceinline__ void store_operand(float* y, size_t i, size_t slab, float v) {
-  const float hi = tf32_rna(v);
-  y[i] = hi;
-  y[i + slab] = tf32_rna(v - hi);
-}
-
 // fp32 LayerNorm over the last dim, one warp per row; the output is rounded
 // to T (the reference computes LN in fp32 and casts back to the activation
 // dtype) and stored as a GEMM A operand (f32: hi/lo slabs of rows x D).

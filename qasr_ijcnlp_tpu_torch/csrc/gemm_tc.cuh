@@ -1,5 +1,7 @@
 // Tensor-core GEMM of the fused encoder block (K4's Q/K/V projection and
-// K5/K6's out-projection, fc and proj; encoder_block.cu).
+// K5/K6's out-projection, fc and proj; encoder_block.cu), the conv stem
+// (K2/K3's two convolutions; conv_stem.cu) and the mel frontend (K1's DFT
+// and mel products; melfront.cu).
 //
 // C[m, n] = ep(m, n, sum_k A[m, k] W[n, k]): A a row-major (M, K)
 // activation, W a weight in the nn.Linear (N, K) layout, both K-major, as
@@ -7,6 +9,18 @@
 // transposed.  The epilogue functor gets each thread's accumulator pairs
 // (row m, columns n and n + 1) in fp32 and applies the caller's bias,
 // rounding, activation and residual in registers.
+//
+// Tap views.  A may also be `taps` shifted row views of one row-major
+// buffer X (rows, k_tap): A[m, j k_tap + c] = X[stride m + j, c], so a
+// convolution of width `taps` and stride `stride` over X's rows is one
+// GEMM against its weight in tap-major (N, taps k_tap) layout, with no
+// im2col copy.  k-slice kb belongs to tap j = kb / (k_tap / BK); the
+// producer reads it through a 4D map of X as (k_tap, stride, rows /
+// stride, slabs), at (c0, j % stride, m0 + j / stride, slab): row stride
+// (m0 + i) + j of X is phase j % stride of row pair m0 + i + j / stride.
+// No two dimensions of the map overlap.  Rows past X's end read as zeros
+// (TMA's fill).  The plain (M, K) operand is the one-tap case, read
+// through its own 3D map by the code it had before tap views existed.
 //
 // Bound on the H100: operations, 2 M N K FLOP on the tensor cores (989
 // TFLOP/s in bf16; 495 / 3 in f32, three TF32 products per product); the
@@ -87,10 +101,39 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-template <typename T, class EP>
+// The value v stored at index i of an A operand: bf16 as is; f32 as hi at
+// y[i] and lo at y[i + slab] for the 3xTF32 products.
+__device__ __forceinline__ void store_operand(__nv_bfloat16* y, size_t i, size_t, float v) {
+  y[i] = __float2bfloat16(v);
+}
+__device__ __forceinline__ void store_operand(float* y, size_t i, size_t slab, float v) {
+  const float hi = tf32_rna(v);
+  y[i] = hi;
+  y[i + slab] = tf32_rna(v - hi);
+}
+// The pair (a, b) at i, i + 1 (i even) as one store a slab: half the
+// store instructions of two store_operand calls (the stem's conv1 epilogue
+// took 13-20% less time on the H100; PERF.md).
+__device__ __forceinline__ void store_operand2(__nv_bfloat16* y, size_t i, size_t, float a,
+                                               float b) {
+  store2(y + i, a, b);
+}
+__device__ __forceinline__ void store_operand2(float* y, size_t i, size_t slab, float a,
+                                               float b) {
+  const float ha = tf32_rna(a), hb = tf32_rna(b);
+  store2(y + i, ha, hb);
+  store2(y + i + slab, tf32_rna(a - ha), tf32_rna(b - hb));
+}
+
+// kTaps: ma is A as the 4D tap view above, kt k-slices a tap, `stride`
+// the views' row stride; else ma is the plain (K, M, slab) 3D map (kt and
+// stride unused), the code of the one-tap callers (K4, K5/K6) unchanged:
+// the tap view's producer arithmetic and 4D boxes cost them 2-7% on the
+// H100 (PERF.md).
+template <typename T, class EP, bool kTaps>
 __global__ void __launch_bounds__(GemmCfg<T>::THREADS, 1)
 gemm_tc_kernel(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUtensorMap mw,
-               int M, int K, const EP ep) {
+               int M, int K, int kt, int stride, const EP ep) {
   using C = GemmCfg<T>;
   constexpr int ST = C::STAGES;
   extern __shared__ unsigned char smem_raw[];
@@ -120,7 +163,13 @@ gemm_tc_kernel(const __grid_constant__ CUtensorMap ma, const __grid_constant__ C
         if (kb >= ST) mbar_wait(&empty[s], (kb / ST - 1) & 1);
         mbar_expect_tx(&full[s], C::kStage);
         for (int o = 0; o < C::SLABS; ++o) {
-          tma_load3(slice_a(s, o), &ma, &full[s], kb * C::BK, m0, o);
+          if constexpr (kTaps) {
+            const int j = kb / kt;  // the slice's tap
+            tma_load4(slice_a(s, o), &ma, &full[s], (kb - j * kt) * C::BK, j % stride,
+                      m0 + j / stride, o);
+          } else {
+            tma_load3(slice_a(s, o), &ma, &full[s], kb * C::BK, m0, o);
+          }
           tma_load3(slice_w(s, o), &mw, &full[s], kb * C::BK, n0, o);
         }
       }
@@ -185,25 +234,74 @@ gemm_tc_kernel(const __grid_constant__ CUtensorMap ma, const __grid_constant__ C
   }
 }
 
-// 3D map over (K columns, rows, slab) of an operand of `slabs` row-major
-// (rows, K) slabs, box of one 128-byte k-slice of 128 rows in the 128-byte
-// swizzle; rows past `rows` read as zeros.
+// Map of a row-major operand of `slabs` (rows, cols) slabs, box of one
+// 128-byte k-slice of 128 rows in the 128-byte swizzle; rows past `rows`
+// read as zeros.  W: 3D (cols, rows, slab); A: 4D (cols, stride, rows /
+// stride, slab), the tap view (rows a multiple of stride).
 template <typename T>
-inline cudaError_t encode_gemm_operand(CUtensorMap* map, const T* p, int rows, int K,
-                                       int slabs) {
+inline cudaError_t encode_gemm_operand(CUtensorMap* map, const T* p, int rows, int cols,
+                                       int slabs, int stride = 0) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   constexpr bool f32 = std::is_same<T, float>::value;
-  const cuuint64_t e = sizeof(T);
-  const cuuint64_t dims[3] = {(cuuint64_t)K, (cuuint64_t)rows, (cuuint64_t)slabs};
-  const cuuint64_t strides[2] = {K * e, (cuuint64_t)rows * K * e};
-  const cuuint32_t box[3] = {(cuuint32_t)GemmCfg<T>::BK, (cuuint32_t)GemmCfg<T>::BM, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
+  const cuuint64_t e = sizeof(T), row = cols * e, slab = (cuuint64_t)rows * row;
+  const cuuint32_t bk = GemmCfg<T>::BK, bm = GemmCfg<T>::BM;
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
   const auto type = f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  const CUresult r = fn(map, type, 3, const_cast<T*>(p), dims, strides, box, unit,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  CUresult r;
+  if (stride == 0) {
+    const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)slabs};
+    const cuuint64_t strides[2] = {row, slab};
+    const cuuint32_t box[3] = {bk, bm, 1};
+    r = fn(map, type, 3, const_cast<T*>(p), dims, strides, box, unit,
+           CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+           CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  } else {
+    const cuuint64_t dims[4] = {(cuuint64_t)cols, (cuuint64_t)stride,
+                                (cuuint64_t)(rows / stride), (cuuint64_t)slabs};
+    const cuuint64_t strides[3] = {row, stride * row, slab};
+    const cuuint32_t box[4] = {bk, 1, bm, 1};
+    r = fn(map, type, 4, const_cast<T*>(p), dims, strides, box, unit,
+           CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+           CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  }
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <typename T, bool kTaps, class EP>
+inline cudaError_t launch_gemm_kernel(const CUtensorMap& ma, const T* w, int M, int N, int K,
+                                      int kt, int stride, const EP& ep, cudaStream_t s) {
+  using C = GemmCfg<T>;
+  CUtensorMap mw{};
+  cudaError_t e = encode_gemm_operand<T>(&mw, w, N, K, C::SLABS);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(gemm_tc_kernel<T, EP, kTaps>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(N / C::BN, (M + C::BM - 1) / C::BM);
+  gemm_tc_kernel<T, EP, kTaps><<<grid, C::THREADS, C::kSmem, s>>>(ma, mw, M, K, kt, stride, ep);
+  return cudaGetLastError();
+}
+
+// C = ep(A W^T) with A the tap view of x (x_rows, k_tap) (f32: hi, then lo
+// at x + x_rows k_tap): taps views, row m of view j being x's row stride m
+// + j; w (N, taps k_tap) tap-major (f32: hi, then lo at w + N K).  N a
+// multiple of 128, k_tap of the k-slice (32 f32 or 64 bf16 columns),
+// x_rows of stride, both bases 16-byte aligned; anything else is
+// cudaErrorInvalidValue.
+template <typename T, class EP>
+inline cudaError_t launch_wgmma_gemm_taps(const T* x, int x_rows, int k_tap, int taps,
+                                          int stride, const T* w, int M, int N, const EP& ep,
+                                          cudaStream_t s) {
+  using C = GemmCfg<T>;
+  if (M < 1 || N % C::BN || k_tap % C::BK || k_tap < C::BK || taps < 1 || stride < 1 ||
+      x_rows < stride || x_rows % stride || reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(w) % 16)
+    return cudaErrorInvalidValue;
+  CUtensorMap ma{};
+  const cudaError_t e = encode_gemm_operand<T>(&ma, x, x_rows, k_tap, C::SLABS, stride);
+  if (e != cudaSuccess) return e;
+  return launch_gemm_kernel<T, true>(ma, w, M, N, taps * k_tap, k_tap / C::BK, stride, ep, s);
 }
 
 // C = ep(A W^T): a holds (M, K) (f32: hi, then lo at a + M K), w (N, K)
@@ -216,16 +314,10 @@ inline cudaError_t launch_wgmma_gemm(const T* a, const T* w, int M, int N, int K
   if (M < 1 || N % C::BN || K % 128 || K < 128 || reinterpret_cast<uintptr_t>(a) % 16 ||
       reinterpret_cast<uintptr_t>(w) % 16)
     return cudaErrorInvalidValue;
-  CUtensorMap ma{}, mw{};
-  cudaError_t e = encode_gemm_operand<T>(&ma, a, M, K, C::SLABS);
-  if (e == cudaSuccess) e = encode_gemm_operand<T>(&mw, w, N, K, C::SLABS);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(gemm_tc_kernel<T, EP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             C::kSmem);
+  CUtensorMap ma{};
+  const cudaError_t e = encode_gemm_operand<T>(&ma, a, M, K, C::SLABS);
   if (e != cudaSuccess) return e;
-  const dim3 grid(N / C::BN, (M + C::BM - 1) / C::BM);
-  gemm_tc_kernel<T, EP><<<grid, C::THREADS, C::kSmem, s>>>(ma, mw, M, K, ep);
-  return cudaGetLastError();
+  return launch_gemm_kernel<T, false>(ma, w, M, N, K, 1, 1, ep, s);
 }
 
 }  // namespace qasr

@@ -1,12 +1,12 @@
 // Hopper building blocks shared by the tensor-core kernels: the attention
 // core of K4, K7 and K8 (attention_tc.cuh) and the GEMM of K4's and
-// K5/K6's projections (gemm_tc.cuh); K9 (decode_attn.cu) takes the
-// mbarriers and the 1D bulk copy.
+// K5/K6's projections, the conv stem and the mel frontend (gemm_tc.cuh);
+// K9 (decode_attn.cu) takes the mbarriers and the 1D bulk copy.
 //
 // * mbarrier helpers for a producer/consumer ring; a wait of over 10 s
 //   traps, so a broken pipeline fails its launch instead of hanging the
 //   card.
-// * TMA (cp.async.bulk.tensor) loads of 3D and 5D boxes, and
+// * TMA (cp.async.bulk.tensor) loads of 3D, 4D and 5D boxes, and
 //   cuTensorMapEncodeTiled, looked up in the already loaded libcuda with
 //   dlsym (the library links only the CUDA runtime, no -lcuda); the 1D
 //   bulk copy (cp.async.bulk, no tensor map) of a contiguous run of bytes
@@ -92,6 +92,16 @@ __device__ __forceinline__ void tma_load3(void* dst, const CUtensorMap* map, uin
       "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load4(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                          int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
       : "memory");
 }
 

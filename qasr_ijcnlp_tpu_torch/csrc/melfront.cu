@@ -1,76 +1,87 @@
 // STFT + mel frontend: framed audio x Hann -> DFT (400 -> 201 bins, cos and
 // sin) -> power -> mel (201 -> n_mels) -> log10(max(., 1e-10)).
 //
-// Replaces qasr_ijcnlp_tpu/ops/melfront.py `_mel_kernel` (K1).  Two GEMM
-// launches in exact fp32 FMAs (the reference pins Precision.HIGHEST; no TF32
-// anywhere): the first reads frames straight out of the reflect-padded
-// waveform (frame f starts at sample 160 f; no framing copy) and multiplies
-// the Hann window in as it loads, writing the (frames, 402) re|im spectrum;
-// the second squares and sums re and im as it loads, so the power spectrum
-// is never stored, and writes log10 mel already transposed to
-// (B, n_mels, frames).  The global max-8 clamp and (x+4)/4 stay outside, as
-// in the reference.  Bound on the H100: the DFT GEMM, 2 * frames * 400 * 402
-// FLOP per clip on SIMT fp32 FMAs.
-#include "common.cuh"
+// Replaces qasr_ijcnlp_tpu/ops/melfront.py `_mel_kernel` (K1).  Two
+// tensor-core GEMMs (gemm_tc.cuh) in f32 as 3xTF32 (the reference pins
+// Precision.HIGHEST; single TF32 would keep ~3 digits):
+//
+// * audio_rows_kernel cuts each reflect-padded waveform into rows of 160
+//   samples (a hop), R rows an item, zero past its end, as hi/lo slabs; a
+//   row pitch of 640 bytes also gives TMA the 16-byte pitch that a
+//   waveform of any length lacks.
+// * DFT: frame f = rows f, f + 1, f + 2 of its item (three taps of 160
+//   samples, K = 480; basis columns 400-479 are zero), against the basis
+//   with the Hann window folded in (ops/melfront.py, cached once) and its
+//   rows interleaved as (cos_i, -sin_i), N = 402 -> 512, so each thread's
+//   accumulator pair (n, n + 1) is (re, im) of bin n / 2.  The epilogue
+//   writes power = re^2 + im^2 as the next GEMM's hi/lo operand, (M, 256),
+//   bins 201-255 zero.  Every buffer row is computed; the two rows an item
+//   past its last kept frame are dropped by the next epilogue.
+// * mel: power x melfb (K 256, N n_mels -> 128); the epilogue writes
+//   log10(max(., 1e-10)) transposed to (B, n_mels, F).
+//
+// The per-item max - 8 clamp and (x + 4) / 4 stay outside, as in the
+// reference.  Bound on the H100: operations, the DFT's 2 B F 400 402 FLOP
+// at the 3xTF32 rate (495 / 3 TFLOP/s).
+#include "gemm_tc.cuh"
 
 using namespace qasr;
 
 namespace {
 
-constexpr int N_FFT = 400, HOP = 160, N_BINS = N_FFT / 2 + 1;
+constexpr int HOP = 160, K_DFT = 3 * HOP, N_DFT = 512, N_POW = 256, N_MEL = 128;
 
-// a(m = (b, f), k) = audio[b, 160 f + k] * window[k]
-struct FrameA {
-  const float* audio;
-  const float* window;
-  int L, F;
-  __device__ __forceinline__ float operator()(int, int m, int k) const {
-    const int bi = m / F, f = m % F;
-    return audio[(size_t)bi * L + (size_t)f * HOP + k] * window[k];
+// rows[(b R + q) 160 + s] = audio[b, 160 q + s] (0 past L), hi/lo slabs.
+__global__ void audio_rows_kernel(const float* __restrict__ audio, float* __restrict__ rows,
+                                  int L, int R, size_t n) {
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const size_t row = i / HOP;
+    const int b = (int)(row / R), k = (int)(row - (size_t)b * R) * HOP + (int)(i - row * HOP);
+    store_operand(rows, i, n, k < L ? audio[(size_t)b * L + k] : 0.f);
   }
-};
+}
 
-struct SpecEp {
-  float* spec;
-  __device__ __forceinline__ void operator()(int, int m, int n, float acc) const {
-    spec[(size_t)m * 2 * N_BINS + n] = acc;
-  }
-};
-
-// a(m, k) = re^2 + im^2 of bin k
-struct PowerA {
-  const float* spec;
-  __device__ __forceinline__ float operator()(int, int m, int k) const {
-    const float* row = spec + (size_t)m * 2 * N_BINS;
-    const float re = row[k], im = row[N_BINS + k];
-    return re * re + im * im;
+// (re, im) of bin n / 2 -> power, stored as the mel GEMM's A operand.
+struct PowerEp {
+  float* power;
+  size_t slab;
+  __device__ __forceinline__ void operator()(int m, int n, float re, float im) const {
+    store_operand(power, (size_t)m * N_POW + n / 2, slab, re * re + im * im);
   }
 };
 
 struct LogMelEp {
   float* out;
-  int F, n_mels;
-  __device__ __forceinline__ void operator()(int, int m, int n, float acc) const {
-    const int bi = m / F, f = m % F;
-    out[((size_t)bi * n_mels + n) * F + f] = log10f(fmaxf(acc, 1e-10f));
+  int R, F, n_mels;
+  __device__ __forceinline__ void operator()(int m, int n, float a0, float a1) const {
+    const int b = m / R, f = m - b * R;
+    if (f >= F || n >= n_mels) return;  // n_mels is even: n + 1 < n_mels too
+    float* o = out + ((size_t)b * n_mels + n) * F + f;
+    o[0] = log10f(fmaxf(a0, 1e-10f));
+    o[F] = log10f(fmaxf(a1, 1e-10f));
   }
 };
 
 }  // namespace
 
-// audio (B, L) float32, reflect-padded; window (400,); basis (402, 400) =
-// [cos; -sin] rows; melfb (n_mels, 201); spec scratch (B * F, 402); out
-// (B, n_mels, F) with F = the number of frames kept.
-extern "C" int qasr_log_mel(const void* audio, const void* window, const void* basis,
-                            const void* melfb, void* spec, void* out, int B, int L, int F,
+// audio (B, L) float32, reflect-padded; basis (2, 512, 480) and melfb (2,
+// 128, 256) hi/lo GEMM operands; scratch rows (2, B R, 160) and power (2,
+// B R, 256); out (B, n_mels, F), F kept frames, R >= F + 2 rows an item.
+extern "C" int qasr_log_mel(const void* audio, const void* basis, const void* melfb,
+                            void* rows, void* power, void* out, int B, int L, int R, int F,
                             int n_mels, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const int M = B * F;
-  QASR_TRY(launch_gemm(M, 2 * N_BINS, N_FFT, 1,
-                       FrameA{(const float*)audio, (const float*)window, L, F},
-                       WeightNK<float>{(const float*)basis, N_FFT}, SpecEp{(float*)spec}, s));
-  QASR_TRY(launch_gemm(M, n_mels, N_BINS, 1, PowerA{(const float*)spec},
-                       WeightNK<float>{(const float*)melfb, N_BINS},
-                       LogMelEp{(float*)out, F, n_mels}, s));
+  const int M = B * R;
+  if (R < F + 2 || n_mels % 2 || n_mels > N_MEL) return (int)cudaErrorInvalidValue;
+  const size_t n = (size_t)M * HOP;
+  audio_rows_kernel<<<(int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096), 256, 0, s>>>(
+      (const float*)audio, (float*)rows, L, R, n);
+  QASR_TRY(cudaGetLastError());
+  QASR_TRY(launch_wgmma_gemm_taps<float>((const float*)rows, M, HOP, 3, 1,
+                                         (const float*)basis, M, N_DFT,
+                                         PowerEp{(float*)power, (size_t)M * N_POW}, s));
+  QASR_TRY(launch_wgmma_gemm<float>((const float*)power, (const float*)melfb, M, N_MEL, N_POW,
+                                    LogMelEp{(float*)out, R, F, n_mels}, s));
   return 0;
 }

@@ -233,7 +233,7 @@ class DecodingTask:
             raise ValueError("length_penalty (alpha) should be a value between 0 and 1")
         if options.draft:
             raise NotImplementedError(
-                "draft is not ported yet: ROADMAP.md queue 1, item 7 'Decode services'"
+                "draft is not ported yet: ROADMAP.md queue 1, 'Decode services'"
             )
         return options
 

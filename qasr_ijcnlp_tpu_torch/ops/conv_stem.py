@@ -5,15 +5,19 @@ and ``_stem_kernel_chunked`` (K3, 512 < D <= 1024), which emit the
 transformer trunk's input directly: row-major (B, t_pad, D), position
 embeddings added, padding rows zeroed.  The TPU cut time into 256-row chunks
 above D = 512 only because the whole-axis activations passed 16 MB of VMEM;
-the port's implicit-GEMM tile does not depend on D, so one kernel serves
-both ranges, and also D = 1280 (large-v3), whose stem the reference leaves
-to XLA.
+the port's GEMM tile does not depend on D, so one kernel serves both ranges,
+and also D = 1280 (large-v3), whose stem the reference leaves to XLA.
 
-On the H100 (``csrc/conv_stem.cu``) each convolution is one implicit GEMM
-whose tile loads read mel (or y1) at the tap offsets; the TPU kernel's
-even/odd phase split was a layout trick for whole-array shifts and has no
-counterpart.  y1 goes through device memory between the two launches.  The
-stem is bound by conv2's FMAs on the CUDA cores (no tensor cores yet).
+On the H100 (``csrc/conv_stem.cu``) each convolution is one tensor-core
+GEMM (``csrc/gemm_tc.cuh``, wgmma + TMA) whose A operand is three row views
+of one channels-last buffer: conv1 reads the mel rows at row offsets 0, 1,
+2, conv2 reads y1 at rows 2m, 2m + 1, 2m + 2, with no im2col copy.  A pass
+turns the mel into those rows first; conv1's epilogue writes y1 straight
+into conv2's input buffer.  The row layout is ``stem_pitch``'s; the weights
+are packed once per module and dtype (``stem_pack``).  f32 runs as 3xTF32.
+The kernel takes D a multiple of 128 (every Whisper width) and 80 or 128
+mel bins; anything else raises.  The TPU kernel's even/odd phase split
+was a layout trick for whole-array shifts and has no counterpart.
 """
 
 from __future__ import annotations
@@ -22,7 +26,9 @@ import torch
 import torch.nn.functional as F
 
 from .. import _kernels
-from . import gelu
+from . import gelu, round_up
+from .encoder_block import GEMM_TILE, _check_aligned, _kept, _slabs, gemm_operand
+from .melfront import N_MELS
 
 launches = 0
 
@@ -47,6 +53,42 @@ def _plain_stem(encoder, mel, t_pad: int, dtype):
     return x.contiguous()
 
 
+def stem_pitch(t_mel: int, t_pad: int) -> int:
+    """P, conv2's row pitch per item: output row b P + t is item b's frame t.
+    conv1's rows and y1's have a pitch of 2P, so that conv2's output row m
+    reads y1 rows 2m + j with no offset per item.  An item holds y1's zero
+    row and its t_mel frames (t_mel + 1 <= 2P) and, in conv1's input, two
+    leading zero rows (t_mel + 2 <= 2P): P = max(t_pad, t_mel / 2 + 1)."""
+    return max(t_pad, t_mel // 2 + 1)
+
+
+def _tap_major(w, c_pad: int):
+    """(D, C, 3) conv weight -> (D, 3 c_pad) with column j c_pad + c holding
+    w[:, c, j] (channels zero-padded to c_pad): the GEMM's tap-major W."""
+    w = F.pad(w, (0, 0, 0, c_pad - w.shape[1]))
+    return w.permute(0, 2, 1).reshape(w.shape[0], -1)
+
+
+def stem_pack(encoder, dtype):
+    """The stem's weights in ``dtype``, packed once per module and dtype:
+    conv1 and conv2 as tap-major GEMM operands (``gemm_operand``: f32 as
+    TF32 hi/lo slabs), conv1's channels padded to the k-slice (``c_pad``),
+    the biases and the positional embedding cast to ``dtype``.  Kept on
+    ``encoder``."""
+    def build():
+        c1, c2 = encoder.conv1, encoder.conv2
+        c_pad = round_up(c1.weight.shape[1], 128 // dtype.itemsize)  # a GEMM k-slice
+        return {
+            "w1": gemm_operand(_tap_major(c1.weight, c_pad), dtype),
+            "b1": c1.bias.to(dtype).contiguous(),
+            "w2": gemm_operand(_tap_major(c2.weight, c2.weight.shape[1]), dtype),
+            "b2": c2.bias.to(dtype).contiguous(),
+            "pos": encoder.positional_embedding.to(dtype).contiguous(),
+            "c_pad": c_pad,
+        }
+    return _kept(encoder, encoder.conv1.weight, dtype, build)
+
+
 def fused_conv_stem(encoder, mel, t_pad: int, compute_dtype=torch.float32):
     """(B, n_mels, T_mel) mel -> (B, t_pad, D) trunk input (GELU'd conv stack
     plus position embeddings, rows >= T_mel // 2 zeroed).
@@ -63,22 +105,27 @@ def fused_conv_stem(encoder, mel, t_pad: int, compute_dtype=torch.float32):
     B, C0, Tm = mel.shape
     t_out = Tm // 2
     D = encoder.conv1.weight.shape[0]
+    if D % GEMM_TILE or C0 not in N_MELS:
+        raise ValueError(f"fused_conv_stem: the kernel takes D a multiple of {GEMM_TILE} "
+                         f"and {N_MELS} mel bins, got D={D}, {C0} bins")
     if t_pad < t_out or encoder.conv1.weight.shape[1:] != (C0, 3):
         raise ValueError("fused_conv_stem: t_pad or conv1 shape mismatch")
-    mel = mel.float().contiguous()
-    w = lambda p: p.to(dt).contiguous()
-    ws = [w(encoder.conv1.weight), w(encoder.conv1.bias), w(encoder.conv2.weight),
-          w(encoder.conv2.bias), w(encoder.positional_embedding[:t_out])]
-    if ws[4].shape != (t_out, D):
+    if encoder.positional_embedding.shape[0] < t_out:
         raise ValueError("fused_conv_stem: positional embedding too short")
-    y1 = mel.new_empty(B, Tm, D, dtype=dt)
+    p = stem_pack(encoder, dt)
+    P, S, c_pad = stem_pitch(Tm, t_pad), _slabs(dt), p["c_pad"]
+    mel = mel.float().contiguous()
+    ws = [p[k] for k in ("w1", "b1", "w2", "b2", "pos")]
+    xb = mel.new_empty(S, 2 * B * P, c_pad, dtype=dt)
+    y1 = mel.new_empty(S, 2 * B * P, D, dtype=dt)
     out = mel.new_empty(B, t_pad, D, dtype=dt)
-    _kernels.check_cuda("fused_conv_stem", mel, *ws, y1, out)
-    _kernels.check_cuda("fused_conv_stem", *ws, y1, out, dtype=dt)
+    _kernels.check_cuda("fused_conv_stem", mel, *ws, xb, y1, out)
+    _kernels.check_cuda("fused_conv_stem", *ws, xb, y1, out, dtype=dt)
+    _check_aligned("fused_conv_stem", *ws, xb, y1, out)
     _kernels.library().call(
         "qasr_conv_stem", mel.device, _kernels.DTYPE_CODES[dt],
-        mel.data_ptr(), *(p.data_ptr() for p in ws), y1.data_ptr(),
-        out.data_ptr(), B, C0, Tm, D, t_out, t_pad,
+        mel.data_ptr(), *(w.data_ptr() for w in ws), xb.data_ptr(), y1.data_ptr(),
+        out.data_ptr(), B, C0, c_pad, Tm, D, t_out, t_pad, P,
     )
     launches += 1
     return out

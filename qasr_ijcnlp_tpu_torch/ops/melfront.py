@@ -4,11 +4,17 @@ Replaces ``qasr_ijcnlp_tpu/ops/melfront.py`` ``_mel_kernel``.  A 400-point
 DFT is small enough that one matrix product per stage beats an FFT, so the
 frontend is two products: windowed frames @ [cos | -sin] (400 -> 2 x 201),
 then |.|^2 @ mel^T (201 -> n_mels), then log10(max(., 1e-10)).  The reference
-pins both products to true fp32 (``Precision.HIGHEST``); the CUDA kernel
-(``csrc/melfront.cu``) uses fp32 FMAs only, and the plain version runs with
-TF32 off.  On the H100 the DFT product dominates and is bound by CUDA-core
-FMA throughput; the kernel reads frames straight out of the padded waveform
-and never stores the power spectrum.
+pins both products to true fp32 (``Precision.HIGHEST``); the plain version
+runs with TF32 off.
+
+On the H100 (``csrc/melfront.cu``) both products run on the tensor cores
+(``csrc/gemm_tc.cuh``, wgmma + TMA) as 3xTF32.  A pass cuts each padded
+waveform into rows of one hop (160 samples, ``frame_rows``); a frame is
+three consecutive rows, read as three row views with no framing copy.  The
+DFT's basis has the Hann window folded in and its rows interleaved as (cos,
+-sin) per bin (``gemm_tables``, built once per device), so the DFT's
+epilogue squares and sums each (re, im) pair into the power spectrum, and
+the mel product's epilogue writes log10 already transposed.
 
 The per-item max - 8 clamp and the (x + 4) / 4 scaling depend on the whole
 spectrogram, so they stay outside the kernel, as in the reference.
@@ -24,8 +30,10 @@ import torch.nn.functional as F
 
 from .. import _kernels
 from ..audio import HOP_LENGTH, N_FFT, mel_filters
+from .encoder_block import gemm_operand
 
 launches = 0
+N_MELS = (80, 128)  # the mel bins the kernels take (every Whisper size's)
 
 
 @functools.lru_cache(maxsize=None)
@@ -42,6 +50,40 @@ def _tables(n_mels: int):
 @functools.lru_cache(maxsize=8)
 def _device_tables(n_mels: int, device: torch.device):
     return tuple(torch.from_numpy(t).to(device) for t in _tables(n_mels))
+
+
+# The kernel's GEMM widths: a frame is three hops (K 480, samples past 400
+# weighted 0); (re, im) of 201 bins -> 512 columns; power 201 -> 256 bins;
+# n_mels -> 128 columns.
+DFT_K, DFT_N, POWER_K, MEL_N = 3 * HOP_LENGTH, 512, 256, 128
+
+
+@functools.lru_cache(maxsize=8)
+def gemm_tables(n_mels: int, device: torch.device):
+    """The kernel's weights as 3xTF32 GEMM operands (hi/lo slabs): the DFT
+    basis (2, 512, 480), row 2i = window x cos of bin i and row 2i + 1 =
+    -window x sin (the window folded in, in float64, rounded once), zero
+    past bin 200 and past sample 400; the mel filterbank (2, 128, 256),
+    zero-padded."""
+    n_bins = N_FFT // 2 + 1
+    k = np.arange(N_FFT)
+    window = 0.5 * (1 - np.cos(2 * np.pi * k / N_FFT))
+    ang = 2 * np.pi * np.arange(n_bins)[:, None] * k[None, :] / N_FFT
+    basis = np.zeros((DFT_N, DFT_K))
+    basis[0:2 * n_bins:2, :N_FFT] = window * np.cos(ang)
+    basis[1:2 * n_bins:2, :N_FFT] = -window * np.sin(ang)
+    melfb = np.zeros((MEL_N, POWER_K), np.float32)
+    melfb[:n_mels, :n_bins] = mel_filters(n_mels)
+    return tuple(gemm_operand(torch.from_numpy(t.astype(np.float32)), torch.float32)
+                 .to(device) for t in (basis, melfb))
+
+
+def frame_rows(length: int):
+    """(F, R) for a padded waveform of ``length`` samples: F frames kept
+    (the reference drops the final one) and R >= F + 2 hop rows an item,
+    so that frame f's three rows f, f + 1, f + 2 lie in its item."""
+    n_keep = (length - N_FFT) // HOP_LENGTH
+    return n_keep, n_keep + 2
 
 
 def _plain_log10_mel(audio, n_mels: int):
@@ -62,22 +104,24 @@ def log10_mel(audio, n_mels: int = 80):
     if not audio.is_cuda:
         return _plain_log10_mel(audio, n_mels)
     global launches
-    if audio.dim() != 2 or audio.dtype != torch.float32 or audio.shape[-1] < N_FFT:
-        raise ValueError(f"log10_mel: expected (B, L >= {N_FFT}) float32 audio, "
-                         f"got {tuple(audio.shape)} {audio.dtype}")
+    if audio.dim() != 2 or audio.dtype != torch.float32 or \
+            audio.shape[-1] < N_FFT + HOP_LENGTH:
+        raise ValueError(f"log10_mel: expected (B, L >= {N_FFT + HOP_LENGTH}) float32 "
+                         f"audio, got {tuple(audio.shape)} {audio.dtype}")
+    if n_mels not in N_MELS:
+        raise ValueError(f"log10_mel: the kernel takes {N_MELS} mel bins, got {n_mels}")
     B, L = audio.shape
-    n_frames = (L - N_FFT) // HOP_LENGTH + 1
-    F_keep = n_frames - 1
-    window, basis, melfb = _device_tables(n_mels, audio.device)
+    F_keep, R = frame_rows(L)
+    basis, melfb = gemm_tables(n_mels, audio.device)
     audio = audio.contiguous()
-    spec = audio.new_empty(B * F_keep, 2 * (N_FFT // 2 + 1))
+    rows = audio.new_empty(2, B * R, HOP_LENGTH)
+    power = audio.new_empty(2, B * R, POWER_K)
     out = audio.new_empty(B, n_mels, F_keep)
-    _kernels.check_cuda("log10_mel", audio, window, basis, melfb, spec, out,
+    _kernels.check_cuda("log10_mel", audio, basis, melfb, rows, power, out,
                         dtype=torch.float32)
     _kernels.library().call(
-        "qasr_log_mel", audio.device, audio.data_ptr(), window.data_ptr(),
-        basis.data_ptr(), melfb.data_ptr(), spec.data_ptr(), out.data_ptr(),
-        B, L, F_keep, n_mels,
+        "qasr_log_mel", audio.device, audio.data_ptr(), basis.data_ptr(), melfb.data_ptr(),
+        rows.data_ptr(), power.data_ptr(), out.data_ptr(), B, L, R, F_keep, n_mels,
     )
     launches += 1
     return out

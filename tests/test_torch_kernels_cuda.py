@@ -140,6 +140,66 @@ def test_mel_kernel(cuda_dev, seconds):
     assert float((k - p).abs().max()) <= 2e-4
 
 
+# (D, mel bins, B, mel frames, t_pad): every Whisper width and the tier-1
+# one; the last two with t_pad == t_out (no spare row after an item's last
+# frame).
+STEM_CASES = [(128, 80, 1, 1000, 512), (384, 80, 3, 3000, 1536), (768, 80, 1, 3000, 1536),
+              (1024, 128, 1, 3000, 1536), (1280, 128, 3, 3000, 1536),
+              (128, 128, 3, 1024, 512), (384, 80, 1, 1000, 500)]
+
+
+def _stem_encoder(cuda_dev, D, n_mels):
+    torch.manual_seed(D + n_mels)
+    return tmodel.AudioEncoder(n_mels, 1500, D, max(1, D // 64), 0).to(
+        cuda_dev).requires_grad_(False)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("D,C0,B,Tm,t_pad", STEM_CASES, ids=str)
+def test_conv_stem_kernel_at_every_width(cuda_dev, dtype, D, C0, B, Tm, t_pad):
+    """The tensor-core stem against its plain version: D from 128 to 1280,
+    80 and 128 mels, B 1 and 3, 1000 and 3000 frames; rows >= t_out
+    exactly 0."""
+    enc = _stem_encoder(cuda_dev, D, C0)
+    mel = torch.randn(B, C0, Tm, generator=torch.Generator(device="cuda").manual_seed(Tm),
+                      device="cuda")
+    before = conv_stem.launches
+    k = conv_stem.fused_conv_stem(enc, mel, t_pad, dtype)
+    assert conv_stem.launches == before + 1
+    _close(k, conv_stem._plain_stem(enc, mel, t_pad, dtype),
+           lambda: conv_stem._plain_stem(enc, mel, t_pad, torch.float32))
+    assert not k[:, Tm // 2:].any()
+
+
+def test_conv_stem_raises_off_its_gate(cuda_dev):
+    """D not a multiple of 128, mel bins other than 80 and 128, an odd mel
+    length: ValueError before a launch, no fallback."""
+    for D, C0, Tm in ((96, 80, 1000), (128, 64, 1000), (128, 80, 999)):
+        enc = _stem_encoder(cuda_dev, D, C0)
+        with pytest.raises(ValueError):
+            conv_stem.fused_conv_stem(enc, torch.zeros(1, C0, Tm, device="cuda"), 512)
+
+
+@pytest.mark.parametrize("B,n_samples,n_mels", [(2, 17600, 80), (2, 480000, 80),
+                                                (1, 16001, 80), (1, 480000, 128),
+                                                (3, 17600, 128)])
+def test_mel_kernel_lengths_and_bins(cuda_dev, B, n_samples, n_mels):
+    """K1 on the tensor cores: 1.1 s, 30 s, an odd sample count, B = 1, 128
+    bins; within the mel bound after the clamp and scaling."""
+    pcm = torch.from_numpy((np.random.default_rng(n_samples).standard_normal(
+        (B, n_samples)) * 0.1).astype(np.float32)).to(cuda_dev)
+    padded = melfront.reflect_pad(pcm)
+    before = melfront.launches
+    k = melfront.clamp_and_scale(melfront.log10_mel(padded, n_mels))
+    assert melfront.launches == before + 1
+    p = melfront.clamp_and_scale(melfront._plain_log10_mel(padded, n_mels))
+    assert k.shape == p.shape == (B, n_mels, n_samples // 160)
+    assert torch.isfinite(k).all()
+    assert float((k - p).abs().max()) <= 2e-4
+    with pytest.raises(ValueError):
+        melfront.log10_mel(padded, 64)
+
+
 def test_wrappers_raise_on_unsupported_input(model):
     x = _x(model, 5, torch.float32)
     blk, H = model.module.encoder.blocks[0], model.dims.n_audio_head

@@ -184,3 +184,90 @@ def port_decoder_block(bp_np, n_state: int, n_head: int) -> ResidualAttentionBlo
     blk = ResidualAttentionBlock(n_state, n_head, cross_attention=True)
     blk.load_state_dict({k[len("blk."):]: v for k, v in sd.items()})
     return blk.eval().requires_grad_(False)
+
+
+# -- the conv stem's and the mel frontend's tensor-core layouts (K1-K3) -------
+
+def tc_gemm(a_op, w_op):
+    """(S, M, K) A operand times (S, N, K) W operand, transposed, as the
+    tensor-core GEMM computes it (``csrc/gemm_tc.cuh``): bfloat16 slabs
+    (S = 1) as exact products summed in fp32; float32 hi/lo slabs (S = 2)
+    as 3xTF32, hi.lo' + lo.hi' + hi.hi'."""
+    if a_op.shape[0] == 1:
+        return a_op[0].float() @ w_op[0].float().t()
+    (ah, al), (wh, wl) = a_op, w_op
+    return ah @ wl.t() + al @ wh.t() + ah @ wh.t()
+
+
+def tap_views(op, taps: int, stride: int, rows: int, shift: int = 0):
+    """The tap-view A operand as the GEMM's producer reads it: ``rows`` rows
+    whose tap j is row stride m + j of ``op`` (S, R, C), rows past R zero
+    (TMA's fill), taps side by side (tap-major columns).  ``shift`` moves
+    the last tap down that many rows: a planted fault."""
+    pad = torch.nn.functional.pad(op, (0, 0, 0, stride * rows + taps + shift))
+    starts = [j + (shift if j == taps - 1 else 0) for j in range(taps)]
+    return torch.cat([pad[:, s:s + stride * rows:stride] for s in starts], -1)
+
+
+def _gelu_erf(x):
+    return 0.5 * x * (1 + torch.erf(x * 0.70710678118654752))
+
+
+def stem_tap_model(encoder, mel, t_pad: int, dtype, fault=None):
+    """The stem as ``csrc/conv_stem.cu`` computes it, in plain PyTorch on
+    the CPU: the packed weights (``conv_stem.stem_pack``) times the tap
+    views of its two padded buffers, with the kernel's row pitch
+    (``conv_stem.stem_pitch``) and rounding points.  conv1's input holds
+    item b's mel frame tau at row 2 b P + 2 + tau (channels padded to the
+    pack's c_pad); conv1's output row r is y1's frame r mod 2P - 1 (zero
+    outside [0, Tm)), which is also conv2's input row r; conv2's output row
+    b P + t reads rows 2 (b P + t) + j.  ``fault`` ("conv1" or "conv2")
+    shifts that convolution's last tap by one row."""
+    from qasr_ijcnlp_tpu_torch.ops import conv_stem
+    from qasr_ijcnlp_tpu_torch.ops.encoder_block import gemm_operand
+
+    rnd = lambda x: x.to(dtype).float()
+    p = conv_stem.stem_pack(encoder, dtype)
+    B, C0, Tm = mel.shape
+    D, c_pad = p["w2"].shape[1], p["c_pad"]
+    P, t_out = conv_stem.stem_pitch(Tm, t_pad), Tm // 2
+    rows = 2 * B * P
+    x = torch.zeros(B, 2 * P, c_pad)
+    x[:, 2:2 + Tm, :C0] = rnd(mel.float()).transpose(1, 2)
+    x = gemm_operand(x.reshape(rows, c_pad), dtype)
+    acc = tc_gemm(tap_views(x, 3, 1, rows, int(fault == "conv1")), p["w1"])
+    y = _gelu_erf(rnd(rnd(acc) + p["b1"].float()))
+    tau = torch.arange(rows) % (2 * P) - 1
+    y = gemm_operand(torch.where(((tau >= 0) & (tau < Tm))[:, None], y, 0.0), dtype)
+    acc = tc_gemm(tap_views(y, 3, 2, B * P, int(fault == "conv2")), p["w2"])
+    t = torch.arange(B * P) % P
+    pos = p["pos"].float()[t.clamp(max=t_out - 1)]
+    v = rnd(_gelu_erf(rnd(rnd(acc) + p["b2"].float()))) + pos
+    v = rnd(torch.where((t < t_out)[:, None], v, 0.0))
+    return v.reshape(B, P, D)[:, :t_pad].to(dtype)
+
+
+def mel_tap_model(padded, n_mels: int, fault: bool = False):
+    """log10 mel as ``csrc/melfront.cu`` computes it, in plain PyTorch on
+    the CPU: each padded waveform cut into R hop rows of 160 samples
+    (``melfront.frame_rows``), frame f the three rows f, f + 1, f + 2 as
+    tap views, times the cached basis (window folded in, rows (cos, -sin)
+    per bin, ``melfront.gemm_tables``), (re, im) pairs squared and summed,
+    the mel GEMM, log10, transposed.  ``fault`` shifts the third tap by one
+    row."""
+    from qasr_ijcnlp_tpu_torch.ops import melfront
+    from qasr_ijcnlp_tpu_torch.ops.encoder_block import gemm_operand
+
+    basis, melfb = melfront.gemm_tables(n_mels, torch.device("cpu"))
+    B, L = padded.shape
+    F_keep, R = melfront.frame_rows(L)
+    hop = melfront.HOP_LENGTH
+    rows = torch.zeros(B, R * hop)
+    n = min(L, R * hop)
+    rows[:, :n] = padded[:, :n]
+    rows = gemm_operand(rows.reshape(B * R, hop), torch.float32)
+    spec = tc_gemm(tap_views(rows, 3, 1, B * R, int(fault)), basis)
+    power = spec[:, 0::2] ** 2 + spec[:, 1::2] ** 2
+    mel = tc_gemm(gemm_operand(power, torch.float32), melfb)[:, :n_mels]
+    out = torch.log10(torch.clamp(mel, min=1e-10)).reshape(B, R, n_mels)
+    return out[:, :F_keep].transpose(1, 2)
