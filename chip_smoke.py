@@ -5,6 +5,8 @@
     python3 chip_smoke.py --stem            # K1 and the stem alone (and the encoder stage)
     python3 chip_smoke.py --k9 [--stages]   # K9 alone (and the int8 decode stages)
     python3 chip_smoke.py --k10 [--stages]  # K10 alone (and the fused decode stages)
+    python3 chip_smoke.py --attn            # K4, K7, K8 alone, with output digests
+    python3 chip_smoke.py --diag            # K11 and K12 alone (the diagnostics)
 
 Drives the port's request path (qasr_ijcnlp_tpu_torch) at the full width of
 three Whisper sizes and of two head geometries at small's width, with random
@@ -82,13 +84,18 @@ and the opt-in fused step) and its grouped decodes (beam search, best-of):
    as for large-v3;
 8. **K11**, the attention core's diagnostic split (``diagnostics.
    attn_parts``): its three modes against their plain versions at B=8 in
-   bf16, then the diagnostic's own run at the TPU script's B=512 (no plain
-   version there: its fp32 logits would take 29 GB), counted like a path;
-   then **K12**, the decode step's cross-attention formulations
-   (``diagnostics.step_formulations``): dma, vpu, mxu_t and mxu_r against
-   their plain versions at the TPU script's B=64 (bf16; dma's output
-   fp32), SDPA timed beside the attention modes, and the diagnostic's own
-   run counted like a path (K12 exactly 4 x 61 times);
+   bf16 (bounds with one exponential per pair for softmax and full, at the
+   card's special-function rate), then the diagnostic's own run at the TPU
+   script's B=512 (no plain version there: its fp32 logits would take 29
+   GB), counted like a path; then **K12**, the decode step's
+   cross-attention formulations (``diagnostics.step_formulations``): dma,
+   vpu, mxu_t and mxu_r against their plain versions at the TPU script's
+   B=64 (bf16; dma's output fp32), SDPA timed beside the attention modes,
+   the attention modes also on wide inputs N(0, 0.5^2) and on peaked ones
+   (one position per row and head planted 6 above the row's other logits
+   in the last split), then the diagnostic's own run counted like a path
+   (K12 exactly 4 x 21 times: a warm-up and 20 launches captured in a CUDA
+   graph, whose replays are timed);
 9. for medium, large-v3 and the small geometries, request 0's f32 tokens
    are checked against the CPU plain path (log-mel, encoder and decoder on
    the CPU), teacher-forced on the card's tokens: at every step the card's
@@ -153,6 +160,9 @@ INT8_LOGPROB_GAP = 0.15
 PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12, "tf32x3": 495e12 / 3}
 HBM_BYTES_PER_S = 3.35e12
 B_KERNEL = 8
+# ``--attn`` records a digest of every kernel output (two trees compared
+# bit for bit).
+DIGESTS = False
 
 
 def log(*a):
@@ -242,10 +252,12 @@ def bound(flops, nbytes, key):
 
 
 def compare(name, key, kernel_fn, plain_fn, work, tol="f32", plain32_fn=None,
-            library_fn=None, iters=10, warmup=2, peak=None, library_same=True):
+            library_fn=None, iters=10, warmup=2, peak=None, library_same=True,
+            bound_ms_by=None):
     """Kernel vs its plain version on the same inputs; ``work`` is (flops,
     bytes) of the function at these shapes, its operations counted at the
-    ``peak`` rate (default: ``key``'s).  f32 is held to ``TOL[tol]``, bf16
+    ``peak`` rate (default: ``key``'s), or ``bound_ms_by`` (ms, what bounds
+    it) where the kernel's module computes its own.  f32 is held to ``TOL[tol]``, bf16
     to NOISE_FACTOR times the distance of the plain bf16 version from
     ``plain32_fn`` (the plain version in f32 on the same bf16-valued
     inputs).  A library yardstick must agree with the plain version within
@@ -268,6 +280,7 @@ def compare(name, key, kernel_fn, plain_fn, work, tol="f32", plain32_fn=None,
     lib_err = None
     if library_fn is not None:
         lib_err = float((library_fn().float().reshape(p.shape) - p.float()).abs().max())
+    digest = digest_of(k) if DIGESTS else None
     del k, p
     if err > limit:
         raise AssertionError(f"{name} {key}: error {err} outside tolerance {tol_txt}")
@@ -277,15 +290,26 @@ def compare(name, key, kernel_fn, plain_fn, work, tol="f32", plain32_fn=None,
     ms = cuda_ms(kernel_fn, iters, warmup)
     plain_ms = cuda_ms(plain_fn, iters, warmup)
     lib_ms = cuda_ms(library_fn, iters, warmup) if library_fn is not None else None
-    bound_ms, bound_by = bound(*work, peak or key)
+    bound_ms, bound_by = bound_ms_by or bound(*work, peak or key)
     log(f"{name} {key}: max_abs_err {err:.3e} (tol {tol_txt}) kernel {ms:.4f} ms "
         f"plain {plain_ms:.4f} ms"
         + (f" library {lib_ms:.4f} ms (its max_abs_err {lib_err:.3e})"
            if lib_ms is not None else "")
         + f" bound {bound_ms:.4f} ms ({bound_by}: {work[0] / 1e9:.2f} GFLOP, "
           f"{work[1] / 1e6:.1f} MB)")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": lib_ms}
+    res = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "library_ms": lib_ms}
+    if digest is not None:
+        res["digest"] = digest
+    return res
+
+
+def digest_of(t):
+    """The first 16 hex digits of the SHA-256 of a tensor's bytes."""
+    import hashlib
+
+    raw = t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes()
+    return hashlib.sha256(raw).hexdigest()[:16]
 
 
 # -- work of each kernel at its inputs (flops, bytes) -------------------------
@@ -825,13 +849,17 @@ def attn_parts_phase(res, dev):
     heads = lambda z: z.view(B_KERNEL, ap.T_PAD, ap.N_HEAD, ap.HEAD_WIDTH).transpose(1, 2)
     sdpa = lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v),
                                                   scale=1.0).transpose(1, 2)
+    rate = ap.card_exp_rate(dev)
+    log(f"K11 exponentials: {rate / 1e12:.3f} per ps (16 per SM per clock x the card's SMs "
+        f"x clocks.max.sm)")
     for mode in ap.MODES:
-        flops, nbytes, peak = ap.work(mode, B_KERNEL, ap.T_PAD, ap.D_MODEL)
+        flops, nbytes, peak, exps = ap.work(mode, B_KERNEL, ap.T_PAD, ap.D_MODEL)
         res[f"K11_{mode}"] = {"bf16": compare(
             f"K11 {mode} B={B_KERNEL}", "bf16", lambda: ap.attn_parts(q, k, v, mode),
             lambda: ap.attn_parts_plain(q, k, v, mode), (flops, nbytes),
             plain32_fn=lambda: ap.attn_parts_plain(q.float(), k.float(), v.float(), mode),
-            library_fn=sdpa if mode == "full" else None, peak=peak, library_same=False)}
+            library_fn=sdpa if mode == "full" else None, peak=peak, library_same=False,
+            bound_ms_by=ap.bound_ms(flops, nbytes, peak, exps, rate))}
     return res
 
 
@@ -900,48 +928,59 @@ def step_formulations_phase(res, dev):
         del q, k, v, sdpa
         if mode != "dma":
             res[f"K12_{mode}"]["bf16"].update(step_formulations_wide(sf, mode, B, dev))
+            res[f"K12_{mode}"]["bf16"].update(step_formulations_wide(sf, mode, B, dev,
+                                                                     peaked=True))
     return res
 
 
-def step_formulations_wide(sf, mode, B, dev):
-    """K12 ``mode`` on inputs N(0, 0.5^2) (the CPU test's), checked and not
-    timed.  The script's inputs (x 0.1) give a nearly uniform softmax, where
-    a wrong rescale or split merge moves the output by little; here the
-    logits spread by about 2 per head, and such a fault moves it by tenths.
-    The kernel rounds p against its chunk's running max and the plain
-    version against the row's max, so each lands a bf16 step either side of
-    the exact value: the kernel is held to NOISE_FACTOR times the plain bf16
+def step_formulations_wide(sf, mode, B, dev, peaked=False):
+    """K12 ``mode`` on inputs N(0, 0.5^2) (the CPU test's), or with
+    ``peaked`` on ``sf.peaked_inputs`` (per row and head one position of
+    the kernel's last split planted 6 above the row's other logits),
+    checked and not timed.  The script's inputs (x 0.1) give a nearly
+    uniform softmax, where a wrong rescale or split merge moves the output
+    by little; here the logits spread by about 2 per head, and such a fault
+    moves it by tenths (peaked: by the output's own size).  The kernel
+    rounds p against its chunk's running max and the plain version against
+    the row's max, so each lands a bf16 step either side of the exact
+    value: the kernel is held to NOISE_FACTOR times the plain bf16
     version's distance from the plain version in f32, both measured from
     the f32 one; its distance from the plain bf16 version is reported."""
-    q, k, v = sf.inputs(B, mode, SEED + 22, dev, scale=0.5)
+    if peaked:
+        q, k, v = sf.peaked_inputs(B, mode, SEED + 25, dev,
+                                   n_splits=sf.card_splits(mode, B, sf.T_AUDIO, dev))
+    else:
+        q, k, v = sf.inputs(B, mode, SEED + 22, dev, scale=0.5)
+    label = "peaked" if peaked else "wide"
     out = sf.step_formulations(q, k, v, mode)
     p = sf.step_formulations_plain(q, k, v, mode).float()
     p32 = sf.step_formulations_plain(q.float(), k.float(), v.float(), mode).float()
     torch.cuda.synchronize()
     if out.shape != p.shape or not torch.isfinite(out).all():
-        raise AssertionError(f"K12 {mode} B={B} wide: bad shape or non-finite output")
+        raise AssertionError(f"K12 {mode} B={B} {label}: bad shape or non-finite output")
     err = float((out.float() - p).abs().max())
     err32 = float((out.float() - p32).abs().max())
     noise = float((p - p32).abs().max())
     limit = NOISE_FACTOR * noise
-    log(f"K12 {mode} B={B} inputs N(0, 0.5^2): from the plain f32 version {err32:.3e} (tol "
+    log(f"K12 {mode} B={B} {label} inputs: from the plain f32 version {err32:.3e} (tol "
         f"{limit:.3e} = {NOISE_FACTOR:g} x plain bf16's {noise:.3e}); from plain bf16 "
         f"{err:.3e}; max |out| {float(p.abs().max()):.3f}")
     if err32 > limit:
-        raise AssertionError(f"K12 {mode} B={B} wide: {err32} from the plain f32 version, "
+        raise AssertionError(f"K12 {mode} B={B} {label}: {err32} from the plain f32 version, "
                              f"outside tolerance {limit}")
-    return {"max_abs_err_wide": err, "max_abs_err_wide_f32": err32, "tol_wide": limit}
+    return {f"max_abs_err_{label}": err, f"max_abs_err_{label}_f32": err32,
+            f"tol_{label}": limit}
 
 
 def step_formulations_run(res, dev):
     """The diagnostic's own run (``diagnostics.step_formulations.measure``)
     at the script's B = 64, counted as a path: every counter set to 0 just
-    before it; each mode launches K12 once to warm up and 3 x 20 times
-    timed, and nothing else runs."""
+    before it; each mode launches K12 once to warm up and 20 times into a
+    CUDA graph, replayed 3 times and timed, and nothing else runs."""
     from qasr_ijcnlp_tpu_torch.diagnostics import step_formulations as sf
 
     runs, iters = 3, 20
-    want = len(sf.MODES) * (1 + runs * iters)
+    want = len(sf.MODES) * (1 + iters)
     cs = counters()
     for mod, attr in cs.values():
         setattr(mod, attr, 0)
@@ -956,8 +995,10 @@ def step_formulations_run(res, dev):
     for mode, r in times.items():
         entry = res[f"K12_{mode}"]
         entry = entry.get("f32") or entry["bf16"]
-        entry.update({"run_ms": r["ms"], "run_gbps": r["gbps"], "run_spread": r["spread"]})
-        log(f"K12 {mode} B={sf.BATCH}: {r['ms'] * 1e3:.1f} us a call (fastest of "
+        # the kernel's time is its graph replays'; the eager loop times the host too
+        entry.update({"eager_ms": entry["ms"], "ms": r["ms"], "runs_ms": r["runs_ms"],
+                      "run_gbps": r["gbps"], "run_spread": r["spread"]})
+        log(f"K12 {mode} B={sf.BATCH}: {r['ms'] * 1e3:.1f} us a call (graph replays; fastest of "
             f"{[round(t * 1e3, 1) for t in r['runs_ms']]} us), {r['gbps']:.1f} GB/s effective, "
             f"spread {r['spread'] * 100:.1f}%, bound {r['bound_ms'] * 1e3:.1f} us "
             f"({r['bound_by']})")
@@ -1724,6 +1765,66 @@ def k10_run(port, dev, smi, stages, repeats=2):
     log(smi)
 
 
+def attn_run(port, dev, smi):
+    """``python3 chip_smoke.py --attn``: the attention core's three callers
+    alone, for comparing two trees in one call: K4 at medium (16 heads, a
+    default-init block seeded by SEED), K7 at small-h96 (8 heads of 96) and
+    K8 at large-v3 (20 heads), f32 and bf16, each against its plain version
+    with its time and a digest of its output (equal digests: the same bits),
+    and the K4 and K8 rounding probes.  Prints the rows as one JSON line; no
+    launch counts (the full run has them)."""
+    global DIGESTS
+    from qasr_ijcnlp_tpu_torch.models.dims import dims_for
+    from qasr_ijcnlp_tpu_torch.models.whisper import ResidualAttentionBlock
+    from qasr_ijcnlp_tpu_torch.ops import encoder_block, flash
+
+    DIGESTS = True
+    kres = {}
+    with torch.inference_mode():
+        T, Tp, D, H, _, _ = geometry(dims_for("medium"))
+        torch.manual_seed(SEED)
+        blk = ResidualAttentionBlock(D, H).to(dev).requires_grad_(False)
+        x32 = rows(np.random.default_rng(SEED + 1), B_KERNEL, Tp, D, T, dev)
+        for dt, key in dtypes():
+            x = x32.to(dt)
+            kres.setdefault("K4_16h", {})[key] = compare(
+                f"K4_16h attention {H} heads", key,
+                lambda: encoder_block.fused_attention_ln(x, blk.attn_ln, blk.attn, H, T),
+                lambda: encoder_block._plain_attn_ln(x, blk.attn_ln, blk.attn, H, T),
+                attn_work(B_KERNEL, Tp, D, H, T, elem_size(key)), peak=tc_peak(key),
+                plain32_fn=lambda: encoder_block._plain_attn_ln(
+                    x.float(), blk.attn_ln, blk.attn, H, T))
+        x, ln, attn, want = k4_probe(dev, D, H, Tp, T)
+        check_probe("K4", encoder_block.fused_attention_ln(x, ln, attn, H, T), want, T)
+        del blk, x32, x
+        k7_phase(kres, "K7", B_KERNEL, 8, 96, dev, SEED + 13)
+        T, Tp, D, H, _, _ = geometry(dims_for("large-v3"))
+        packed_phase(kres, "K8", B_KERNEL, D, H, dev, SEED + 19, T, Tp)
+        q, k, v, want = k8_probe(dev, H, 128, Tp, T)
+        check_probe("K8", flash.flash_attention_packed(q, k, v, H, T), want, T)
+    log(json.dumps({"attn": kres}))
+    log(smi)
+
+
+def diag_phases(dev):
+    """K11 and K12: each mode against its plain version, then each
+    diagnostic's own counted run; (rows, launches by path)."""
+    with torch.inference_mode():
+        res = attn_parts_phase({}, dev)
+        paths = attn_parts_run(res, dev)
+        step_formulations_phase(res, dev)
+        paths.update(step_formulations_run(res, dev))
+    return res, paths
+
+
+def diag_run(port, dev, smi):
+    """``python3 chip_smoke.py --diag``: K11 and K12 alone, as the full run
+    drives them.  Prints the rows as one JSON line."""
+    res, paths = diag_phases(dev)
+    log(json.dumps({"diag": res, "launches": paths}))
+    log(smi)
+
+
 def device_split(label, fn, calls=5):
     """Device ms per call of each kernel that ``fn`` launches, from
     ``torch.profiler``'s CUDA (CUPTI) events over ``calls`` warm calls;
@@ -1829,12 +1930,13 @@ def main():
         run = k9_run if sys.argv[1] == "--k9" else k10_run
         run(port, dev, smi, stages=sys.argv[2:] == ["--stages"])
         return
-    if sys.argv[1:] == ["--stem"]:
-        stem_run(port, dev, smi)
+    modes = {"--stem": stem_run, "--attn": attn_run, "--diag": diag_run}
+    if len(sys.argv) == 2 and sys.argv[1] in modes:
+        modes[sys.argv[1]](port, dev, smi)
         return
     if sys.argv[1:]:
-        raise SystemExit(f"usage: python3 chip_smoke.py [--stem | --k9 | --k10 [--stages]]; "
-                         f"got {sys.argv[1:]}")
+        raise SystemExit(f"usage: python3 chip_smoke.py [--stem | --attn | --diag | --k9 | "
+                         f"--k10 [--stages]]; got {sys.argv[1:]}")
 
     kres, by_path = tiny_path(port, tiny_dims(), dev, smi)
     # == medium and large-v3, full width and depth ==================================
@@ -1852,11 +1954,7 @@ def main():
                                small_h96_kernel_phase)
     wres, wpaths = family_path(port, "small-h128", h128, dev, smi, fused_expect(h128),
                                small_h128_kernel_phase, int8=True)
-    with torch.inference_mode():
-        pres = attn_parts_phase({}, dev)
-        ppaths = attn_parts_run(pres, dev)
-        step_formulations_phase(pres, dev)
-        ppaths.update(step_formulations_run(pres, dev))
+    pres, ppaths = diag_phases(dev)
     for res, paths in ((mres, mpaths), (lres, lpaths), (sres, spaths), (wres, wpaths),
                        (pres, ppaths)):
         kres.update(res)

@@ -53,7 +53,7 @@ _SIGNATURES = {
     "qasr_int8_cross_attention_clusters": [_I] * 7 + [_P, _P],
     "qasr_decoder_layer_step": [_I] + [_P] * 9 + [_I] * 11 + [_P],
     "qasr_attn_parts": [_I] + [_P] * 4 + [_I] * 3 + [_P],
-    "qasr_step_formulations": [_I] + [_P] * 5 + [_I] * 3 + [_P],
+    "qasr_step_formulations": [_I] + [_P] * 6 + [_I] * 3 + [_P],
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -1,5 +1,6 @@
 // Tensor-core attention core of K4 (qasr_attention, encoder_block.cu), K7
-// (qasr_flash_attention) and K8 (qasr_packed_attention, both flash.cu).
+// (qasr_flash_attention) and K8 (qasr_packed_attention, both flash.cu), and
+// of K11's `dots` and `full` modes (qasr_attn_parts, attn_parts.cu).
 //
 // out[b, h, t, :dh] = softmax_j(q_t . k_j, keys j < t_real) v_j for one head
 // h of any width dh <= 256, q and k pre-scaled by the caller, each operand
@@ -64,6 +65,17 @@
 //   order (even keys, then odd), so no shuffle is needed.
 // * Head widths.  Compiled at W = 16, 32, 64, 96, 128 and 256 and launched
 //   at the smallest W >= dh; PV runs in slices of at most 64 columns.
+// * Modes (kMode, bf16 only beside the attention; K11's diagnostic split).
+//   kTcAttention is the above and compiles to the code it had before the
+//   modes.  K11's two modes take operands TMA can address only.  kTcDots
+//   skips the softmax: p = bf16(S), no max, no rescale of O, no division.
+//   kTcFull normalises p before rounding it, as the TPU script does: the
+//   block walks the key tiles twice, first K alone (the producer loads no
+//   V, a stage's transaction count is K's bytes) for each row's max and
+//   fp32 denominator of the unrounded p, then K and V with p = bf16(exp(s
+//   - m) / l) into PV and no rescale.  The ring's stages and mbarrier
+//   phases run on through both passes (item n_tiles + j of pass 2 is tile
+//   j).
 #pragma once
 
 #include "hopper.cuh"
@@ -71,6 +83,9 @@
 namespace qasr {
 
 constexpr int kTcMaxHeadWidth = 256;
+
+// What a launch of the core computes (see Modes above).
+enum TcMode : int { kTcAttention = 0, kTcDots = 1, kTcFull = 2 };
 
 // Per-operand (batch, head, row) element strides, unit column stride.
 struct TcOperand {
@@ -148,12 +163,13 @@ __device__ void plain_tile(T* dst, const TcOperand& x, int b, int h, int row0, i
   __syncwarp();
 }
 
-template <typename T, int W, bool kRoundedSum>
+template <typename T, int W, bool kRoundedSum, int kMode = kTcAttention>
 __global__ void __launch_bounds__(TcCfg<T, W>::THREADS, 1)
 attn_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
                const __grid_constant__ CUtensorMap mv, const TcArgs a) {
   using C = TcCfg<T, W>;
   constexpr bool F32 = C::kF32;
+  static_assert(kMode == kTcAttention || !F32, "K11's modes are bf16 only");
   constexpr int NWG = C::NWG, KT = C::KT, ST = C::STAGES, CH = C::CH, QR = C::QR;
   extern __shared__ __align__(128) unsigned char smem[];
   T* Qs = reinterpret_cast<T*>(smem);                          // [QR x W], f32: hi
@@ -181,6 +197,21 @@ attn_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ C
 
   if (tid >= 128 * NWG) {  // ---- producer warp ----
     const int lane = tid & 31;
+    if constexpr (kMode == kTcFull) {  // pass 1: K tiles alone; pass 2: K and V (TMA only)
+      if (lane == 0) {
+        mbar_expect_tx(qbar, C::kQ);
+        tma_load5(Qs, &mq, qbar, 0, q0, 0, h, b);
+        for (int j = 0; j < 2 * n_tiles; ++j) {
+          const int s = j % ST, t = j < n_tiles ? j : j - n_tiles;
+          const bool v_too = j >= n_tiles;
+          if (j >= ST) mbar_wait(&empty[s], (j / ST - 1) & 1);
+          mbar_expect_tx(&full[s], v_too ? C::kStage : C::kStage / 2);
+          tma_load5(Ks(s), &mk, &full[s], 0, t * KT, 0, h, b);
+          if (v_too) tma_load5(Vs(s), &mv, &full[s], 0, t * KT, 0, h, b);
+        }
+      }
+      return;
+    }
     if (a.tma) {
       if (lane == 0) {
         mbar_expect_tx(qbar, C::kQ);
@@ -230,9 +261,61 @@ attn_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ C
   for (int i = 0; i < W / 2; ++i) o[i] = 0.f;
   float m_run[2] = {-INFINITY, -INFINITY}, l_part[2] = {0.f, 0.f};
 
+  float inv_l[2] = {1.f, 1.f};  // kTcFull: 1 / each row's denominator
+  if constexpr (kMode == kTcFull) {  // pass 1: each row's max and fp32 denominator
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % ST, k0 = j * KT;
+      mbar_wait(&full[s], (j / ST) & 1);
+      const T* Kt = Ks(s);
+      float sacc[KT / 2];
+#pragma unroll
+      for (int i = 0; i < KT / 2; ++i) sacc[i] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < W / (2 * CH); ++kk)
+        Wgmma<KT>::ss(sacc, gmma_desc(Qw + 2 * kk * QR * CH, QR * 16),
+                      gmma_desc(Kt + 2 * kk * KT * CH, KT * 16), T());
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs<KT / 2>(sacc);
+      named_bar(2 + wg, 128);
+      if (wtid == 0) mbar_arrive(&empty[s]);  // K alone: the stage is spent
+      if (k0 + KT > a.t_real) {
+#pragma unroll
+        for (int i = 0; i < KT / 2; ++i)
+          if (k0 + 8 * (i / 4) + 2 * qd + (i & 1) >= a.t_real) sacc[i] = -INFINITY;
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mt = -INFINITY;
+#pragma unroll
+        for (int i = 0; i < KT / 8; ++i)
+          mt = fmaxf(mt, fmaxf(sacc[4 * i + 2 * r], sacc[4 * i + 2 * r + 1]));
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+        const float m_new = fmaxf(m_run[r], mt);
+        float ls = 0.f;
+#pragma unroll
+        for (int i = 0; i < KT / 8; ++i)
+          ls += expf(sacc[4 * i + 2 * r] - m_new) + expf(sacc[4 * i + 2 * r + 1] - m_new);
+        l_part[r] = l_part[r] * expf(m_run[r] - m_new) + ls;
+        m_run[r] = m_new;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float l = l_part[r];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      inv_l[r] = 1.f / l;
+    }
+  }
+
   for (int j = 0; j < n_tiles; ++j) {
-    const int s = j % ST, k0 = j * KT;
-    mbar_wait(&full[s], (j / ST) & 1);
+    // the ring item: pass 2 of kTcFull follows its n_tiles items of pass 1
+    const int it = (kMode == kTcFull ? n_tiles : 0) + j;
+    const int s = it % ST, k0 = j * KT;
+    mbar_wait(&full[s], (it / ST) & 1);
     T* Kt = Ks(s);
     const T* Vtile = Vs(s);
     if constexpr (F32) {
@@ -281,33 +364,41 @@ attn_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ C
     if (k0 + KT > a.t_real) {
 #pragma unroll
       for (int i = 0; i < KT / 2; ++i)
-        if (k0 + 8 * (i / 4) + 2 * qd + (i & 1) >= a.t_real) sacc[i] = -INFINITY;
+        if (k0 + 8 * (i / 4) + 2 * qd + (i & 1) >= a.t_real)
+          sacc[i] = kMode == kTcDots ? 0.f : -INFINITY;
     }
+    if constexpr (kMode == kTcFull) {  // p normalised before PV rounds it
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mt = -INFINITY;
+      for (int i = 0; i < KT / 2; ++i)
+        sacc[i] = expf(sacc[i] - m_run[(i >> 1) & 1]) * inv_l[(i >> 1) & 1];
+    }
+    if constexpr (kMode == kTcAttention) {
 #pragma unroll
-      for (int i = 0; i < KT / 8; ++i)
-        mt = fmaxf(mt, fmaxf(sacc[4 * i + 2 * r], sacc[4 * i + 2 * r + 1]));
-      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
-      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
-      // tile 0 holds key 0 < t_real, so m_new is finite from the start
-      const float m_new = fmaxf(m_run[r], mt), alpha = expf(m_run[r] - m_new);
-      float ls = 0.f;
+      for (int r = 0; r < 2; ++r) {
+        float mt = -INFINITY;
 #pragma unroll
-      for (int i = 0; i < KT / 8; ++i)
+        for (int i = 0; i < KT / 8; ++i)
+          mt = fmaxf(mt, fmaxf(sacc[4 * i + 2 * r], sacc[4 * i + 2 * r + 1]));
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+        // tile 0 holds key 0 < t_real, so m_new is finite from the start
+        const float m_new = fmaxf(m_run[r], mt), alpha = expf(m_run[r] - m_new);
+        float ls = 0.f;
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float p = expf(sacc[4 * i + 2 * r + e] - m_new);
-          sacc[4 * i + 2 * r + e] = p;
-          ls += kRoundedSum ? rnd<T>(p) : p;  // K4: the p PV multiplies
+        for (int i = 0; i < KT / 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float p = expf(sacc[4 * i + 2 * r + e] - m_new);
+            sacc[4 * i + 2 * r + e] = p;
+            ls += kRoundedSum ? rnd<T>(p) : p;  // K4: the p PV multiplies
+          }
+        l_part[r] = l_part[r] * alpha + ls;
+        m_run[r] = m_new;
+#pragma unroll
+        for (int i = 0; i < W / 8; ++i) {
+          o[4 * i + 2 * r] *= alpha;
+          o[4 * i + 2 * r + 1] *= alpha;
         }
-      l_part[r] = l_part[r] * alpha + ls;
-      m_run[r] = m_new;
-#pragma unroll
-      for (int i = 0; i < W / 8; ++i) {
-        o[4 * i + 2 * r] *= alpha;
-        o[4 * i + 2 * r + 1] *= alpha;
       }
     }
 
@@ -349,8 +440,10 @@ attn_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ C
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float l = l_part[r];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    if constexpr (kMode == kTcAttention) {
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+    }
     const int t = q0 + 64 * wg + 16 * warp + g + 8 * r;
     if (t >= a.Tq) continue;
     T* orow = ob + (long long)t * a.ot;
@@ -359,7 +452,9 @@ attn_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ C
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int col = 8 * i + 2 * qd + e;
-        if (col < a.dh) orow[col] = from_f<T>(o[4 * i + 2 * r + e] / l);
+        if (col < a.dh)
+          orow[col] = from_f<T>(kMode == kTcAttention ? o[4 * i + 2 * r + e] / l
+                                                      : o[4 * i + 2 * r + e]);
       }
   }
 }
@@ -396,13 +491,14 @@ inline cudaError_t encode_operand(CUtensorMap* map, const TcOperand& x, bool f32
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <typename T, int W, bool kRoundedSum = false>
+template <typename T, int W, bool kRoundedSum = false, int kMode = kTcAttention>
 inline cudaError_t launch_attn_tc_width(TcArgs a, int B, int H, cudaStream_t s) {
   using C = TcCfg<T, W>;
   constexpr bool f32 = C::kF32;
   CUtensorMap mq{}, mk{}, mv{};
   a.tma = tma_ok(a.q, C::E, a.dh, H, B) && tma_ok(a.k, C::E, a.dh, H, B) &&
           tma_ok(a.v, C::E, a.dh, H, B);
+  if (kMode != kTcAttention && !a.tma) return cudaErrorInvalidValue;  // K11: TMA only
   if (a.tma) {
     cudaError_t e = encode_operand(&mq, a.q, f32, a.Tq, a.dh, H, B, C::QR, W);
     if (e == cudaSuccess) e = encode_operand(&mk, a.k, f32, a.t_real, a.dh, H, B, C::KT, W);
@@ -410,11 +506,11 @@ inline cudaError_t launch_attn_tc_width(TcArgs a, int B, int H, cudaStream_t s) 
     if (e != cudaSuccess) return e;
   }
   const cudaError_t e = cudaFuncSetAttribute(
-      attn_tc_kernel<T, W, kRoundedSum>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      attn_tc_kernel<T, W, kRoundedSum, kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       C::kSmem);
   if (e != cudaSuccess) return e;
   const dim3 grid((a.Tq + C::QR - 1) / C::QR, H, B);
-  attn_tc_kernel<T, W, kRoundedSum><<<grid, C::THREADS, C::kSmem, s>>>(mq, mk, mv, a);
+  attn_tc_kernel<T, W, kRoundedSum, kMode><<<grid, C::THREADS, C::kSmem, s>>>(mq, mk, mv, a);
   return cudaGetLastError();
 }
 

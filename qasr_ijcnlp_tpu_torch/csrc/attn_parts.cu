@@ -11,164 +11,158 @@
 //   full     p = bf16(softmax(fp32 q.k^T)), normalised before PV;
 //            out = bf16(p v)
 //
-// Each mode keeps the thread layout and tiles of K4's former SIMT attention
-// core (attention.cuh: one block per 64 query rows of one head of one batch item,
-// 32-key shared-memory tiles, four threads a row) and runs its own product
-// loops (`tile_logits`, `tile_pv`), so the three times split the core's own
-// costs.  The TPU kernel normalised p before PV, which needs
-// the row's max and denominator first: `full` walks the keys twice (an
-// online max and fp32 denominator, then the products with the normalised,
-// rounded p), `softmax` once for the max and denominator and then reads the
-// first 64 keys again.  The TPU grid ran its head pairs in order into one
-// (B, Tp, 128) output block, so only heads 4-5 survived; blocks here run in
-// parallel in no order, so every head writes its own columns of a (B, Tp, D)
-// output.  Bound on the H100, by operations: dots 4 * B * H * Tp^2 * 64 and
-// full 4 * B * H * Tp^2 * 64 plus its softmax at the bf16 tensor-core peak
-// (the function needs one QK^T; the second pass here is this kernel's
-// cost, not the function's), softmax four fp32 operations per (query, key)
-// pair (product, max, exponential, sum) at the fp32 peak.  All three run on
-// SIMT fp32 FMAs here, like the core.
-#include "attention.cuh"
+// `dots` and `full` run on the tensor-core attention core that K4, K7 and
+// K8 run (attention_tc.cuh: wgmma, a TMA ring, one producer warp), called
+// as K8 calls it (packed heads, t_real = Tp, q and k unscaled), in its
+// kTcDots and kTcFull modes, so full - dots is that core's softmax cost.
+// `full` walks the key tiles twice (K alone for each row's max and fp32
+// denominator, then K and V with the normalised p): the second QK^T is this
+// kernel's cost, not the function's.  The TPU grid ran its head pairs in
+// order into one (B, Tp, 128) output block, so only heads 4-5 survived;
+// blocks here run in parallel in no order, so every head writes its own
+// columns of a (B, Tp, D) output.
+//
+// `softmax` is its own SIMT kernel, bound by the special-function units:
+// one block per 128 query rows of one head of one batch item stages the
+// head's key column 0 (Tp values) in shared memory once; each thread owns
+// one query row and walks all Tp keys twice, first for the row's max, then
+// for one exponential per (query, key) pair (ex2.approx, log2 e folded into
+// q), summed in fp32; the first 64 exponentials are kept in shared memory
+// and written normalised and rounded, one warp per row.  No shortcut from
+// the rank-1 logits: the mode stands for the softmax of a general logits
+// row, so every pair's product, max, exponential and sum is computed.
+//
+// Bound on the H100 (diagnostics/attn_parts.py `work`, `bound_ms`): dots
+// and full by operations, 4 B H Tp^2 64 FLOP at the bf16 tensor-core peak
+// (and full's B H Tp^2 exponentials, below that); softmax by its B H Tp^2
+// exponentials at 16 per SM per clock (compute capability 9.0), 4x its four
+// fp32 operations per pair at the fp32 peak.
+#include "attention_tc.cuh"
 
-using namespace qasr;
+namespace qasr {
 
-namespace {
+constexpr int PW = 64;        // head width of the diagnostic (the TPU script's dh)
+constexpr int SM_ROWS = 128;  // softmax: query rows (threads) per block
 
-constexpr int PW = 64;  // head width of the diagnostic (the TPU script's dh)
+enum PartsMode : int { kPartsDots = 0, kPartsSoftmax = 1, kPartsFull = 2 };
 
-enum Mode : int { kDots = 0, kSoftmax = 1, kFull = 2 };
-
-using bf16 = __nv_bfloat16;
-
-// Load a 32-key tile of k (and v) into shared memory.
-__device__ __forceinline__ void load_kv(const bf16* kb, const bf16* vb, int ld, int k0,
-                                        float* Ks, float* Vs, int tid) {
-  for (int i = tid; i < AK * PW; i += ATHREADS) {
-    const int rr = i / PW, c = i % PW;
-    Ks[rr * (PW + 1) + c] = to_f(kb[(size_t)(k0 + rr) * ld + c]);
-    if (Vs != nullptr) Vs[rr * PW + c] = to_f(vb[(size_t)(k0 + rr) * ld + c]);
-  }
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// Running max and fp32 denominator over a row, merged across its 4 threads.
-__device__ __forceinline__ void online_update(const float s[8], float& m_run, float& l_run) {
-  float mt = -INFINITY;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) mt = fmaxf(mt, s[j]);
-  mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
-  mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
-  const float m_new = fmaxf(m_run, mt);
-  float ls = 0.f;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) ls += expf(s[j] - m_new);
-  ls += __shfl_xor_sync(0xffffffffu, ls, 1);
-  ls += __shfl_xor_sync(0xffffffffu, ls, 2);
-  l_run = l_run * expf(m_run - m_new) + ls;
-  m_run = m_new;
+// Dynamic shared memory of the softmax block: the key column (Tp floats),
+// then SM_ROWS rows of the first PW exponentials (PW + 1 floats a row, so
+// a thread's row and a warp's columns read without bank conflicts), then
+// each row's 1 / denominator.
+inline int softmax_smem_bytes(int Tp) {
+  return (int)sizeof(float) * (Tp + SM_ROWS * (PW + 1) + SM_ROWS);
 }
 
-template <int kMode>
-__global__ void __launch_bounds__(ATHREADS)
-attn_parts_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, bf16* __restrict__ out, int Tp, int D) {
-  extern __shared__ float smem[];
-  float* Qs = smem;                 // [AQ][PW + 1]
-  float* Ks = Qs + AQ * (PW + 1);   // [AK][PW + 1]
-  float* Vs = Ks + AK * (PW + 1);   // [AK][PW]
-  float* Ps = Vs + AK * PW;         // [AQ][AK + 1]
-  const int q0 = blockIdx.x * AQ, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, r = tid >> 2, part = tid & 3;
+__global__ void __launch_bounds__(SM_ROWS)
+softmax_part_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                    __nv_bfloat16* __restrict__ out, int Tp, int D) {
+  extern __shared__ __align__(16) float sm[];
+  float* kc = sm;                       // [Tp] key column 0 of this head
+  float* pe = kc + Tp;                  // [SM_ROWS][PW + 1] exponentials of keys 0..63
+  float* inv = pe + SM_ROWS * (PW + 1); // [SM_ROWS] 1 / denominator
+  const int h = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
+  const int row0 = blockIdx.x * SM_ROWS, t = row0 + tid;
   const size_t base = (size_t)b * Tp * D + (size_t)h * PW;
-  const bf16* kb = k + base;
-  const bf16* vb = v + base;
-  const int n_tiles = Tp / AK;
-  const int t = q0 + r;
-  float* pr = Ps + r * (AK + 1);
-
-  for (int i = tid; i < AQ * PW; i += ATHREADS) {
-    const int rr = i / PW, c = i % PW;
-    Qs[rr * (PW + 1) + c] = to_f(q[base + (size_t)(q0 + rr) * D + c]);
-  }
-  const float* qr = Qs + r * (PW + 1);
-
-  if (kMode == kSoftmax) {
-    // l_j = q[t, 0] * k[j, 0] in fp32: only column 0 of each key tile.
-    float m_run = -INFINITY, l_run = 0.f;
-    for (int kt = 0; kt < n_tiles; ++kt) {
-      __syncthreads();
-      if (tid < AK) Ks[tid] = to_f(kb[(size_t)(kt * AK + tid) * D]);
-      __syncthreads();
-      float s[8];
+  // the key column, loads issued four at a time (one strided 2-byte load each)
+  for (int j0 = 0; j0 < Tp; j0 += 4 * SM_ROWS) {
+    __nv_bfloat16 x[4];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) s[j] = qr[0] * Ks[part * 8 + j];
-      online_update(s, m_run, l_run);
+    for (int u = 0; u < 4; ++u) {
+      const int j = j0 + u * SM_ROWS + tid;
+      x[u] = j < Tp ? k[base + (size_t)j * D] : __float2bfloat16(0.f);
     }
-    __syncthreads();
-    for (int j = tid; j < PW; j += ATHREADS) Ks[j] = to_f(kb[(size_t)j * D]);
-    __syncthreads();
-    bf16* orow = out + base + (size_t)t * D;
-    for (int c = part; c < PW; c += 4)
-      orow[c] = from_f<bf16>(expf(qr[0] * Ks[c] - m_run) / l_run);
-    return;
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (j0 + u * SM_ROWS + tid < Tp) kc[j0 + u * SM_ROWS + tid] = to_f(x[u]);
   }
+  constexpr float kLog2e = 1.4426950408889634f;
+  const float qs = t < Tp ? to_f(q[base + (size_t)t * D]) * kLog2e : 0.f;
+  __syncthreads();
 
-  float m_run = -INFINITY, l_run = 0.f;
-  if (kMode == kFull) {  // pass 1: the row's max and fp32 denominator
-    for (int kt = 0; kt < n_tiles; ++kt) {
-      __syncthreads();
-      load_kv(kb, nullptr, D, kt * AK, Ks, nullptr, tid);
-      __syncthreads();
-      float s[8];
-      tile_logits<PW>(qr, Ks, part, s);
-      online_update(s, m_run, l_run);
+  // the row's max of the (log2-scaled) logits, two chains
+  const float4* kc4 = reinterpret_cast<const float4*>(kc);
+  float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll 4
+  for (int j = 0; j < Tp / 4; ++j) {
+    const float4 x = kc4[j];
+    m0 = fmaxf(m0, fmaxf(qs * x.x, qs * x.y));
+    m1 = fmaxf(m1, fmaxf(qs * x.z, qs * x.w));
+  }
+  const float m = fmaxf(m0, m1);
+  // one exponential per pair, four partial sums; keys 0..63 kept
+  float l[4] = {0.f, 0.f, 0.f, 0.f};
+  float* per = pe + tid * (PW + 1);
+#pragma unroll
+  for (int j = 0; j < PW / 4; ++j) {
+    const float4 x = kc4[j];
+    const float e[4] = {ex2_approx(fmaf(qs, x.x, -m)), ex2_approx(fmaf(qs, x.y, -m)),
+                        ex2_approx(fmaf(qs, x.z, -m)), ex2_approx(fmaf(qs, x.w, -m))};
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      l[c] += e[c];
+      per[4 * j + c] = e[c];
     }
   }
-  float o[PW / 4];
-#pragma unroll
-  for (int c = 0; c < PW / 4; ++c) o[c] = 0.f;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    __syncthreads();  // the previous tile's Ks, Vs and Ps consumed
-    load_kv(kb, vb, D, kt * AK, Ks, Vs, tid);
-    __syncthreads();
-    float s[8];
-    tile_logits<PW>(qr, Ks, part, s);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      pr[part * 8 + j] = kMode == kFull ? rnd<bf16>(expf(s[j] - m_run) / l_run)
-                                        : rnd<bf16>(s[j]);
-    __syncthreads();
-    tile_pv<PW>(pr, Vs, part, o);
+#pragma unroll 4
+  for (int j = PW / 4; j < Tp / 4; ++j) {
+    const float4 x = kc4[j];
+    l[0] += ex2_approx(fmaf(qs, x.x, -m));
+    l[1] += ex2_approx(fmaf(qs, x.y, -m));
+    l[2] += ex2_approx(fmaf(qs, x.z, -m));
+    l[3] += ex2_approx(fmaf(qs, x.w, -m));
   }
-  bf16* orow = out + base + (size_t)t * D;
-#pragma unroll
-  for (int c = 0; c < PW / 4; ++c) orow[part + 4 * c] = from_f<bf16>(o[c]);
+  inv[tid] = 1.f / ((l[0] + l[1]) + (l[2] + l[3]));
+  __syncthreads();
+
+  // p = bf16(e / l) for keys 0..63: one warp per row, two columns a lane
+  const int warp = tid >> 5, lane = tid & 31;
+  for (int r = warp; r < SM_ROWS && row0 + r < Tp; r += SM_ROWS / 32) {
+    const float* pr = pe + r * (PW + 1);
+    const float il = inv[r];
+    *reinterpret_cast<__nv_bfloat162*>(out + base + (size_t)(row0 + r) * D + 2 * lane) =
+        __floats2bfloat162_rn(pr[2 * lane] * il, pr[2 * lane + 1] * il);
+  }
 }
 
-template <int kMode>
-cudaError_t launch_parts(const bf16* q, const bf16* k, const bf16* v, bf16* out, int B,
-                         int Tp, int D, cudaStream_t s) {
-  constexpr int smem = attn_smem_bytes(PW);
+inline cudaError_t launch_softmax_part(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                                       __nv_bfloat16* out, int B, int Tp, int D,
+                                       cudaStream_t s) {
+  const int smem = softmax_smem_bytes(Tp);
   const cudaError_t e = cudaFuncSetAttribute(
-      attn_parts_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      softmax_part_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  dim3 grid(Tp / AQ, D / PW, B);
-  attn_parts_kernel<kMode><<<grid, ATHREADS, smem, s>>>(q, k, v, out, Tp, D);
+  const dim3 grid((Tp + SM_ROWS - 1) / SM_ROWS, D / PW, B);
+  softmax_part_kernel<<<grid, SM_ROWS, smem, s>>>(q, k, out, Tp, D);
   return cudaGetLastError();
 }
 
-}  // namespace
+}  // namespace qasr
 
-// q, k, v and out (B, Tp, D) bfloat16, row-major, D a multiple of 64 (heads
-// of 64 at columns h * 64), Tp a multiple of 64; mode 0 dots, 1 softmax,
-// 2 full.
+using namespace qasr;
+
+// q, k, v and out (B, Tp, D) bfloat16, row-major, 16-byte aligned, D a
+// multiple of 64 (heads of 64 at columns h * 64), Tp a multiple of 64;
+// mode 0 dots, 1 softmax, 2 full.
 extern "C" int qasr_attn_parts(int mode, const void* q, const void* k, const void* v,
                                void* out, int B, int Tp, int D, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const bf16 *qq = (const bf16*)q, *kk = (const bf16*)k, *vv = (const bf16*)v;
-  bf16* o = (bf16*)out;
-  if (mode == kDots) QASR_TRY(launch_parts<kDots>(qq, kk, vv, o, B, Tp, D, s));
-  else if (mode == kSoftmax) QASR_TRY(launch_parts<kSoftmax>(qq, kk, vv, o, B, Tp, D, s));
-  else if (mode == kFull) QASR_TRY(launch_parts<kFull>(qq, kk, vv, o, B, Tp, D, s));
-  else return (int)cudaErrorInvalidValue;
-  return 0;
+  if (Tp < PW || Tp % PW || D % PW) return (int)cudaErrorInvalidValue;
+  if (mode == kPartsSoftmax)
+    return (int)launch_softmax_part((const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+                                    (__nv_bfloat16*)out, B, Tp, D, s);
+  const long long sq = (long long)Tp * D;
+  const TcArgs a{TcOperand{q, sq, PW, D}, TcOperand{k, sq, PW, D}, TcOperand{v, sq, PW, D},
+                 out, sq, PW, D, Tp, Tp, PW, 0};
+  if (mode == kPartsDots)
+    return (int)launch_attn_tc_width<__nv_bfloat16, PW, false, kTcDots>(a, B, D / PW, s);
+  if (mode == kPartsFull)
+    return (int)launch_attn_tc_width<__nv_bfloat16, PW, false, kTcFull>(a, B, D / PW, s);
+  return (int)cudaErrorInvalidValue;
 }

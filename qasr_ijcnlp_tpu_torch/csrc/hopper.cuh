@@ -1,7 +1,9 @@
 // Hopper building blocks shared by the tensor-core kernels: the attention
 // core of K4, K7 and K8 (attention_tc.cuh) and the GEMM of K4's and
 // K5/K6's projections, the conv stem and the mel frontend (gemm_tc.cuh);
-// K9 (decode_attn.cu) takes the mbarriers and the 1D bulk copy.
+// K9 (decode_attn.cu) takes the mbarriers and the 1D bulk copy; K11
+// (attn_parts.cu) runs on the attention core, and K12 (step_formulations.cu)
+// takes the mbarriers, both copies and Wgmma<8> / Wgmma<48>.
 //
 // * mbarrier helpers for a producer/consumer ring; a wait of over 10 s
 //   traps, so a broken pipeline fails its launch instead of hanging the
@@ -14,7 +16,10 @@
 // * wgmma: shared-memory matrix descriptors (no swizzle, and the 128-byte
 //   swizzle of a K-major operand whose rows are 128 bytes), and
 //   Wgmma<N>::ss / ::rs, D (64 x N, fp32) += A B for one k-step of bf16
-//   (k16) or TF32 (k8), N = 16, 32, 64 or 128.
+//   (k16) or TF32 (k8), N = 8, 16, 32, 48, 64 or 128; ::ss_mn, bf16 with A
+//   read MN-major (its transpose bit set): core matrices of 8 K rows, each
+//   16 bytes of 8 consecutive M elements, the descriptor's LBO along K and
+//   SBO along M, as for an MN-major B.
 // * tf32_rna (cvt.rna.tf32.f32), the split of an fp32 value into hi + lo
 //   for 3xTF32 products.
 #pragma once
@@ -155,6 +160,16 @@ __device__ __forceinline__ uint64_t gmma_desc_sw128(const void* p) {
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
+// The same swizzle with the strides given: a K-major operand whose 8-row
+// groups along M/N lie ``sbo`` bytes apart (``lbo`` unused), or an MN-major
+// one (64 consecutive M/N elements a 128-byte row, 8 K rows an atom) whose
+// 64-element groups along M/N lie ``lbo`` apart and 8-row groups along K
+// ``sbo`` apart.  Atoms start on 1024-byte boundaries.
+__device__ __forceinline__ uint64_t gmma_desc_sw128(const void* p, int lbo, int sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -176,9 +191,13 @@ __device__ __forceinline__ void fence_regs(float* d) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+#define QASR_D4 "{%0, %1, %2, %3}"
 #define QASR_D8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
 #define QASR_D16 \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+#define QASR_D24                                                                        \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23}"
 #define QASR_D32                                                                        \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
   "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
@@ -187,13 +206,16 @@ __device__ __forceinline__ void fence_regs(float* d) {
   "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "  \
   "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "   \
   "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+#define QASR_O4(d) "+f"((d)[0]), "+f"((d)[1]), "+f"((d)[2]), "+f"((d)[3])
 #define QASR_O8(d)                                                                  \
   "+f"((d)[0]), "+f"((d)[1]), "+f"((d)[2]), "+f"((d)[3]), "+f"((d)[4]), "+f"((d)[5]), \
       "+f"((d)[6]), "+f"((d)[7])
 #define QASR_O16(d) QASR_O8(d), QASR_O8((d) + 8)
+#define QASR_O24(d) QASR_O16(d), QASR_O8((d) + 16)
 #define QASR_O32(d) QASR_O16(d), QASR_O16((d) + 16)
 #define QASR_O64(d) QASR_O32(d), QASR_O32((d) + 32)
-// A and B from shared memory (bf16 adds the two transpose flags, both 0).
+// A and B from shared memory (bf16 adds the two transpose flags: 0, 0, or
+// 1, 0 for an MN-major A).
 #define QASR_SS(SHAPE, TYPES, DL, A, B, P, TAIL)                                    \
   "{\n.reg .pred p;\nsetp.ne.b32 p, %" #P ", 0;\nwgmma.mma_async.sync.aligned." SHAPE \
   ".f32." TYPES " " DL ", %" #A ", %" #B ", p, 1, 1" TAIL ";\n}\n"
@@ -212,6 +234,11 @@ struct Wgmma;
   struct Wgmma<N> {                                                                       \
     static __device__ __forceinline__ void ss(float* d, uint64_t a, uint64_t b, __nv_bfloat16) { \
       asm volatile(QASR_SS("m64n" #N "k16", "bf16.bf16", DL, NA, NB, NP, ", 0, 0")         \
+                   : OUT(d)                                                                \
+                   : "l"(a), "l"(b), "r"(1));                                              \
+    }                                                                                     \
+    static __device__ __forceinline__ void ss_mn(float* d, uint64_t a, uint64_t b) {       \
+      asm volatile(QASR_SS("m64n" #N "k16", "bf16.bf16", DL, NA, NB, NP, ", 1, 0")         \
                    : OUT(d)                                                                \
                    : "l"(a), "l"(b), "r"(1));                                              \
     }                                                                                     \
@@ -235,8 +262,10 @@ struct Wgmma;
     }                                                                                     \
   };
 
+QASR_WGMMA(8, QASR_D4, QASR_O4, 4, 5, 6, 4, 5, 6, 7, 8, 9)
 QASR_WGMMA(16, QASR_D8, QASR_O8, 8, 9, 10, 8, 9, 10, 11, 12, 13)
 QASR_WGMMA(32, QASR_D16, QASR_O16, 16, 17, 18, 16, 17, 18, 19, 20, 21)
+QASR_WGMMA(48, QASR_D24, QASR_O24, 24, 25, 26, 24, 25, 26, 27, 28, 29)
 QASR_WGMMA(64, QASR_D32, QASR_O32, 32, 33, 34, 32, 33, 34, 35, 36, 37)
 QASR_WGMMA(128, QASR_D64, QASR_O64, 64, 65, 66, 64, 65, 66, 67, 68, 69)
 

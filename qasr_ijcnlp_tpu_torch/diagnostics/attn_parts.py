@@ -17,14 +17,16 @@ heads), no mask, no scale, in three modes, each as the TPU body writes it:
 * ``full``: p = bf16(softmax(fp32 q k^T)), normalised before PV;
   out = bf16(p v).
 
-The kernel (``csrc/attn_parts.cu``) keeps the tiles, thread layout and
-loops of the SIMT attention core that K4 ran until it moved to the tensor
-cores (``csrc/attention.cuh``), so its three times say where that core's
-time went.  The TPU grid ran its
-head pairs in order into one (B, Tp, 128) output block, so only heads 4-5
-remained; blocks on the card run in no order, so every head writes its own
-columns of a (B, Tp, D) output, whose columns 256-383 are the TPU
-kernel's output.
+The kernel (``csrc/attn_parts.cu``) runs ``dots`` and ``full`` on the
+tensor-core attention core that K4, K7 and K8 run (``csrc/
+attention_tc.cuh``, its kTcDots and kTcFull modes), so full - dots is that
+core's softmax cost; ``full`` walks the key tiles twice (each row's max and
+fp32 denominator, then the products with the normalised, rounded p).
+``softmax`` is a SIMT kernel bound by the special-function units: one
+exponential per (query, key) pair.  The TPU grid ran its head pairs in
+order into one (B, Tp, 128) output block, so only heads 4-5 remained;
+blocks on the card run in no order, so every head writes its own columns
+of a (B, Tp, D) output, whose columns 256-383 are the TPU kernel's output.
 
 The module prints each mode's time (CUDA events, median of the repeats,
 one launch each, after a warm-up), its bound and the card's name and power
@@ -51,6 +53,12 @@ HEAD_WIDTH = 64
 # tensor cores, HBM3 bandwidth.
 PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}
 HBM_BYTES_PER_S = 3.35e12
+# exp2 results per SM per clock on compute capability 9.0 (the special-
+# function units; CUDA C++ Programming Guide, throughput of native
+# arithmetic instructions), and the H100 SXM's SM count and maximum SM
+# clock (MHz), which ``exp_rate`` reads from the card where it runs.
+SFU_EXP_PER_SM_CLOCK = 16
+H100_SMS, H100_MAX_SM_MHZ = 132, 1980
 
 launches = 0
 
@@ -82,7 +90,8 @@ def attn_parts_plain(q, k, v, mode: str):
 
 def attn_parts(q, k, v, mode: str):
     """``mode`` of the split on bf16 (B, Tp, D) q, k, v (D in heads of 64,
-    Tp a multiple of 64) -> bf16 (B, Tp, D)."""
+    Tp a multiple of 64; on the card contiguous and 16-byte aligned, which
+    the core's TMA copies need) -> bf16 (B, Tp, D)."""
     if mode not in MODES:
         raise ValueError(f"attn_parts: mode {mode!r} is not one of {MODES}")
     if not q.is_cuda:
@@ -98,6 +107,8 @@ def attn_parts(q, k, v, mode: str):
                          f"multiple of 64, got Tp={Tp}, D={D}")
     out = torch.empty_like(q)
     _kernels.check_cuda("attn_parts", q, k, v, out, dtype=torch.bfloat16)
+    if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("attn_parts: q, k and v must be 16-byte aligned")
     _kernels.library().call("qasr_attn_parts", q.device, MODES.index(mode), q.data_ptr(),
                             k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Tp, D)
     launches += 1
@@ -105,37 +116,84 @@ def attn_parts(q, k, v, mode: str):
 
 
 def work(mode: str, B: int, Tp: int, D: int):
-    """(operations, bytes, peak key) the function needs at these shapes:
-    the products of q k^T and p v (dots, full) at the bf16 peak, or the
-    softmax's four fp32 operations per (query, key) pair (softmax); q, k,
-    v read once (softmax: column 0 of each head of q and k) and out written
-    once, in bf16."""
+    """(operations, bytes, peak key, exponentials) the function needs at
+    these shapes: the products of q k^T and p v (dots, full) at the bf16
+    peak, or the softmax's four fp32 operations per (query, key) pair
+    (product, max, subtraction, sum; softmax); q, k, v read once (softmax:
+    column 0 of each head of q and k) and out written once, in bf16; one
+    exponential per pair for softmax and full (their softmax), none for
+    dots."""
     pairs = B * (D // HEAD_WIDTH) * Tp * Tp
     if mode == "softmax":
-        return 4 * pairs, 2 * (2 * B * Tp * (D // HEAD_WIDTH) + B * Tp * D), "f32"
-    return 4 * pairs * HEAD_WIDTH, 2 * 4 * B * Tp * D, "bf16"
+        return 4 * pairs, 2 * (2 * B * Tp * (D // HEAD_WIDTH) + B * Tp * D), "f32", pairs
+    return 4 * pairs * HEAD_WIDTH, 2 * 4 * B * Tp * D, "bf16", 0 if mode == "dots" else pairs
 
 
-def bound_ms(flops: float, nbytes: float, key: str):
-    """Least time (ms) the card could take, and what bounds it."""
-    t_ops = flops / PEAK_FLOPS[key] * 1e3
+def exp_rate(sms: int = H100_SMS, sm_mhz: float = H100_MAX_SM_MHZ) -> float:
+    """Exponentials per second of the special-function units: 16 per SM
+    per clock (compute capability 9.0) x ``sms`` x the maximum SM clock,
+    4.18e12 /s on an H100 SXM (132 SMs, 1,980 MHz)."""
+    return SFU_EXP_PER_SM_CLOCK * sms * sm_mhz * 1e6
+
+
+def card_exp_rate(device) -> float:
+    """``exp_rate`` of the card: its SM count and ``nvidia-smi --query-gpu=
+    clocks.max.sm``."""
+    index = torch.device(device).index or 0
+    mhz = subprocess.run(
+        ["nvidia-smi", "-i", str(index), "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    return exp_rate(torch.cuda.get_device_properties(index).multi_processor_count, float(mhz))
+
+
+def bound_ms(flops: float, nbytes: float, key: str, exps: float = 0,
+             exp_per_s: float = exp_rate()):
+    """Least time (ms) the card could take, and what bounds it: the largest
+    of the operations at the peak of their type, the bytes at the HBM rate
+    and the exponentials at ``exp_per_s`` (special-function operations,
+    reported as "operations")."""
+    t_ops = max(flops / PEAK_FLOPS[key], exps / exp_per_s) * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def inputs(batch: int, seed: int, device):
-    """Seeded N(0, 1) bf16 q, k, v of (batch, T_PAD, D_MODEL), made on the
+def inputs(batch: int, seed: int, device, tp: int = T_PAD):
+    """Seeded N(0, 1) bf16 q, k, v of (batch, tp, D_MODEL), made on the
     device."""
     g = torch.Generator(device=device).manual_seed(seed)
-    return [torch.randn(batch, T_PAD, D_MODEL, generator=g, device=device)
+    return [torch.randn(batch, tp, D_MODEL, generator=g, device=device)
             .to(torch.bfloat16) for _ in range(3)]
+
+
+def peaked_inputs(batch: int, seed: int, device, tp: int = T_PAD, lift: float = 4.0):
+    """bf16 q, k, v whose logits are peaked in the last key tile: per
+    (batch item, head) a unit vector u, every query row N(0, 0.5^2) + lift
+    u, keys N(0, 0.5^2) but key tp - 1 - (b H + h) % 64 = lift u (so its
+    logit is ~lift^2 = 16, the rest spread by ~3 and topping out near 10),
+    values N(0, 1).  A two-pass softmax that took its max or denominator
+    from the first key tiles only, or normalised p late, misses by the
+    output's own size."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    H = D_MODEL // HEAD_WIDTH
+    r = lambda *s: torch.randn(*s, generator=g, device=device)
+    u = r(batch, 1, H, HEAD_WIDTH)
+    u = u / u.norm(dim=-1, keepdim=True)
+    q = r(batch, tp, H, HEAD_WIDTH) * 0.5 + lift * u
+    k = r(batch, tp, H, HEAD_WIDTH) * 0.5
+    bh = torch.arange(batch * H, device=device).view(batch, H)
+    k[bh // H, tp - 1 - bh % 64, bh % H] = lift * u[:, 0]
+    v = r(batch, tp, D_MODEL)
+    return [x.reshape(batch, tp, D_MODEL).to(torch.bfloat16) for x in (q, k, v)]
 
 
 def measure(batch: int = BATCH, repeats: int = 5, seed: int = 0, device="cuda"):
     """Each mode's kernel time on the card: {mode: {"ms", "bound_ms",
     "bound_by", "times_ms"}}, the median of ``repeats`` single launches
-    after one warm-up, each timed by CUDA events."""
+    after one warm-up, each timed by CUDA events; the exponentials of the
+    bound at the card's own rate (``card_exp_rate``)."""
     q, k, v = inputs(batch, seed, device)
+    rate = card_exp_rate(device)
     res = {}
     for mode in MODES:
         attn_parts(q, k, v, mode)  # warm-up
@@ -147,7 +205,7 @@ def measure(batch: int = BATCH, repeats: int = 5, seed: int = 0, device="cuda"):
             end.record()
             end.synchronize()
             times.append(start.elapsed_time(end))
-        b_ms, b_by = bound_ms(*work(mode, batch, T_PAD, D_MODEL))
+        b_ms, b_by = bound_ms(*work(mode, batch, T_PAD, D_MODEL), exp_per_s=rate)
         res[mode] = {"ms": statistics.median(times), "bound_ms": b_ms, "bound_by": b_by,
                      "times_ms": times}
     return res

@@ -22,18 +22,22 @@ positions, six heads of 64, no scale, no mask:
   unnormalised accumulator rows; the port writes the normalised attention.
 
 The script's CHUNK (256 positions) and BT (8 rows) are TPU tile sizes; the
-port's kernels (``csrc/step_formulations.cu``) choose their own tiles, so
-the entry point takes only B (Ta is the script's 1536).  The online softmax
-runs over chunks of t within a split of t; the plain versions below take
-one max over the whole row, which moves each bf16-rounded p by at most its
-own rounding step.
+port's kernel (``csrc/step_formulations.cu``, one launch a call for every
+mode: a producer warp's bulk copies or TMA boxes into a ring of shared-
+memory slots, the consumers of the mode, and the splits of t merged in the
+same launch by the last block of each group) chooses its own tiles, so the
+entry point takes only B (Ta is the script's 1536).  Each block runs an
+online softmax over chunks of ``CHUNK[mode]`` positions within its split
+of t (``splits``); the plain versions below take one max over the whole
+row, which moves each bf16-rounded p by at most its own rounding step.
 
-For each mode the module prints the time per call (CUDA events over a run
-of launches), the effective rate 2 B Ta D 2 bytes / time (flagged above the
-card's 3,350 GB/s, where the timing must be wrong), the spread of three
-runs (ok at <= 10%, as the script) and the card's name and power limit.  It
-runs only on an NVIDIA GPU; the plain versions serve CPU tensors and the
-checks.
+For each mode the module prints the time per call (CUDA-graph replays of
+a run of launches, timed by CUDA events; one set of inputs, 151 MB at
+B = 64, more than the 50-MB L2, so every call reads from device memory),
+the effective rate 2 B Ta D 2 bytes / time (flagged above the card's 3,350
+GB/s, where the timing must be wrong), the spread of three replays (ok at
+<= 10%, as the script) and the card's name and power limit.  It runs only
+on an NVIDIA GPU; the plain versions serve CPU tensors and the checks.
 """
 
 from __future__ import annotations
@@ -49,19 +53,53 @@ MODES = ("dma", "vpu", "mxu_t", "mxu_r")
 # The TPU script's shapes: B, Ta, D, heads (of 64).
 BATCH, T_AUDIO, D_MODEL, N_HEAD = 64, 1536, 384, 6
 HEAD_WIDTH = 64
-# Positions per block of each kernel (csrc/step_formulations.cu).
-SPLIT = {"dma": 128, "vpu": 1024, "mxu_t": 256, "mxu_r": 64}
+# Positions of each mode's chunk: one ring item of K or V
+# (csrc/step_formulations.cu ``sf_chunk``; mxu_r's item holds 8 rows).
+CHUNK = {"dma": 64, "vpu": 64, "mxu_t": 64, "mxu_r": 8}
+# Rows of a group (mxu_r's block-diagonal q columns cover 8 rows).
+GROUP_ROWS = {"dma": 1, "vpu": 1, "mxu_t": 1, "mxu_r": 8}
 # H100 SXM datasheet peaks: fp32 on the CUDA cores, bf16 dense on the
 # tensor cores, HBM3 bandwidth.
 PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}
 HBM_BYTES_PER_S = 3.35e12
 
 launches = 0
+_tickets = {}  # device -> int32 zeros, one merge ticket per group, left 0 by every call
 
 
 def lanes(mode: str) -> bool:
     """True where the mode takes k, v as (B, D, Ta) ("T-on-lanes")."""
     return mode in ("vpu", "mxu_t")
+
+
+def splits(mode: str, B: int, Ta: int, sms: int) -> int:
+    """The kernel's splits of t (``sf_splits``): one block per SM for the
+    groups (rows, or mxu_r's groups of 8 rows), at most one per chunk."""
+    groups = B // GROUP_ROWS[mode]
+    return max(1, min(Ta // CHUNK[mode], sms // max(groups, 1)))
+
+
+def split_chunks(mode: str, Ta: int, S: int):
+    """[first, end) chunk of each of the S splits, as the blocks take them."""
+    n = Ta // CHUNK[mode]
+    return [(s * n // S, (s + 1) * n // S) for s in range(S)]
+
+
+def card_splits(mode: str, B: int, Ta: int, device) -> int:
+    """``splits`` on the card holding ``device``."""
+    sms = torch.cuda.get_device_properties(torch.device(device)).multi_processor_count
+    return splits(mode, B, Ta, sms)
+
+
+def _ticket_buffer(device, groups: int):
+    """The device's merge tickets: zeroed once (a fill launch, on the first
+    call on the device), then reset to 0 by the block that merges.  Calls on
+    one device must not overlap."""
+    buf = _tickets.get(device)
+    if buf is None or buf.numel() < groups:
+        buf = _tickets[device] = torch.zeros(max(groups, 4096), dtype=torch.int32,
+                                             device=device)
+    return buf
 
 
 def step_formulations_plain(q, k, v, mode: str):
@@ -109,14 +147,16 @@ def step_formulations(q, k, v, mode: str):
     _kernels.check_cuda("step_formulations", q, k, v, dtype=torch.bfloat16)
     if k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError("step_formulations: k and v must be 16-byte aligned")
-    splits = -(-Ta // SPLIT[mode])
-    scratch = torch.empty(B * splits * (D_MODEL + 2 * N_HEAD), dtype=torch.float32,
+    S = card_splits(mode, B, Ta, q.device)
+    # one (m, l, acc) slot of a group's rows per block
+    scratch = torch.empty(B * S * (D_MODEL + 2 * N_HEAD), dtype=torch.float32,
                           device=q.device)
+    tickets = _ticket_buffer(q.device, B // GROUP_ROWS[mode])
     out = (torch.empty(B, 1, D_MODEL, dtype=torch.float32, device=q.device) if mode == "dma"
            else torch.empty(B, D_MODEL, dtype=torch.bfloat16, device=q.device))
     _kernels.library().call("qasr_step_formulations", q.device, MODES.index(mode),
                             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                            scratch.data_ptr(), B, Ta, splits)
+                            scratch.data_ptr(), tickets.data_ptr(), B, Ta, S)
     launches += 1
     return out
 
@@ -154,27 +194,75 @@ def inputs(batch: int, mode: str, seed: int, device, ta: int = T_AUDIO,
     return q, k, v
 
 
+def peaked_inputs(batch: int, mode: str, seed: int, device, ta: int = T_AUDIO,
+                  n_splits: int = 2, margin: float = 6.0):
+    """``inputs`` at N(0, 0.5^2) with, per (row, head), one position of the
+    last of ``n_splits`` splits (``split_chunks``) planted ``margin`` above
+    the row's largest logit: its key slice is q's head slice times (max +
+    margin) / |q_h|^2, rounded to bf16.  The first split's running max then
+    lies units below the row's, so a merge or rescale that drops e^(m_s -
+    M) moves the output by its own size."""
+    q, k, v = inputs(batch, mode, seed, device, ta, scale=0.5)
+    C = CHUNK[mode]
+    first = split_chunks(mode, ta, n_splits)[-1][0] * C
+    H, dh = N_HEAD, HEAD_WIDTH
+    kh = (k.float().view(batch, H, dh, ta) if lanes(mode)
+          else k.float().view(batch, ta, H, dh).permute(0, 2, 3, 1))  # (B, H, dh, Ta)
+    qh = q.float().view(batch, H, dh)
+    top = torch.einsum("bhd,bhdt->bht", qh, kh).amax(-1)  # (B, H)
+    slot = first + (torch.arange(batch * H, device=device).view(batch, H) * 37) % (ta - first)
+    key = (qh * ((top + margin) / (qh * qh).sum(-1))[..., None]).to(k.dtype)  # (B, H, dh)
+    b = torch.arange(batch, device=device)[:, None, None]
+    d = torch.arange(D_MODEL, device=device).view(1, H, dh)
+    t = slot[..., None]
+    k = k.clone()
+    if lanes(mode):
+        k[b, d, t] = key
+    else:
+        k[b, t, d] = key
+    return q, k, v
+
+
+def graph_times(fn, iters: int, runs: int):
+    """Device ms per call of ``fn``: one eager call (a warm-up), ``iters``
+    calls captured once in a CUDA graph, then ``runs`` replays, each timed
+    by CUDA events (the host's launch overhead is not timed)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(runs):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return times
+
+
 def measure(batch: int = BATCH, runs: int = 3, iters: int = 20, seed: int = 0,
             device="cuda"):
     """Each mode's kernel time on the card: {mode: {"ms", "runs_ms",
     "spread", "gbps", "bound_ms", "bound_by"}}.  Per mode: one warm-up
-    launch, then ``runs`` runs of ``iters`` back-to-back launches, each run
-    timed by CUDA events; "ms" is the fastest run's time per launch."""
+    launch, ``iters`` launches captured in a CUDA graph (the wrapper counts
+    1 + ``iters`` launches), then ``runs`` replays, each timed by CUDA
+    events; "ms" is the fastest replay's time per launch.  One set of
+    inputs per layout: at B = 64 its 151 MB exceed the L2, so each call
+    reads them from device memory."""
     res, layout = {}, None
     for mode in MODES:
         if lanes(mode) != layout:  # one layout's inputs held at a time
             layout = lanes(mode)
             q, k, v = inputs(batch, mode, seed, device)
-        step_formulations(q, k, v, mode)  # warm-up
-        times = []
-        for _ in range(runs):
-            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            start.record()
-            for _ in range(iters):
-                step_formulations(q, k, v, mode)
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end) / iters)
+        times = graph_times(lambda: step_formulations(q, k, v, mode), iters, runs)
         flops, nbytes, key = work(mode, batch, T_AUDIO)
         b_ms, b_by = bound_ms(flops, nbytes, key)
         kv_bytes = 2 * batch * T_AUDIO * D_MODEL * 2

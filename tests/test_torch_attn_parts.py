@@ -13,29 +13,20 @@ order, so every output may differ by one bf16 rounding step of its own
 value (rtol 2^-7, with atol 1e-6 for values near 0).
 """
 
-import functools
-import importlib.util
-import os
-
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from qasr_ijcnlp_tpu_torch.diagnostics import attn_parts
+from tests.torch_port_common import attn_parts_script, load_script
 
-SCRIPT = os.path.join(os.path.dirname(__file__), "..", "scripts", "bench_attn_parts.py")
 B, TP, BQ = 1, 256, 128
 
 
 @pytest.fixture(scope="module")
 def script():
-    spec = importlib.util.spec_from_file_location("bench_attn_parts_under_test", SCRIPT)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
+    mod = load_script("bench_attn_parts")
     mod.B, mod.Tp, mod.BQ = B, TP, BQ
     return mod
 
@@ -47,26 +38,11 @@ def qkv():
             for _ in range(3)]
 
 
-def _script_kernel(mod, q, k, v, mode):
-    """The script's ``run`` with ``interpret=True``."""
-    spec = lambda: pl.BlockSpec((1, mod.Tp, mod.W), lambda b, h: (b, 0, h),
-                                memory_space=pltpu.VMEM)
-    return pl.pallas_call(
-        functools.partial(mod.kernel, mode=mode),
-        out_shape=jax.ShapeDtypeStruct((mod.B, mod.Tp, mod.W), jnp.bfloat16),
-        grid=(mod.B, mod.H // 2),
-        in_specs=[spec(), spec(), spec()],
-        out_specs=pl.BlockSpec((1, mod.Tp, mod.W), lambda b, h: (b, 0, 0),
-                               memory_space=pltpu.VMEM),
-        interpret=True,
-    )(q, k, v)
-
-
 @pytest.mark.parametrize("mode", attn_parts.MODES)
 def test_plain_modes_match_script_kernel(script, qkv, mode):
     assert (script.D, script.H, script.dh) == (attn_parts.D_MODEL, attn_parts.N_HEAD,
                                                attn_parts.HEAD_WIDTH)
-    ref = np.asarray(_script_kernel(script, *qkv, mode).astype(jnp.float32))
+    ref = attn_parts_script(script, *qkv, mode)
     t = [torch.from_numpy(np.array(a.astype(jnp.float32))).to(torch.bfloat16) for a in qkv]
     ours = attn_parts.attn_parts(*t, mode)
     assert ours.dtype == torch.bfloat16 and tuple(ours.shape) == (B, TP, attn_parts.D_MODEL)
@@ -82,9 +58,19 @@ def test_cpu_path_does_not_count_launches(qkv):
 
 
 def test_work_counts_the_functions_operations():
-    flops, nbytes, key = attn_parts.work("full", 512, 1536, 384)
-    assert (flops, key) == (4 * 512 * 6 * 1536 ** 2 * 64, "bf16")
+    """Products at the bf16 peak, bytes, and one exponential per (query,
+    key) pair for softmax and full: at B = 8 softmax's 113 M exponentials
+    at 16 per SM per clock (132 SMs, 1,980 MHz) take 27.1 us, four times
+    its fp32 operations' 6.8 us."""
+    pairs = 512 * 6 * 1536 ** 2
+    flops, nbytes, key, exps = attn_parts.work("full", 512, 1536, 384)
+    assert (flops, key, exps) == (4 * pairs * 64, "bf16", pairs)
     assert nbytes == 2 * 4 * 512 * 1536 * 384
-    assert attn_parts.work("softmax", 512, 1536, 384)[2] == "f32"
+    assert attn_parts.work("softmax", 512, 1536, 384)[2:] == ("f32", pairs)
+    assert attn_parts.work("dots", 512, 1536, 384)[3] == 0
+    ms, by = attn_parts.bound_ms(*attn_parts.work("softmax", 8, 1536, 384))
+    assert by == "operations" and ms == pytest.approx(0.02708, abs=1e-5)
+    ms_ops, _ = attn_parts.bound_ms(*attn_parts.work("softmax", 8, 1536, 384)[:3])
+    assert ms_ops == pytest.approx(0.00676, abs=1e-5)
     with pytest.raises(ValueError):
         attn_parts.attn_parts(*[torch.zeros(1, 64, 64)] * 3, "exp")

@@ -503,6 +503,31 @@ def test_attn_parts_kernel(cuda_dev, mode):
            lambda: attn_parts.attn_parts_plain(q.float(), k.float(), v.float(), mode))
 
 
+@pytest.mark.parametrize("tp", [64, 1536])
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("mode", attn_parts.MODES)
+def test_attn_parts_kernel_shapes(cuda_dev, mode, B, tp):
+    """K11's modes off the script's batch: B 1 and 3, one key tile (64
+    positions, half a query block) and the script's 1536."""
+    q, k, v = attn_parts.inputs(B, B + tp, cuda_dev, tp=tp)
+    out = attn_parts.attn_parts(q, k, v, mode)
+    _close(out, attn_parts.attn_parts_plain(q, k, v, mode),
+           lambda: attn_parts.attn_parts_plain(q.float(), k.float(), v.float(), mode))
+
+
+@pytest.mark.parametrize("mode", ["full", "softmax"])
+def test_attn_parts_kernel_peaked(cuda_dev, mode):
+    """K11 on logits peaked in the last key tile (``attn_parts.
+    peaked_inputs``): full's first pass must carry each row's max and
+    denominator across the tiles, and normalise p before it rounds it."""
+    q, k, v = attn_parts.peaked_inputs(8, 3, cuda_dev)
+    before = attn_parts.launches
+    out = attn_parts.attn_parts(q, k, v, mode)
+    assert attn_parts.launches == before + 1
+    _close(out, attn_parts.attn_parts_plain(q, k, v, mode),
+           lambda: attn_parts.attn_parts_plain(q.float(), k.float(), v.float(), mode))
+
+
 @pytest.mark.parametrize("shape", [(128, 2, 512, 500), (1024, 16, 1536, 1500),
                                    (1280, 20, 1536, 1500)],
                          ids=["D128", "medium", "large-v3"])
@@ -655,6 +680,50 @@ def test_step_formulations_kernel_wide_logits(cuda_dev, mode, B):
     err = float((out.float() - p32).abs().max())
     noise = float((p.float() - p32).abs().max())
     assert err <= NOISE_FACTOR * noise, (err, noise)
+
+
+@pytest.mark.parametrize("B", [8, 64])
+@pytest.mark.parametrize("mode", ["vpu", "mxu_t", "mxu_r"])
+def test_step_formulations_kernel_peaked(cuda_dev, mode, B):
+    """The attention modes on ``step_formulations.peaked_inputs``: per row
+    and head one position of the kernel's last split planted 6 above the
+    row's other logits, so the first split's max lies units below the
+    row's and a merge without e^(m_s - M) misses by the output's size; held
+    as the wide case."""
+    S = sf.card_splits(mode, B, sf.T_AUDIO, cuda_dev)
+    q, k, v = sf.peaked_inputs(B, mode, B + 7 * len(mode), cuda_dev, n_splits=S)
+    out = sf.step_formulations(q, k, v, mode)
+    p = sf.step_formulations_plain(q, k, v, mode)
+    p32 = sf.step_formulations_plain(q.float(), k.float(), v.float(), mode).float()
+    assert out.shape == p.shape and out.dtype == p.dtype and torch.isfinite(out).all()
+    err = float((out.float() - p32).abs().max())
+    noise = float((p.float() - p32).abs().max())
+    assert err <= NOISE_FACTOR * noise, (err, noise)
+
+
+@pytest.mark.parametrize("mode", sf.MODES)
+def test_step_formulations_graph_replay_and_tickets(cuda_dev, mode):
+    """One launch a call: captured in a CUDA graph, a replay gives the
+    eager call's output bit for bit (the merge reads the splits in a fixed
+    order whichever block merges), and every call leaves the merge tickets
+    at 0."""
+    q, k, v = sf.inputs(8, mode, 5, cuda_dev, ta=512)
+    eager = sf.step_formulations(q, k, v, mode)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        sf.step_formulations(q, k, v, mode)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = sf.launches
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        out = sf.step_formulations(q, k, v, mode)
+    assert sf.launches == before + 1
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    assert int(sf._tickets[q.device].abs().sum()) == 0
 
 
 def test_step_formulations_raise_on_unsupported_input(cuda_dev):

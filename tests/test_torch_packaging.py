@@ -46,7 +46,7 @@ def test_every_opened_file_is_listed():
     includes."""
     names = {os.path.basename(p) for p in OPENED}
     assert {"gpt2.tiktoken", "multilingual.tiktoken", "flash.cu", "attention_tc.cuh",
-            "attention.cuh", "common.cuh", "gemm_tc.cuh", "hopper.cuh"} <= names
+            "common.cuh", "gemm_tc.cuh", "hopper.cuh"} <= names
 
 
 @pytest.mark.parametrize("path", OPENED, ids=lambda p: os.path.relpath(p, PACKAGE))

@@ -15,31 +15,20 @@ that quirk is pinned against numpy, and the port's ``mxu_r`` (the
 normalised attention) is held to the script's ``mxu_t`` output.
 """
 
-import importlib.util
-import os
-
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from qasr_ijcnlp_tpu_torch.diagnostics import step_formulations as sf
+from tests.torch_port_common import load_script, step_formulations_script
 
-SCRIPT = os.path.join(os.path.dirname(__file__), "..", "scripts",
-                      "bench_step_formulations.py")
 B, TA, CHUNK, BT = 8, 512, 256, 8
 
 
 @pytest.fixture(scope="module")
 def script():
-    os.environ["BT"] = str(BT)
-    spec = importlib.util.spec_from_file_location("bench_step_formulations_under_test",
-                                                  SCRIPT)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
+    mod = load_script("bench_step_formulations", BT=BT)
     assert (mod.D, mod.H, mod.DH, mod.BT) == (sf.D_MODEL, sf.N_HEAD, sf.HEAD_WIDTH, BT)
     return mod
 
@@ -56,35 +45,7 @@ def data():
 def _script_kernel(mod, name, q, k, v):
     """The script's ``run`` for ``name``, one call with ``interpret=True``;
     k, v in the kernel's layout."""
-    D, H = mod.D, mod.H
-    vmem = dict(memory_space=pltpu.VMEM)
-    q_spec = pl.BlockSpec((BT, D), lambda b, c: (b, 0), **vmem)
-    if name in ("vpu", "mxu_t"):
-        kv_spec = pl.BlockSpec((BT, D, CHUNK), lambda b, c: (b, 0, c), **vmem)
-        kern = mod._vpu_kernel if name == "vpu" else mod._mxu_t_kernel
-        scratch = [pltpu.VMEM((BT, D), jnp.float32), pltpu.VMEM((BT, H), jnp.float32),
-                   pltpu.VMEM((BT, H), jnp.float32)]
-        out_shape, out_spec = (B, D), pl.BlockSpec((BT, D), lambda b, c: (b, 0), **vmem)
-        dtype = jnp.bfloat16
-    else:
-        kv_spec = pl.BlockSpec((BT, CHUNK, D), lambda b, c: (b, c, 0), **vmem)
-        if name == "mxu_r":
-            kern = mod._mxu_r_kernel
-            scratch = [pltpu.VMEM((128, D), jnp.float32), pltpu.VMEM((1, 128), jnp.float32),
-                       pltpu.VMEM((1, 128), jnp.float32)]
-            out_shape, dtype = (B, D), jnp.bfloat16
-            out_spec = pl.BlockSpec((BT, D), lambda b, c: (b, 0), **vmem)
-        else:
-            kern, scratch = mod._dma_kernel, []
-            out_shape, dtype = (B, 1, D), jnp.float32
-            out_spec = pl.BlockSpec((BT, 1, D), lambda b, c: (b, 0, 0), **vmem)
-    f = pl.pallas_call(
-        kern, out_shape=jax.ShapeDtypeStruct(out_shape, dtype), grid=(B // BT, TA // CHUNK),
-        in_specs=[q_spec, kv_spec, kv_spec], out_specs=out_spec, scratch_shapes=scratch,
-        interpret=True,
-    )
-    args = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)]
-    return np.asarray(f(*args).astype(jnp.float32))
+    return step_formulations_script(mod, name, q, k, v, CHUNK)
 
 
 def _port(q, k, v, mode):

@@ -7,6 +7,9 @@ vocabulary and a 48-token text context.  Weights are JAX ``init_params``
 moved to the port through numpy (``from_jax_params``).
 """
 
+import importlib.util
+import os
+
 import jax
 import numpy as np
 import torch
@@ -271,3 +274,154 @@ def mel_tap_model(padded, n_mels: int, fault: bool = False):
     mel = tc_gemm(gemm_operand(power, torch.float32), melfb)[:, :n_mels]
     out = torch.log10(torch.clamp(mel, min=1e-10)).reshape(B, R, n_mels)
     return out[:, :F_keep].transpose(1, 2)
+
+
+# -- the diagnostics' schedules (K11 full, K12) and the TPU scripts that define them --
+
+SCRIPTS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "scripts")
+
+
+def load_script(name: str, **env):
+    """``scripts/<name>.py`` imported by path as a fresh module, after
+    setting ``env`` in the environment (the step-formulations script reads
+    BT from it at import)."""
+    os.environ.update({k: str(v) for k, v in env.items()})
+    spec = importlib.util.spec_from_file_location(f"{name}_under_test",
+                                                  os.path.join(SCRIPTS, f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def attn_parts_script(mod, q, k, v, mode: str):
+    """``scripts/bench_attn_parts.py``'s ``run`` with ``interpret=True`` at
+    the module's (shrunk) globals: bf16 jax q, k, v (B, Tp, D) -> (B, Tp,
+    128) float32 numpy, the last head pair (columns 256-383 of the port's
+    output)."""
+    import functools
+
+    import jax.numpy as jnp
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    spec = lambda: pl.BlockSpec((1, mod.Tp, mod.W), lambda b, h: (b, 0, h),
+                                memory_space=pltpu.VMEM)
+    out = pl.pallas_call(
+        functools.partial(mod.kernel, mode=mode),
+        out_shape=jax.ShapeDtypeStruct((mod.B, mod.Tp, mod.W), jnp.bfloat16),
+        grid=(mod.B, mod.H // 2),
+        in_specs=[spec(), spec(), spec()],
+        out_specs=pl.BlockSpec((1, mod.Tp, mod.W), lambda b, h: (b, 0, 0),
+                               memory_space=pltpu.VMEM),
+        interpret=True,
+    )(q, k, v)
+    return np.asarray(out.astype(jnp.float32))
+
+
+def step_formulations_script(mod, name: str, q, k, v, chunk: int):
+    """``scripts/bench_step_formulations.py``'s ``run`` for ``name`` with
+    ``interpret=True``, one call at the module's BT and CHUNK = ``chunk``:
+    float32 numpy q (B, D) and k, v in the kernel's layout, each holding
+    bf16 values -> float32 numpy (dma: (B, 1, D); mxu_r: its raw
+    accumulator rows)."""
+    import jax.numpy as jnp
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    D, H, BT = mod.D, mod.H, mod.BT
+    B = q.shape[0]
+    Ta = k.shape[2] if name in ("vpu", "mxu_t") else k.shape[1]
+    vmem = dict(memory_space=pltpu.VMEM)
+    q_spec = pl.BlockSpec((BT, D), lambda b, c: (b, 0), **vmem)
+    if name in ("vpu", "mxu_t"):
+        kv_spec = pl.BlockSpec((BT, D, chunk), lambda b, c: (b, 0, c), **vmem)
+        kern = mod._vpu_kernel if name == "vpu" else mod._mxu_t_kernel
+        scratch = [pltpu.VMEM((BT, D), jnp.float32), pltpu.VMEM((BT, H), jnp.float32),
+                   pltpu.VMEM((BT, H), jnp.float32)]
+        out_shape, dtype = (B, D), jnp.bfloat16
+        out_spec = pl.BlockSpec((BT, D), lambda b, c: (b, 0), **vmem)
+    else:
+        kv_spec = pl.BlockSpec((BT, chunk, D), lambda b, c: (b, c, 0), **vmem)
+        if name == "mxu_r":
+            kern = mod._mxu_r_kernel
+            scratch = [pltpu.VMEM((128, D), jnp.float32), pltpu.VMEM((1, 128), jnp.float32),
+                       pltpu.VMEM((1, 128), jnp.float32)]
+            out_shape, dtype = (B, D), jnp.bfloat16
+            out_spec = pl.BlockSpec((BT, D), lambda b, c: (b, 0), **vmem)
+        else:
+            kern, scratch = mod._dma_kernel, []
+            out_shape, dtype = (B, 1, D), jnp.float32
+            out_spec = pl.BlockSpec((BT, 1, D), lambda b, c: (b, 0, 0), **vmem)
+    f = pl.pallas_call(
+        kern, out_shape=jax.ShapeDtypeStruct(out_shape, dtype), grid=(B // BT, Ta // chunk),
+        in_specs=[q_spec, kv_spec, kv_spec], out_specs=out_spec, scratch_shapes=scratch,
+        interpret=True,
+    )
+    args = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)]
+    return np.asarray(f(*args).astype(jnp.float32))
+
+
+def step_split_model(q, k, v, mode: str, S: int, fault: bool = False):
+    """K12's attention modes as ``csrc/step_formulations.cu`` schedules them,
+    in plain PyTorch: the positions cut into ``S`` splits of whole chunks
+    (``step_formulations.split_chunks``); per split an online softmax over
+    chunks of ``CHUNK[mode]`` positions, p = exp(logit - the running max)
+    rounded to bf16 for PV (mxu_t, mxu_r) and for the sum (mxu_t), the sum
+    and accumulator rescaled by e^(m_old - m_new) as the max moves; then
+    the splits merged as sum_s e^(m_s - M) acc_s / sum_s e^(m_s - M) l_s
+    and rounded to bf16.  ``fault`` drops the merge's e^(m_s - M).  q (B,
+    D), k, v in the mode's layout, bf16 -> (B, D) bf16."""
+    from qasr_ijcnlp_tpu_torch.diagnostics import step_formulations as sf
+
+    B, D = q.shape
+    H, dh, C = sf.N_HEAD, sf.HEAD_WIDTH, sf.CHUNK[mode]
+    if sf.lanes(mode):
+        kh, vh = (x.float().reshape(B, H, dh, -1) for x in (k, v))
+    else:
+        kh, vh = (x.float().reshape(B, -1, H, dh).permute(0, 2, 3, 1) for x in (k, v))
+    logits = torch.einsum("bhd,bhdt->bht", q.float().reshape(B, H, dh), kh)
+    ms, ls, accs = [], [], []
+    for c0, c1 in sf.split_chunks(mode, kh.shape[-1], S):
+        m = torch.full((B, H), float("-inf"))
+        l, acc = torch.zeros(B, H), torch.zeros(B, H, dh)
+        for c in range(c0, c1):
+            lg = logits[..., c * C:(c + 1) * C]
+            m_new = torch.maximum(m, lg.amax(-1))
+            corr = torch.exp(m - m_new)
+            p = torch.exp(lg - m_new[..., None])
+            pr = p if mode == "vpu" else p.to(torch.bfloat16).float()
+            l = l * corr + (pr if mode == "mxu_t" else p).sum(-1)
+            acc = acc * corr[..., None] + torch.einsum("bht,bhdt->bhd", pr,
+                                                       vh[..., c * C:(c + 1) * C])
+            m = m_new
+        ms.append(m)
+        ls.append(l)
+        accs.append(acc)
+    M = torch.stack(ms).amax(0)
+    w = [torch.ones_like(m) if fault else torch.exp(m - M) for m in ms]
+    num = sum(wi[..., None] * a for wi, a in zip(w, accs))
+    den = sum(wi * li for wi, li in zip(w, ls))
+    return (num / den[..., None]).reshape(B, D).to(torch.bfloat16)
+
+
+def attn_full_model(q, k, v, kt: int = 64, fault: bool = False):
+    """K11 ``full`` as the tensor-core core's kTcFull mode computes it, in
+    plain PyTorch: pass 1 walks the keys in tiles of ``kt`` for each row's
+    online max m and fp32 denominator l of the unrounded p (l rescaled by
+    e^(m_old - m_new) as the max moves); pass 2 takes p = bf16(exp(s - m)
+    (1 / l)) into PV.  ``fault`` drops pass 1's rescale.  bf16 q, k, v (B,
+    Tp, D), heads of 64 -> bf16 (B, Tp, D)."""
+    B, T, D = q.shape
+    heads = lambda x: x.float().reshape(B, T, D // 64, 64).transpose(1, 2)
+    s = heads(q) @ heads(k).transpose(-1, -2)
+    m = torch.full(s.shape[:-1], float("-inf"))
+    l = torch.zeros(s.shape[:-1])
+    for j in range(0, T, kt):
+        st = s[..., j:j + kt]
+        m_new = torch.maximum(m, st.amax(-1))
+        alpha = 1.0 if fault else torch.exp(m - m_new)
+        l = l * alpha + torch.exp(st - m_new[..., None]).sum(-1)
+        m = m_new
+    p = (torch.exp(s - m[..., None]) * (1.0 / l)[..., None]).to(torch.bfloat16).float()
+    out = p @ heads(v)
+    return out.transpose(1, 2).reshape(B, T, D).to(torch.bfloat16)
