@@ -7,6 +7,7 @@
     python3 chip_smoke.py --k10 [--stages]  # K10 alone (and the fused decode stages)
     python3 chip_smoke.py --attn            # K4, K7, K8 alone, with output digests
     python3 chip_smoke.py --diag            # K11 and K12 alone (the diagnostics)
+    python3 chip_smoke.py --longform        # the long-form paths alone (tiny, large-v3)
 
 Drives the port's request path (qasr_ijcnlp_tpu_torch) at the full width of
 three Whisper sizes and of two head geometries at small's width, with random
@@ -41,7 +42,16 @@ and the opt-in fused step) and its grouped decodes (beam search, best-of):
    still switched on, beam_size 5 (and patience 2.0) at B=16, tokens of
    requests 0 and 1 equal to the CPU plain path's, and best_of 5 at T 0.5
    from a seeded generator (two calls equal; each result ``rank_group``'s
-   choice of its group), K10 never launched, times and stages;
+   choice of its group), K10 never launched, times and stages; then the
+   long-form path (``transcribe``) with ``batch_windows`` and word
+   timestamps over a seeded speech-like 5-min file (ten windows in one
+   batch): K1 at the file's length against its plain version, then f32
+   and bf16 runs with exact launch counts (K1 once per file, the stem once
+   and K4 / K5 once a layer per encoder pass, the bf16 run's f32
+   re-encodes for the alignment included), the f32 transcript equal to the
+   CPU plain path's and its word times within tests/test_align.py's rule,
+   and the stages of each run (file mel, window decodes, alignment, host
+   assembly; audio-s/s);
 4. **medium** (24 + 24 layers, D 1024, full depth): the stem at D 1024 (K3),
    K4 with 16 heads, the finish at D 1024 (K6) and the whole 24-layer trunk
    (8, 1536, 1024) against their plain versions, and the fused block's
@@ -65,7 +75,12 @@ and the opt-in fused step) and its grouped decodes (beam search, best-of):
    over a cross cache of 8), fp and int8 (K9 at G=5 exactly 32 x 64 times,
    K10 never), request 0 against the CPU plain path's beam (equal, or a
    near tie where they diverge), int8 vs fp avg_logprob gap, bf16, times
-   and stages.
+   and stages; then the sequential long-form loop with word timestamps on
+   a 55-s file (three windows, the last partial) in f32 and bf16 (K8
+   exactly 32 times per encoder pass), every f32 window teacher-forced
+   against the CPU plain path under its own options (prompt, timestamp
+   rules) and window 0's alignment matrix, words and times held against
+   the CPU's.
    In every kernel phase the padding rows of the trunk inputs are one
    repeated row, as the trunk leaves them, and bf16 is held to twice the
    plain bf16 version's own distance from f32 (``compare``).  Two rounding
@@ -101,9 +116,10 @@ and the opt-in fused step) and its grouped decodes (beam search, best-of):
    the CPU), teacher-forced on the card's tokens: at every step the card's
    token must be the CPU's argmax or within a stated tie of its top logit;
    the smallest top-2 margin is printed;
-10. prints the whole script's seconds, the per-kernel JSON line (every
-   ported kernel with its launches, times, error and bound), the card line,
-   then ``{"ok": true, "device": ...}`` as the last line.
+10. prints the long-form stages as one JSON line, the whole script's
+   seconds, the per-kernel JSON line (every ported kernel with its
+   launches, times, error and bound), the card line, then ``{"ok": true,
+   "device": ...}`` as the last line.
 
 Launch counts are read from each path's own f32 batch, with every counter
 set to 0 just before it.  Any failure raises (non-zero exit) and nothing is
@@ -1240,17 +1256,19 @@ def cpu_features(port, cpu_model, pcm0):
 
 
 def teacher_forced_check(port, cpu_model, xa, card_result, label, tie=TOKEN_TIE,
-                         int8_cache=None):
+                         int8_cache=None, opts=None):
     """One request on the CPU plain path (encoder output ``xa``),
     teacher-forced on the card's tokens: the decoder over the fp cross K/V,
     or over ``int8_cache`` (the CPU's own int8 cross cache) in one
-    incremental pass."""
+    incremental pass.  ``opts``: the request's DecodingOptions (default the
+    bench options in f32), whose initial tokens (prompt, sot sequence) and
+    filters (timestamp rules) the check uses."""
     from qasr_ijcnlp_tpu_torch.decode import DecodingTask
     from qasr_ijcnlp_tpu_torch.decode.filters import apply_filters
     from qasr_ijcnlp_tpu_torch.models.whisper import decoder_apply, decoder_step
 
     dims = cpu_model.dims
-    task = DecodingTask(cpu_model, options(port, False))
+    task = DecodingTask(cpu_model, opts or options(port, False))
     feat_err = float((card_result.audio_features.float().cpu() - xa[0]).abs().max())
     toks = torch.tensor([list(task.initial_tokens) + list(card_result.tokens)])
     with torch.inference_mode():
@@ -1260,10 +1278,11 @@ def teacher_forced_check(port, cpu_model, xa, card_result, label, tie=TOKEN_TIE,
             logits = decoder_step(cpu_model.module.decoder, toks, dict(int8_cache), dims)[0][0]
     sb = task.sample_begin
     last = prev = torch.tensor([-1])
+    max_ts = torch.zeros(1, dtype=torch.long)
     min_margin, worst = math.inf, 0.0
     for i, tok in enumerate(card_result.tokens):
         f = apply_filters(task.loop_cfg.filters, logits[sb - 1 + i][None], sb + i, last,
-                          prev, torch.zeros(1, dtype=torch.long))[0]
+                          prev, max_ts)[0]
         top2 = torch.topk(f, 2).values
         min_margin = min(min_margin, float(top2[0] - top2[1]))
         behind = float(top2[0] - f[tok])
@@ -1272,6 +1291,8 @@ def teacher_forced_check(port, cpu_model, xa, card_result, label, tie=TOKEN_TIE,
             raise AssertionError(f"{label}: step {i}, card token {tok} is "
                                  f"{behind:.3e} below the CPU's top logit (tie {tie:g})")
         prev, last = last, torch.tensor([tok])
+        if tok >= task.loop_cfg.timestamp_begin:
+            max_ts = torch.maximum(max_ts, last)
     log(f"{label}: f32 tokens pass the CPU teacher-forced check ({len(card_result.tokens)} "
         f"steps; card token behind the CPU top logit by at most {worst:.3e}, tie {tie:g}; "
         f"smallest top-2 margin {min_margin:.3e}; encoder output max |card - CPU| "
@@ -1476,10 +1497,11 @@ def tiny_beam_paths(port, gpu, cpu, pcm, smi):
 
 
 def family_path(port, dims_name, dims, dev, smi, expect, kernel_phase, int8=False,
-                beam=False):
+                beam=False, longform=False):
     """Kernel phases and end to end for one size; with ``int8`` the same
     batch runs again with the int8 cross cache, with ``beam`` with beam
-    search (fp and int8)."""
+    search (fp and int8), with ``longform`` the sequential long-form path
+    (``large_longform``)."""
     from qasr_ijcnlp_tpu_torch.models.whisper import init_params
 
     t0 = time.perf_counter()
@@ -1508,6 +1530,8 @@ def family_path(port, dims_name, dims, dev, smi, expect, kernel_phase, int8=Fals
                                                dims_name, expect)
     if beam:
         paths.update(beam_path(port, gpu, cpu, pcm, xa, smi, dims_name, expect))
+    if longform:
+        paths.update(large_longform(port, gpu, cpu, smi, dims_name))
     del gpu, cpu, sd, res32, res16
     gc.collect()
     torch.cuda.empty_cache()
@@ -1591,10 +1615,377 @@ def tiny_path(port, dims, dev, smi):
     finally:
         decoder_step.set_fused_decoder_step(None)
     paths.update(tiny_beam_paths(port, gpu, cpu, pcm16, smi))
+    lres, lpaths = tiny_longform(port, gpu, cpu, dev, smi)
+    kres.update(lres)
+    paths.update(lpaths)
     del gpu, cpu, sd
     gc.collect()
     torch.cuda.empty_cache()
     return kres, paths
+
+
+# -- long-form transcription ----------------------------------------------------------
+
+# transcribe() options of the long-form phases: greedy at temperature 0 only,
+# the quality thresholds off (no window is skipped), word timestamps on.
+# sample_len caps each window's decode at 64 tokens (random weights rarely
+# emit eot) to keep the phases inside the smoke's time budget.
+LONGFORM = dict(language="en", temperature=0.0, compression_ratio_threshold=None,
+                logprob_threshold=None, no_speech_threshold=None, sample_len=64,
+                word_timestamps=True)
+# large-v3's sequential file: 55.3 s (three windows with seed 0's weights,
+# the last partial; at 75.3 s its timestamps advanced the seek 196 frames a
+# window after the second, twelve windows in all, and the phase took
+# ~190 s); tiny's batched file: 299.5 s and 37 samples (ten windows in one
+# batch, the last partial; a sample count that is not a multiple of the hop).
+LARGE_LONGFORM_SAMPLES = 55 * 16000 + 4837
+TINY_LONGFORM_SAMPLES = 4792037
+# Stages of every long-form run (``LongformProbe.log_stages``), by path.
+LONGFORM_STAGES = {}
+
+
+def speechlike_pcm(n, seed):
+    """Seeded speech-like PCM: voiced syllables (a gliding pitch with
+    harmonics under a 4-Hz envelope) in phrases with pauses, over noise."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / 16000
+    pitch = 120 + 40 * np.sin(2 * np.pi * 0.3 * t + rng.uniform(0, 6.28))
+    phase = 2 * np.pi * np.cumsum(pitch) / 16000
+    voiced = sum(np.sin(k * phase) / k for k in range(1, 6))
+    syllables = np.clip(np.sin(2 * np.pi * 4.0 * t), 0, None) ** 2
+    phrases = (np.sin(2 * np.pi * t / 7.0 + rng.uniform(0, 6.28)) > -0.6).astype(np.float64)
+    pcm = 0.15 * voiced * syllables * phrases + rng.standard_normal(n) * 0.01
+    return pcm.astype(np.float32)
+
+
+class LongformProbe:
+    """One ``transcribe`` call on ``model`` with its stages on the host
+    clock, each ended by a synchronize: the file mel, the window decodes
+    (encoder + decoder), the word alignment (with its re-encodes) and the
+    rest (host assembly: segmentation, seek, prompts).  Records every
+    decode's (mel, options, results) and counts ``embed_audio`` calls (the
+    alignment's f32 re-encodes)."""
+
+    def __init__(self, model):
+        from qasr_ijcnlp_tpu_torch import transcribe as tmod
+
+        self.tmod, self.model = tmod, model
+        self.ms = {"mel": 0.0, "decode": 0.0, "align": 0.0}
+        self.decodes, self.reencodes, self.total_ms = [], 0, 0.0
+
+    def _timed(self, key, fn, record=None):
+        def wrapped(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            self.ms[key] += (time.perf_counter() - t0) * 1000
+            if record is not None:
+                record(*a, out=out, **k)
+            return out
+        return wrapped
+
+    def _record_batch(self, model, mels, opts, out, **_):
+        self.decodes.append((mels, opts, list(out)))
+
+    def _record_window(self, mel, opts, out, **_):
+        self.decodes.append((mel[None], opts, [out]))
+
+    def _embed(self, mel):
+        self.reencodes += 1
+        return type(self.model).embed_audio(self.model, mel)
+
+    def run(self, pcm, **kw):
+        tmod, m = self.tmod, self.model
+        saved = (tmod.log_mel_spectrogram, tmod._decode, tmod.add_word_timestamps)
+        tmod.log_mel_spectrogram = self._timed("mel", saved[0])
+        tmod._decode = self._timed("decode", saved[1], self._record_batch)
+        tmod.add_word_timestamps = self._timed("align", saved[2])
+        m.decode = self._timed("decode", m.decode, self._record_window)
+        m.embed_audio = self._embed
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = m.transcribe(pcm, **kw)
+            torch.cuda.synchronize()
+            self.total_ms = (time.perf_counter() - t0) * 1000
+        finally:
+            tmod.log_mel_spectrogram, tmod._decode, tmod.add_word_timestamps = saved
+            del m.decode, m.embed_audio
+        return out
+
+    def results(self):
+        return [r for _, _, rs in self.decodes for r in rs]
+
+    def encoder_passes(self):
+        """Encoder passes of the run: one per decode call (its window
+        batch), one per alignment re-encode."""
+        return len(self.decodes) + self.reencodes
+
+    def log_stages(self, label, n_samples, smi):
+        audio_s = n_samples / 16000
+        host = self.total_ms - sum(self.ms.values())
+        log(f"{label} stages: {audio_s:.2f} s of audio in {self.total_ms:.1f} ms = "
+            f"{audio_s / self.total_ms * 1000:.1f} audio-s/s; file mel {self.ms['mel']:.1f} "
+            f"ms, window decodes {self.ms['decode']:.1f} ms ({len(self.decodes)} calls, "
+            f"{len(self.results())} windows), alignment {self.ms['align']:.1f} ms "
+            f"({self.reencodes} f32 re-encodes), host assembly {host:.1f} ms ({smi})")
+        return {"audio_s": audio_s, "total_ms": self.total_ms, "audio_s_per_s":
+                audio_s / self.total_ms * 1000, **{f"{k}_ms": v for k, v in self.ms.items()},
+                "host_ms": host, "decode_calls": len(self.decodes),
+                "windows": len(self.results()), "reencodes": self.reencodes}
+
+
+def longform_expect(dims, passes):
+    """Launches of a long-form run: K1 once for the file; the stem once per
+    encoder pass (window batch or re-encode) and each trunk kernel once per
+    layer per pass (K4 and the finish where the trunk fuses, K8 at
+    large-v3); no decode-loop kernel (fp cache, unfused step)."""
+    from qasr_ijcnlp_tpu_torch.models.whisper import _trunk_uses_fused_blocks
+
+    L = dims.n_audio_layer
+    expect = {k: 0 for k in FUSED_EXPECT}
+    expect.update(mel=1, stem=passes)
+    if _trunk_uses_fused_blocks(dims):
+        expect.update(attn=L * passes, finish=L * passes)
+    else:
+        expect.update(packed=L * passes)
+    return expect
+
+
+def counted_longform(model, pcm, fp16, label, smi, **kw):
+    """One transcribe of ``pcm`` with every launch counter set to 0 just
+    before it; the counts must equal ``longform_expect`` of the run's own
+    encoder passes.  Keeps the run's stages in LONGFORM_STAGES; returns
+    (transcript, probe, launches)."""
+    cs = counters()
+    for mod, attr in cs.values():
+        setattr(mod, attr, 0)
+    probe = LongformProbe(model)
+    out = probe.run(pcm, fp16=fp16, **LONGFORM, **kw)
+    torch.cuda.synchronize()
+    launches = {k: getattr(mod, attr) for k, (mod, attr) in cs.items()}
+    log(f"main-path launches ({label}, {probe.encoder_passes()} encoder passes):",
+        json.dumps(launches))
+    expect = longform_expect(model.dims, probe.encoder_passes())
+    for k, want in expect.items():
+        if launches[k] != want:
+            raise AssertionError(f"{label}: {k} launched {launches[k]} times, expected {want}")
+    check_transcript(out, probe, model.dims, label)
+    LONGFORM_STAGES[label] = probe.log_stages(label, pcm.shape[-1], smi)
+    return out, probe, launches
+
+
+def check_transcript(out, probe, dims, label):
+    """Finite results of the expected shapes; one window per decoded row;
+    some words timed."""
+    segs = out["segments"]
+    if not segs or out["language"] != "en":
+        raise AssertionError(f"{label}: no segments or wrong language")
+    for r in probe.results():
+        if r.audio_features.shape != (dims.n_audio_ctx, dims.n_audio_state) or \
+                not torch.isfinite(r.audio_features).all() or not np.isfinite(r.avg_logprob):
+            raise AssertionError(f"{label}: bad window result")
+    words = [w for s in segs for w in s.get("words", [])]
+    if not words or not all(np.isfinite([w["start"], w["end"], w["probability"]]).all()
+                            for w in words):
+        raise AssertionError(f"{label}: no word timings, or non-finite ones")
+    seeks = sorted({s["seek"] for s in segs})
+    log(f"{label}: {len(segs)} segments over windows at {seeks}, {len(words)} words; "
+        f"text {out['text'][:100]!r}")
+
+
+def times_rule(card, cpu, label):
+    """tests/test_align.py's rule on word (start, end) pairs: median |diff|
+    <= 0.02 s and >= 70% within 0.04 s."""
+    diff = np.abs(np.asarray(card, float) - np.asarray(cpu, float))
+    med, share = float(np.median(diff)), float(np.mean(diff <= 0.04))
+    log(f"{label}: {diff.shape[0]} words; time |card - CPU| median {med:.4f} s, max "
+        f"{float(diff.max()):.4f} s, {share:.3f} within 0.04 s")
+    if med > 0.02 or share < 0.7:
+        raise AssertionError(f"{label}: word times outside the rule (median {med}, "
+                             f"within 0.04 s {share})")
+
+
+def cpu_window_features(port, cpu, cpu_mel, seek, size):
+    """A window's encoder output on the CPU plain path, from the CPU file
+    mel sliced as the sequential loop slices it."""
+    from qasr_ijcnlp_tpu_torch.models.whisper import encoder_apply
+
+    mel = port.pad_or_trim(cpu_mel[:, seek:seek + size], port.N_FRAMES)
+    with torch.inference_mode():
+        return mel, encoder_apply(cpu.module.encoder, mel[None], cpu.dims)
+
+
+def alignment_check(gpu, cpu, card_mel, cpu_mel, result, xa, num_frames, label):
+    """One window's alignment on the card (its decode's f32 features) and on
+    the CPU plain path (``xa``) with the card's text tokens: the matrices'
+    max |diff|, the words equal, the times by ``times_rule``."""
+    from qasr_ijcnlp_tpu_torch import align
+    from qasr_ijcnlp_tpu_torch.tokenizer import get_tokenizer
+
+    tok = get_tokenizer(gpu.is_multilingual, num_languages=gpu.num_languages,
+                        language="en", task="transcribe")
+    text = [t for t in result.tokens if t < tok.eot]
+    if not text:
+        raise AssertionError(f"{label}: window 0 decoded no text token to align")
+    card_m, card_p = align.alignment_matrix(gpu, tok, text, card_mel, num_frames,
+                                            audio_features=result.audio_features)
+    cpu_m, cpu_p = align.alignment_matrix(cpu, tok, text, cpu_mel, num_frames,
+                                          audio_features=xa[0])
+    err = float(np.abs(card_m - cpu_m).max())
+    perr = float(np.abs(np.asarray(card_p) - np.asarray(cpu_p)).max())
+    card_w = align.timings_from_matrix(tok, text, card_m, card_p)
+    cpu_w = align.timings_from_matrix(tok, text, cpu_m, cpu_p)
+    log(f"{label}: alignment matrix {card_m.shape} max |card - CPU| {err:.3e}; token "
+        f"probabilities max |diff| {perr:.3e}")
+    if [w.word for w in card_w] != [w.word for w in cpu_w] or not card_w:
+        raise AssertionError(f"{label}: words differ (or none): "
+                             f"{[w.word for w in card_w]} vs {[w.word for w in cpu_w]}")
+    times_rule([[w.start, w.end] for w in card_w], [[w.start, w.end] for w in cpu_w],
+               f"{label} alignment")
+    return err
+
+
+def large_longform(port, gpu, cpu, smi, name):
+    """``name`` (large-v3) on the sequential loop with word timestamps over
+    a 55-s file, f32 then bf16: exact launch counts (the bf16 run re-encodes
+    each aligned window in f32); in f32 every window's tokens pass the CPU
+    teacher-forced check under that window's options (prompt, timestamp
+    rules) and window 0's alignment is held against the CPU's."""
+    t0 = time.perf_counter()
+    pcm = speechlike_pcm(LARGE_LONGFORM_SAMPLES, SEED + 11)
+    paths = {}
+    label = f"{name} longform f32"
+    out32, probe, paths[label] = counted_longform(gpu, pcm, False, label, smi)
+    t1 = time.perf_counter()
+    cpu_mel = port.log_mel_spectrogram(pcm, gpu.dims.n_mels, padding=port.N_SAMPLES,
+                                       device="cpu")
+    content = cpu_mel.shape[-1] - port.N_FRAMES
+    seeks = sorted({s["seek"] for s in out32["segments"]})
+    if len(seeks) != len(probe.decodes) or len(seeks) < 3:
+        raise AssertionError(f"{label}: {len(probe.decodes)} decodes for windows at {seeks}")
+    for i, (seek, (mel, opts, (res,))) in enumerate(zip(seeks, probe.decodes)):
+        size = min(port.N_FRAMES, content - seek)
+        mel_cpu, xa = cpu_window_features(port, cpu, cpu_mel, seek, size)
+        teacher_forced_check(port, cpu, xa, res, f"{label} window {i} (seek {seek}, "
+                             f"{size} frames, prompt {len(opts.prompt or [])} tokens)",
+                             opts=opts)
+        if i == 0:
+            alignment_check(gpu, cpu, mel[0], mel_cpu, res, xa, size,
+                            f"{label} window 0")
+    t2 = time.perf_counter()
+    label16 = f"{name} longform bf16"
+    out16, probe16, paths[label16] = counted_longform(gpu, pcm, True, label16, smi)
+    if probe16.reencodes == 0:
+        raise AssertionError(f"{label16}: the alignment reused bf16 features")
+    log(f"{name} longform: bf16 vs f32 text equal: {out16['text'] == out32['text']}; "
+        f"phase seconds: f32 run {t1 - t0:.1f}, CPU checks {t2 - t1:.1f}, bf16 run "
+        f"{time.perf_counter() - t2:.1f}")
+    return paths
+
+
+def mel_file_phase(res, dev, pcm):
+    """K1 at a whole file's length (``pcm`` and transcribe's 30 s of zero
+    padding) against its plain version."""
+    from qasr_ijcnlp_tpu_torch.ops import melfront
+
+    with torch.inference_mode():
+        padded = melfront.reflect_pad(torch.from_numpy(pcm[None]).to(dev), 480000)
+        frames = (pcm.shape[-1] + 480000) // 160
+        res["K1_file"] = {"f32": compare(
+            f"K1 mel at the file length ({pcm.shape[-1]} + 480000 samples, {frames} frames)",
+            "f32", lambda: melfront.clamp_and_scale(melfront.log10_mel(padded, 80)),
+            lambda: melfront.clamp_and_scale(melfront._plain_log10_mel(padded, 80)),
+            mel_work(1, padded.shape[1], frames, 80), tol="mel", peak="tf32x3")}
+        del padded
+
+
+def tiny_longform(port, gpu, cpu, dev, smi):
+    """tiny with ``batch_windows`` over a 5-min file (ten windows in one
+    batch) and word timestamps: K1 at the file length against its plain
+    version; one uncounted warm-up transcribe per dtype; then f32 with
+    exact launch counts, the transcript equal to the CPU plain path's (a
+    window that differs must be a tie under TOKEN_TIE at its first
+    differing step, and then passes the teacher-forced check), word times
+    by ``times_rule``; then bf16."""
+    t0 = time.perf_counter()
+    pcm = speechlike_pcm(TINY_LONGFORM_SAMPLES, SEED + 12)
+    kres, paths = {}, {}
+    mel_file_phase(kres, dev, pcm)
+    for fp16 in (False, True):  # warm-up (first-call costs: tables, caches)
+        gpu.transcribe(pcm, fp16=fp16, batch_windows=True, **LONGFORM)
+    label = "tiny longform f32"
+    card, probe, paths[label] = counted_longform(gpu, pcm, False, label, smi,
+                                                 batch_windows=True)
+    if len(probe.decodes) != 1 or len(probe.results()) != 10:
+        raise AssertionError(f"{label}: expected one batch of 10 windows")
+    cpu_probe = LongformProbe(cpu)
+    ref = cpu_probe.run(pcm, fp16=False, batch_windows=True, **LONGFORM)
+    compare_windows(port, cpu, card, ref, probe, cpu_probe, label)
+    label16 = "tiny longform bf16"
+    _, _, paths[label16] = counted_longform(gpu, pcm, True, label16, smi,
+                                            batch_windows=True)
+    log(f"tiny longform phase seconds: {time.perf_counter() - t0:.1f}")
+    return kres, paths
+
+
+def compare_windows(port, cpu, card, ref, probe, cpu_probe, label):
+    """The card's batched transcript against the CPU plain path's, window by
+    window: segments (seek, tokens, text, start, end) equal, or the window's
+    first differing token a tie, after which it passes the teacher-forced
+    check; the words of equal windows equal, their times by ``times_rule``."""
+    by = lambda out: {s: [g for g in out["segments"] if g["seek"] == s]
+                      for s in sorted({g["seek"] for g in out["segments"]})}
+    card_w, ref_w = by(card), by(ref)
+    if list(card_w) != list(ref_w):
+        raise AssertionError(f"{label}: windows {list(card_w)} vs CPU {list(ref_w)}")
+    key = lambda g: (g["tokens"], g["text"], g["start"], g["end"])
+    times_card, times_cpu, ties = [], [], []
+    for i, s in enumerate(card_w):
+        if [key(g) for g in card_w[s]] == [key(g) for g in ref_w[s]]:
+            for a, b in zip(card_w[s], ref_w[s]):
+                if [w["word"] for w in a["words"]] != [w["word"] for w in b["words"]]:
+                    raise AssertionError(f"{label}: window {i} words differ")
+                times_card += [[w["start"], w["end"]] for w in a["words"]]
+                times_cpu += [[w["start"], w["end"]] for w in b["words"]]
+            continue
+        res, cpu_res = probe.results()[i], cpu_probe.results()[i]
+        step = next((k for k, (a, b) in enumerate(zip(res.tokens, cpu_res.tokens)) if a != b),
+                    min(len(res.tokens), len(cpu_res.tokens)))
+        log(f"{label}: window {i} differs from the CPU's from step {step}; "
+            f"teacher-forced check of the card's tokens:")
+        margin = teacher_forced_check(port, cpu, cpu_res.audio_features[None], res,
+                                      f"{label} window {i}", opts=probe.decodes[0][1])
+        ties.append((i, step, margin))
+    if not ties and card["text"] != ref["text"]:
+        raise AssertionError(f"{label}: text differs from the CPU's")
+    log(f"{label}: transcript equal to the CPU plain path's in {len(card_w) - len(ties)} of "
+        f"{len(card_w)} windows (ties: {ties})")
+    times_rule(times_card, times_cpu, f"{label} words")
+
+
+def longform_run(port, dev, smi):
+    """``python3 chip_smoke.py --longform``: the long-form phases alone, at
+    full width and depth (tiny batched, large-v3 sequential; K1 at the file
+    length), with their launch counts and checks as in the full run."""
+    from qasr_ijcnlp_tpu_torch.models.dims import dims_for, tiny_dims
+    from qasr_ijcnlp_tpu_torch.models.whisper import init_params
+
+    out = {}
+    for name, dims in (("tiny", tiny_dims()), ("large-v3", dims_for("large-v3"))):
+        sd = init_params(torch.Generator().manual_seed(SEED), dims)
+        gpu = port.WhisperModel.from_state_dict(sd, dims, dev, name=f"{name} (random)")
+        cpu = port.WhisperModel.from_state_dict(sd, dims, "cpu", name=f"{name} (random)")
+        if name == "tiny":
+            out["kernels"], out["paths"] = tiny_longform(port, gpu, cpu, dev, smi)
+        else:
+            out["paths"].update(large_longform(port, gpu, cpu, smi, name))
+        del gpu, cpu, sd
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(json.dumps({**out, "longform_stages": LONGFORM_STAGES}))
+    log(smi)
 
 
 def kernel_table(kres, by_path):
@@ -1612,6 +2003,9 @@ def kernel_table(kres, by_path):
          "medium", "(8, 80, 3000) -> (8, 1536, 1024)"),
         ("mel_128", "K1_128", src + "melfront.cu", tpu + "melfront.py:48", "mel", "large-v3",
          "(8, 480000) -> (8, 128, 3000)"),
+        ("mel_file", "K1_file", src + "melfront.cu", tpu + "melfront.py:48", "mel",
+         "tiny longform f32", f"(1, {TINY_LONGFORM_SAMPLES} + 480000 padding) -> (1, 80, "
+         f"{(TINY_LONGFORM_SAMPLES + 480000) // 160}): a 5-min file, one launch"),
         ("conv_stem_d1280", "stem_1280", src + "conv_stem.cu", tpu + "conv_stem.py:119",
          "stem", "large-v3", "(8, 128, 3000) -> (8, 1536, 1280): K3's kernel at large-v3, "
          "whose stem the JAX package leaves to XLA"),
@@ -1930,13 +2324,14 @@ def main():
         run = k9_run if sys.argv[1] == "--k9" else k10_run
         run(port, dev, smi, stages=sys.argv[2:] == ["--stages"])
         return
-    modes = {"--stem": stem_run, "--attn": attn_run, "--diag": diag_run}
+    modes = {"--stem": stem_run, "--attn": attn_run, "--diag": diag_run,
+             "--longform": longform_run}
     if len(sys.argv) == 2 and sys.argv[1] in modes:
         modes[sys.argv[1]](port, dev, smi)
         return
     if sys.argv[1:]:
-        raise SystemExit(f"usage: python3 chip_smoke.py [--stem | --attn | --diag | --k9 | "
-                         f"--k10 [--stages]]; got {sys.argv[1:]}")
+        raise SystemExit(f"usage: python3 chip_smoke.py [--stem | --attn | --diag | "
+                         f"--longform | --k9 | --k10 [--stages]]; got {sys.argv[1:]}")
 
     kres, by_path = tiny_path(port, tiny_dims(), dev, smi)
     # == medium and large-v3, full width and depth ==================================
@@ -1944,7 +2339,7 @@ def main():
     mres, mpaths = family_path(port, "medium", medium, dev, smi, FUSED_EXPECT,
                                medium_kernel_phase)
     lres, lpaths = family_path(port, "large-v3", large, dev, smi, large_expect(large),
-                               large_kernel_phase, int8=True, beam=True)
+                               large_kernel_phase, int8=True, beam=True, longform=True)
     # == small's width and depth with head geometries off the family ===============
     # 8 heads of 96 (the trunk runs K7) and 6 of 128 in encoder and decoder
     # (K4 and K9 at head width 128).
@@ -1961,6 +2356,7 @@ def main():
         by_path.update(paths)
 
     kernels = kernel_table(kres, by_path)
+    log(json.dumps({"longform_stages": LONGFORM_STAGES}))
     log(f"total seconds: {time.perf_counter() - t_start:.1f}")
     log(json.dumps({"kernels": kernels}))
     log(smi)

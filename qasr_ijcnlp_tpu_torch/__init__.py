@@ -2,10 +2,13 @@
 
 The Whisper request path (PCM -> log-mel -> encoder -> greedy decode ->
 text) for every family size, tiny to large-v3, in PyTorch, with the int8
-cross cache (``kv_int8``) and the opt-in fused decoder step, and the JAX
-package's TPU kernels rewritten by hand for Hopper (``csrc/``).  The
-package imports torch and numpy and never JAX or the JAX package, which
-stays beside it as the reference.
+cross cache (``kv_int8``) and the opt-in fused decoder step; long-form
+transcription with word timings (``model.transcribe``, the
+:mod:`.transcribe` module, ``python -m qasr_ijcnlp_tpu_torch.cli.
+transcribe``), audio files and local checkpoints; and the JAX package's TPU
+kernels rewritten by hand for Hopper (``csrc/``).  The package imports
+torch and numpy and never JAX or the JAX package, which stays beside it as
+the reference.
 """
 
 __version__ = "0.1.0"
@@ -17,9 +20,15 @@ from .audio import (  # noqa: F401
     N_FRAMES,
     N_SAMPLES,
     SAMPLE_RATE,
+    load_audio,
     log_mel_spectrogram,
     mel_filters,
     pad_or_trim,
 )
 from .decode import DecodingOptions, DecodingResult, decode, detect_language  # noqa: F401
-from .models.registry import WhisperModel  # noqa: F401
+from .models.registry import (  # noqa: F401
+    WhisperModel,
+    available_models,
+    load_model,
+    save_model,
+)

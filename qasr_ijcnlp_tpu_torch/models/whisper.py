@@ -351,6 +351,46 @@ def decoder_apply(decoder: TextDecoder, tokens, xa, dims: ModelDimensions,
     return (x @ decoder.token_embedding.weight.to(x.dtype).t()).float()
 
 
+def decoder_apply_with_cross_qk(decoder: TextDecoder, tokens, xa, dims: ModelDimensions,
+                                compute_dtype=torch.float32):
+    """Teacher-forced decoder that also returns the raw (pre-softmax,
+    4th-root-scaled) cross-attention logits of every layer: (fp32 logits
+    (B, T, vocab), qk (L, B, H, T, Ta) fp32), the word-timing alignment's
+    input.  Plain ``torch.matmul``, as the JAX function is plain XLA.
+
+    K is projected afresh from ``xa`` and q and k are each scaled by
+    dh^-0.25 here; the decode cache's cross K (stored already scaled) is
+    not used."""
+    T = tokens.shape[1]
+    n_head = dims.n_text_head
+    x = decoder.token_embedding.weight[tokens] + decoder.positional_embedding[:T]
+    x = x.to(compute_dtype)
+    xa = xa.to(compute_dtype)
+    causal = _causal_mask(T, x.device)
+    qks = []
+    for bp in decoder.blocks:
+        x = x + _self_attn(bp.attn, layer_norm(x, bp.attn_ln), n_head, causal)
+        q = linear(layer_norm(x, bp.cross_attn_ln), bp.cross_attn.query)
+        k = linear(xa, bp.cross_attn.key)
+        v = linear(xa, bp.cross_attn.value)
+        qk = (scaled_heads(q, n_head) @ scaled_heads(k, n_head).transpose(-1, -2)).float()
+        w = torch.softmax(qk, dim=-1).to(x.dtype)
+        x = x + linear(_merge_heads(w @ _split_heads(v, n_head)), bp.cross_attn.out)
+        x = x + _mlp(bp.mlp, layer_norm(x, bp.mlp_ln))
+        qks.append(qk)
+    x = layer_norm(x, decoder.ln)
+    logits = (x @ decoder.token_embedding.weight.to(x.dtype).t()).float()
+    return logits, torch.stack(qks)
+
+
+def forward(module: Whisper, mel, tokens, dims: ModelDimensions,
+            compute_dtype=torch.float32):
+    """Full forward (reference Whisper.forward): mel (B, n_mels, 3000) and
+    tokens (B, T) -> fp32 logits (B, T, vocab)."""
+    xa = encoder_apply(module.encoder, mel, dims, compute_dtype)
+    return decoder_apply(module.decoder, tokens, xa, dims, compute_dtype)
+
+
 def init_kv_cache(
     dims: ModelDimensions, batch: int, dtype=torch.float32, device="cuda",
     cross_batch: Optional[int] = None, ctx: Optional[int] = None,

@@ -2,8 +2,8 @@
 slice as a whole: PCM -> log-mel -> encoder -> greedy decode -> text.
 
 Greedy decode at f32 must be token-exact and text-equal, with and without
-timestamps.  A subprocess checks that the port runs a request without
-importing JAX or the JAX package.
+timestamps.  A subprocess checks that the port runs a request and a short
+long-form transcription without importing JAX or the JAX package.
 """
 
 import os
@@ -121,6 +121,7 @@ def test_port_runs_without_jax():
     code = textwrap.dedent("""
         import sys
         import numpy as np, torch
+        torch.set_num_threads(1)  # beside the other pytest workers
         import qasr_ijcnlp_tpu_torch as port
         from qasr_ijcnlp_tpu_torch.models.dims import ModelDimensions
         from qasr_ijcnlp_tpu_torch.models.whisper import init_params
@@ -131,6 +132,14 @@ def test_port_runs_without_jax():
         r = port.decode(m, port.log_mel_spectrogram(pcm, device="cpu"), language="en",
                         sample_len=4, without_timestamps=True)
         assert len(r.tokens) <= 4
+        from qasr_ijcnlp_tpu_torch import align, transcribe  # noqa: F401
+        from qasr_ijcnlp_tpu_torch.cli import transcribe as cli  # noqa: F401
+        lf = ModelDimensions(80, 1500, 128, 2, 1, 51865, 48, 128, 2, 1)
+        m = port.WhisperModel.from_state_dict(
+            init_params(torch.Generator().manual_seed(0), lf), lf, "cpu")
+        out = m.transcribe(np.zeros(16000 * 3, np.float32), language="en", sample_len=4,
+                           temperature=0.0, word_timestamps=True)
+        assert out["language"] == "en" and out["segments"], out
         bad = [k for k in sys.modules
                if k == "jax" or k.startswith(("jax.", "qasr_ijcnlp_tpu."))
                or k == "qasr_ijcnlp_tpu"]

@@ -200,6 +200,55 @@ def test_mel_kernel_lengths_and_bins(cuda_dev, B, n_samples, n_mels):
         melfront.log10_mel(padded, 64)
 
 
+@pytest.mark.parametrize("n_samples", [600 * 16000, 75 * 16000 + 37],
+                         ids=["10min", "odd_length"])
+def test_mel_kernel_file_lengths(cuda_dev, n_samples):
+    """K1 at a whole file's length, with transcribe's 30 s of zero padding
+    (10 min: ~63k frames in one launch), within the mel bound."""
+    pcm = torch.from_numpy((np.random.default_rng(n_samples).standard_normal(
+        (1, n_samples)) * 0.1).astype(np.float32)).to(cuda_dev)
+    padded = melfront.reflect_pad(pcm, 480000)
+    before = melfront.launches
+    k = melfront.clamp_and_scale(melfront.log10_mel(padded))
+    assert melfront.launches == before + 1
+    p = melfront.clamp_and_scale(melfront._plain_log10_mel(padded, 80))
+    assert k.shape == p.shape == (1, 80, (n_samples + 480000) // 160)
+    assert torch.isfinite(k).all()
+    assert float((k - p).abs().max()) <= 2e-4
+
+
+@pytest.mark.parametrize("batch_windows", [False, 4], ids=["sequential", "batched"])
+def test_longform_transcript_on_card_matches_cpu(cuda_dev, batch_windows):
+    """tiny at full width: the f32 long-form transcript (65 s, three windows,
+    word timestamps) through the kernels equals the CPU plain path's;
+    word times by the rule of tests/test_align.py."""
+    from qasr_ijcnlp_tpu_torch.transcribe import transcribe
+
+    dims = tiny_dims()
+    sd = init_params(torch.Generator().manual_seed(3), dims)
+    card = WhisperModel.from_state_dict(sd, dims, cuda_dev)
+    cpu = WhisperModel.from_state_dict(sd, dims, "cpu")
+    rng = np.random.default_rng(7)
+    t = np.arange(65 * 16000) / 16000
+    pcm = (0.1 * np.sin(2 * np.pi * 440 * t) * np.sin(2 * np.pi * 0.7 * t)
+           + rng.standard_normal(t.size) * 0.05).astype(np.float32)
+    kw = dict(language="en", temperature=0.0, compression_ratio_threshold=None,
+              logprob_threshold=None, no_speech_threshold=None, fp16=False,
+              sample_len=32, word_timestamps=True, batch_windows=batch_windows)
+    ours, ref = transcribe(card, pcm, **kw), transcribe(cpu, pcm, **kw)
+    assert ours["text"] == ref["text"]
+    assert len(ours["segments"]) == len(ref["segments"]) >= 3
+    ours_t, ref_t = [], []
+    for a, b in zip(ours["segments"], ref["segments"]):
+        assert (a["seek"], a["tokens"], a["text"]) == (b["seek"], b["tokens"], b["text"])
+        assert [w["word"] for w in a["words"]] == [w["word"] for w in b["words"]]
+        ours_t += [[w["start"], w["end"]] for w in a["words"]]
+        ref_t += [[w["start"], w["end"]] for w in b["words"]]
+    if ours_t:
+        diff = np.abs(np.array(ours_t) - np.array(ref_t))
+        assert np.median(diff) <= 0.02 and np.mean(diff <= 0.04) >= 0.7, diff
+
+
 def test_wrappers_raise_on_unsupported_input(model):
     x = _x(model, 5, torch.float32)
     blk, H = model.module.encoder.blocks[0], model.dims.n_audio_head

@@ -1,9 +1,10 @@
 """Every file the port opens by path under its package ships with it.
 
-The port reads its tokenizer's rank tables (``tokenizer/bpe.py``) and
-compiles its CUDA sources (``_kernels.py``) from files beside its modules,
-so each must match a ``[tool.setuptools.package-data]`` glob of
-``pyproject.toml``, or an installed port has no tokenizer or no kernels.
+The port reads its tokenizer's rank tables (``tokenizer/bpe.py``),
+compiles its CUDA sources (``_kernels.py``) and its native audio decoders
+(``_native.py``) from files beside its modules, so each must match a
+``[tool.setuptools.package-data]`` glob of ``pyproject.toml``, or an
+installed port has no tokenizer, no kernels or no file decoders.
 """
 
 import fnmatch
@@ -13,12 +14,13 @@ import tomllib
 
 import pytest
 
-from qasr_ijcnlp_tpu_torch import _kernels
+from qasr_ijcnlp_tpu_torch import _kernels, _native
 from qasr_ijcnlp_tpu_torch.tokenizer import bpe
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = os.path.join(ROOT, "qasr_ijcnlp_tpu_torch")
-OPENED = sorted(glob.glob(os.path.join(bpe.ASSETS_DIR, "*.tiktoken"))) + _kernels._sources()
+OPENED = (sorted(glob.glob(os.path.join(bpe.ASSETS_DIR, "*.tiktoken"))) + _kernels._sources()
+          + _native.sources())
 
 
 def package_data():
@@ -42,11 +44,12 @@ def shipped(path, data):
 
 
 def test_every_opened_file_is_listed():
-    """Both rank tables, and every kernel source with the headers it
-    includes."""
+    """Both rank tables, every kernel source with the headers it includes,
+    and the native audio sources."""
     names = {os.path.basename(p) for p in OPENED}
     assert {"gpt2.tiktoken", "multilingual.tiktoken", "flash.cu", "attention_tc.cuh",
-            "common.cuh", "gemm_tc.cuh", "hopper.cuh"} <= names
+            "common.cuh", "gemm_tc.cuh", "hopper.cuh", "wavio.cpp", "flac.cpp",
+            "resample.cpp"} <= names
 
 
 @pytest.mark.parametrize("path", OPENED, ids=lambda p: os.path.relpath(p, PACKAGE))

@@ -12,6 +12,7 @@ import os
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from qasr_ijcnlp_tpu.models import whisper as jmodel
@@ -28,6 +29,48 @@ DIMS = ModelDimensions(
     n_text_head=2, n_text_layer=2,
 )
 T_PAD = 512
+
+# The long-form tests' geometry: transcribe's windows are 3000 frames, so
+# n_audio_ctx is 1500; otherwise as DIMS, with a 96-token text context
+# (prompts up to 47 tokens).
+LF_DIMS = ModelDimensions(
+    n_mels=80, n_audio_ctx=1500, n_audio_state=128, n_audio_head=2,
+    n_audio_layer=2, n_vocab=51865, n_text_ctx=96, n_text_state=128,
+    n_text_head=2, n_text_layer=2,
+)
+
+
+def lf_models(seed: int = 0):
+    """(JAX WhisperModel, the port's CPU WhisperModel) at LF_DIMS, one
+    weight set."""
+    import jax.numpy as jnp
+
+    from qasr_ijcnlp_tpu.models.registry import WhisperModel as JModel
+
+    params = jax.tree.map(np.asarray, jmodel.init_params(jax.random.PRNGKey(seed), LF_DIMS))
+    jm = JModel(jax.tree.map(jnp.asarray, params), LF_DIMS)
+    tm = WhisperModel.from_state_dict(from_jax_params(params, LF_DIMS), LF_DIMS, "cpu")
+    return jm, tm
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The long-form test modules run torch on one thread: their models are
+    narrow, and idle OpenMP threads spinning beside the JAX compiles of
+    the other pytest workers slow the whole run many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def speechlike_pcm(seconds: float, seed: int = 5) -> np.ndarray:
+    """Seeded 16 kHz PCM: an amplitude-modulated tone under noise."""
+    rng = np.random.default_rng(seed)
+    n = int(seconds * 16000)
+    t = np.arange(n) / 16000
+    tone = 0.1 * np.sin(2 * np.pi * 440 * t) * np.sin(2 * np.pi * 0.7 * t)
+    return (tone + rng.standard_normal(n) * 0.05).astype(np.float32)
 
 
 def jax_params(seed: int = 0):
