@@ -8,6 +8,7 @@
     python3 chip_smoke.py --attn            # K4, K7, K8 alone, with output digests
     python3 chip_smoke.py --diag            # K11 and K12 alone (the diagnostics)
     python3 chip_smoke.py --longform        # the long-form paths alone (tiny, large-v3)
+    python3 chip_smoke.py --services        # the decode services alone (engine, speculative, HTTP)
 
 Drives the port's request path (qasr_ijcnlp_tpu_torch) at the full width of
 three Whisper sizes and of two head geometries at small's width, with random
@@ -116,7 +117,26 @@ and the opt-in fused step) and its grouped decodes (beam search, best-of):
    the CPU), teacher-forced on the card's tokens: at every step the card's
    token must be the CPU's argmax or within a stated tie of its top logit;
    the smallest top-2 margin is printed;
-10. prints the long-form stages as one JSON line, the whole script's
+10. the decode services, each at full width and depth with exact launch
+   counts from the run's own admissions, steps and rounds, and every
+   result against the port's own decode of the same request on the card
+   (equal f32 tokens, or the CPU teacher-forced check where a request
+   differs): large-v3 behind a ``DecodeEngine`` of 8 slots (unroll 4, the
+   audio front end: K1 and K8 at each admission), 12 requests from threads
+   in two waves, in f32, f32 ``kv_int8`` (K9 in every step) and bf16, with
+   per-request latency and the stage split (CUDA events); medium
+   as the speculative target of a tiny draft (B=8, gamma 4, f32; and on
+   the int8 cross cache, K9 over the 5-row verify slab), tiny with itself
+   as draft and with prompt lookup (rounds, tokens per round, draft and
+   verify device time beside plain greedy); tiny behind a beam pool (beam
+   5, 4 groups, 6 requests); ``serving.serve`` at tiny on 127.0.0.1 (4
+   requests on the engine route, 2 on a micro-batch server, a 40-s
+   long-form request through the long-form pool, an online session in 1-s
+   chunks through the session pool, ``/metrics``; the routes counted
+   alone, before any direct call); and, for large-v3 and tiny, the greedy
+   loop's body timed with the position as a host int and as a per-row
+   tensor;
+11. prints the long-form and service stages as JSON lines, the whole script's
    seconds, the per-kernel JSON line (every ported kernel with its
    launches, times, error and bound), the card line, then ``{"ok": true,
    "device": ...}`` as the last line.
@@ -132,8 +152,10 @@ import json
 import math
 import subprocess
 import sys
+import threading
 import time
 from dataclasses import replace
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -1190,6 +1212,52 @@ def counters():
             "formulations": (step_formulations, "launches")}
 
 
+def zero_counters():
+    cs = counters()
+    for mod, attr in cs.values():
+        setattr(mod, attr, 0)
+    return cs
+
+
+def read_counters(cs):
+    torch.cuda.synchronize()
+    return {k: getattr(mod, attr) for k, (mod, attr) in cs.items()}
+
+
+def expect_launches(label, launches, expect):
+    """``expect`` maps a counter to an exact count, or None for "at least 1";
+    counters it leaves out must read 0."""
+    log(f"main-path launches ({label}):", json.dumps(launches))
+    for k, got in launches.items():
+        want = expect.get(k, 0)
+        if (want is None and got == 0) or (want is not None and got != want):
+            raise AssertionError(f"{label}: {k} launched {got} times, expected "
+                                 f"{'at least 1' if want is None else want}")
+
+
+def encoder_expect(dims, passes):
+    """The encoder's launches for ``passes`` encoder calls of ``dims``: the
+    stem once a call, then per layer the fused block (K4 + finish) or K8 /
+    K7 (``_trunk_uses_fused_blocks``, ``packed_applicable``)."""
+    from qasr_ijcnlp_tpu_torch.models.whisper import _trunk_uses_fused_blocks
+    from qasr_ijcnlp_tpu_torch.ops.flash import packed_applicable
+
+    n = dims.n_audio_layer * passes
+    if _trunk_uses_fused_blocks(dims):
+        return {"stem": passes, "attn": n, "finish": n}
+    return {"stem": passes, ("packed" if packed_applicable(dims.n_audio_head,
+                                                           dims.n_audio_state)
+                             else "flash4d"): n}
+
+
+def add_expect(*dicts):
+    out = {}
+    for d in dicts:
+        for k, v in d.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
 # Launches a batch must show: None is "at least once", a number exact.  The
 # fused trunk (tiny to medium, small-h128) never runs K8 or K7; large-v3's
 # unfused trunk runs K8 once per layer and never the fused block; small-h96's
@@ -1228,20 +1296,11 @@ def fused_step_expect(dims):
 def counted_run(port, model, pcm, expect, label, kv_int8=False, extra=None, generator=None):
     """One f32 batch with every launch counter set to 0 just before it;
     ``expect`` maps a counter to an exact count, or None for "at least 1"."""
-    cs = counters()
-    for mod, attr in cs.values():
-        setattr(mod, attr, 0)
+    cs = zero_counters()
     res = run_requests(port, model, pcm, fp16=False, kv_int8=kv_int8, extra=extra,
                        generator=generator)
-    torch.cuda.synchronize()
-    launches = {k: getattr(mod, attr) for k, (mod, attr) in cs.items()}
-    log(f"main-path launches ({label}, f32, {pcm.shape[0]} requests):",
-        json.dumps(launches))
-    for k, want in expect.items():
-        got = launches[k]
-        if (want is None and got == 0) or (want is not None and got != want):
-            raise AssertionError(f"{label}: {k} launched {got} times, expected "
-                                 f"{'at least 1' if want is None else want}")
+    launches = read_counters(cs)
+    expect_launches(f"{label}, f32, {pcm.shape[0]} requests", launches, expect)
     return res, launches
 
 
@@ -1497,11 +1556,12 @@ def tiny_beam_paths(port, gpu, cpu, pcm, smi):
 
 
 def family_path(port, dims_name, dims, dev, smi, expect, kernel_phase, int8=False,
-                beam=False, longform=False):
+                beam=False, longform=False, services=None):
     """Kernel phases and end to end for one size; with ``int8`` the same
     batch runs again with the int8 cross cache, with ``beam`` with beam
     search (fp and int8), with ``longform`` the sequential long-form path
-    (``large_longform``)."""
+    (``large_longform``), then ``services`` (a service phase on the same
+    models: ``engine_phase``, ``medium_services``)."""
     from qasr_ijcnlp_tpu_torch.models.whisper import init_params
 
     t0 = time.perf_counter()
@@ -1532,6 +1592,8 @@ def family_path(port, dims_name, dims, dev, smi, expect, kernel_phase, int8=Fals
         paths.update(beam_path(port, gpu, cpu, pcm, xa, smi, dims_name, expect))
     if longform:
         paths.update(large_longform(port, gpu, cpu, smi, dims_name))
+    if services is not None:
+        paths.update(services(port, gpu, cpu, smi, dims_name))
     del gpu, cpu, sd, res32, res16
     gc.collect()
     torch.cuda.empty_cache()
@@ -1737,20 +1799,10 @@ class LongformProbe:
 
 
 def longform_expect(dims, passes):
-    """Launches of a long-form run: K1 once for the file; the stem once per
-    encoder pass (window batch or re-encode) and each trunk kernel once per
-    layer per pass (K4 and the finish where the trunk fuses, K8 at
-    large-v3); no decode-loop kernel (fp cache, unfused step)."""
-    from qasr_ijcnlp_tpu_torch.models.whisper import _trunk_uses_fused_blocks
-
-    L = dims.n_audio_layer
-    expect = {k: 0 for k in FUSED_EXPECT}
-    expect.update(mel=1, stem=passes)
-    if _trunk_uses_fused_blocks(dims):
-        expect.update(attn=L * passes, finish=L * passes)
-    else:
-        expect.update(packed=L * passes)
-    return expect
+    """Launches of a long-form run: K1 once for the file and the encoder's
+    (``encoder_expect``) for each encoder pass (window batch or re-encode);
+    no decode-loop kernel (fp cache, unfused step)."""
+    return add_expect({"mel": 1}, encoder_expect(dims, passes))
 
 
 def counted_longform(model, pcm, fp16, label, smi, **kw):
@@ -1758,19 +1810,12 @@ def counted_longform(model, pcm, fp16, label, smi, **kw):
     before it; the counts must equal ``longform_expect`` of the run's own
     encoder passes.  Keeps the run's stages in LONGFORM_STAGES; returns
     (transcript, probe, launches)."""
-    cs = counters()
-    for mod, attr in cs.values():
-        setattr(mod, attr, 0)
+    cs = zero_counters()
     probe = LongformProbe(model)
     out = probe.run(pcm, fp16=fp16, **LONGFORM, **kw)
-    torch.cuda.synchronize()
-    launches = {k: getattr(mod, attr) for k, (mod, attr) in cs.items()}
-    log(f"main-path launches ({label}, {probe.encoder_passes()} encoder passes):",
-        json.dumps(launches))
-    expect = longform_expect(model.dims, probe.encoder_passes())
-    for k, want in expect.items():
-        if launches[k] != want:
-            raise AssertionError(f"{label}: {k} launched {launches[k]} times, expected {want}")
+    launches = read_counters(cs)
+    expect_launches(f"{label}, {probe.encoder_passes()} encoder passes", launches,
+                    longform_expect(model.dims, probe.encoder_passes()))
     check_transcript(out, probe, model.dims, label)
     LONGFORM_STAGES[label] = probe.log_stages(label, pcm.shape[-1], smi)
     return out, probe, launches
@@ -1985,6 +2030,591 @@ def longform_run(port, dev, smi):
         gc.collect()
         torch.cuda.empty_cache()
     log(json.dumps({**out, "longform_stages": LONGFORM_STAGES}))
+    log(smi)
+
+
+# -- the decode services: engine, speculative decode, serving ---------------------------
+
+# Stages of every service phase (host clock, per phase), printed as one JSON line.
+SERVICE_STAGES = {}
+# Engine phases: a pool of 8 slots stepped 4 tokens a call, 12 requests in two
+# waves (the second sent once the pool has stepped twice, so it is admitted
+# while the first wave is mid-decode).
+ENGINE_SLOTS, ENGINE_UNROLL, ENGINE_REQUESTS = 8, 4, 12
+SPEC_GAMMA = 4
+
+
+def wire(pcm):
+    """Each clip as the engine and the server carry it: 30 s of int16
+    against its own peak, and the float32 audio it stands for."""
+    from qasr_ijcnlp_tpu_torch.audio import wire_pcm16
+
+    q, s = zip(*(wire_pcm16(a) for a in pcm))
+    q, s = np.stack(q), np.asarray(s, np.float32)
+    return q, q.astype(np.float32) * s[:, None]
+
+
+def submit_waves(engine, items, waves):
+    """Each item submitted from its own thread, wave after wave (a later
+    wave once the pool has stepped twice more); (results, seconds from
+    submit to result per request, wall seconds)."""
+    n = len(items)
+    out, lat, errors = [None] * n, [0.0] * n, []
+
+    def go(i):
+        t0 = time.perf_counter()
+        try:
+            out[i] = engine.submit(items[i], timeout=600)
+        except Exception as e:  # noqa: BLE001 -- any request error fails the phase
+            errors.append(f"request {i}: {type(e).__name__}: {e}")
+        lat[i] = time.perf_counter() - t0
+
+    threads = []
+    t0 = time.perf_counter()
+    for w, wave in enumerate(waves):
+        if w:
+            start = engine.step_calls
+            while engine.step_calls < start + 2 and time.perf_counter() - t0 < 600:
+                time.sleep(0.002)
+        for i in wave:
+            threads.append(threading.Thread(target=go, args=(i,)))
+            threads[-1].start()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t0
+    if errors or any(o is None for o in out):
+        raise AssertionError(f"engine requests failed: {errors}")
+    return out, lat, wall
+
+
+def check_against(port, label, got, ref, cpu, wire_f32, kv_int8, i_feats):
+    """f32 results of a service against the port's own decode of the same
+    request on the card: equal tokens, or, where a request differs, its
+    tokens pass the CPU teacher-forced check (the CPU's argmax within a tie:
+    1e-4 fp, 1e-2 int8) on the same wire audio."""
+    from qasr_ijcnlp_tpu_torch.models.whisper import init_kv_cache, precompute_cross_kv
+
+    dims = cpu.dims
+    differ = [i for i, (g, r) in enumerate(zip(got, ref)) if list(g) != list(r.tokens)]
+    for i in differ:
+        xa = cpu_features(port, cpu, wire_f32[i])
+        cache = None
+        if kv_int8:
+            with torch.inference_mode():
+                cache = precompute_cross_kv(cpu.module.decoder, xa,
+                                            init_kv_cache(dims, 1, device="cpu",
+                                                          cross_int8=True))
+        teacher_forced_check(port, cpu, xa, SimpleNamespace(tokens=list(got[i]),
+                                                            audio_features=i_feats(i)),
+                             f"{label} request {i}", INT8_TOKEN_TIE if kv_int8 else TOKEN_TIE,
+                             int8_cache=cache)
+    log(f"{label}: f32 tokens equal to the port's decode on the card in "
+        f"{len(got) - len(differ)} of {len(got)} requests"
+        + (f" (requests {differ} pass the CPU teacher-forced check)" if differ else ""))
+
+
+def latency_line(lat):
+    lat = sorted(lat)
+    return {"p50_s": lat[len(lat) // 2], "max_s": lat[-1], "mean_s": sum(lat) / len(lat)}
+
+
+def engine_phase(port, gpu, cpu, smi, name):
+    """``name``'s model behind a ``DecodeEngine`` of 8 slots (unroll 4) with
+    the audio front end (K1 at admission), 12 requests in two waves, in f32
+    fp, f32 ``kv_int8`` (K9 every step) and bf16 fp: exact launch counts from
+    the run's own admissions and steps, f32 results against the port's
+    decode of the same wire audio on the card (``check_against``), bf16
+    agreement, per-request latency, and the engine's stage split
+    (admission, steps, retirement: ``DecodeEngine.stage_seconds``, the
+    device stream's span of each stage by CUDA events); then the loop's two
+    position forms timed (``loop_forms_ab``)."""
+    from qasr_ijcnlp_tpu_torch.decode.engine import DecodeEngine
+
+    dims = gpu.dims
+    pcm = synthetic_pcm(ENGINE_REQUESTS, SEED + 31)
+    q, wire_f32 = wire(pcm)
+    waves = [list(range(6)), list(range(6, ENGINE_REQUESTS))]
+    with torch.inference_mode():
+        mels = port.log_mel_spectrogram(torch.from_numpy(wire_f32).to(gpu.device),
+                                        dims.n_mels, device=None)
+    paths, stages = {}, {}
+    for fp16, kv_int8 in ((False, False), (False, True), (True, False)):
+        label = f"engine {name} {'bf16' if fp16 else 'f32'}{' int8' if kv_int8 else ''}"
+        opts = options(port, fp16, kv_int8)
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            ref = port.decode(gpu, mels, opts)
+            torch.cuda.synchronize()
+            batch_s = time.perf_counter() - t0
+        engine = DecodeEngine(gpu, opts, slots=ENGINE_SLOTS, unroll=ENGINE_UNROLL,
+                              audio_frontend=True)
+        try:
+            cs = zero_counters()
+            out, lat, wall = submit_waves(engine, list(pcm), waves)
+            launches = read_counters(cs)
+        finally:
+            engine.close()
+        A, S = engine.admit_calls, engine.step_calls
+        expect = add_expect({"mel": A}, encoder_expect(dims, A))
+        if kv_int8:
+            expect["int8"] = dims.n_text_layer * (ENGINE_UNROLL * S + A)
+        expect_launches(f"{label}, {ENGINE_REQUESTS} requests, {A} admissions, {S} steps",
+                        launches, expect)
+        for o in out:
+            if len(o["tokens"]) != BENCH_OPTIONS["sample_len"] or \
+                    not np.isfinite(o["avg_logprob"]):
+                raise AssertionError(f"{label}: bad result {o}")
+        if fp16:
+            same = sum(a == b for o, r in zip(out, ref) for a, b in zip(o["tokens"], r.tokens))
+            log(f"{label}: token agreement with the bf16 decode {same}/"
+                f"{ENGINE_REQUESTS * BENCH_OPTIONS['sample_len']}")
+        else:
+            check_against(port, label, [o["tokens"] for o in out], ref, cpu, wire_f32,
+                          kv_int8, lambda i: ref[i].audio_features)
+            paths[label] = launches
+        stages[label] = {"requests": ENGINE_REQUESTS, "admissions": A, "steps": S,
+                         "wall_s": wall, "batch_decode_s": batch_s,
+                         "latency": latency_line(lat),
+                         "stage_s": engine.stage_seconds}
+        log(f"{label}: {ENGINE_REQUESTS} requests in {wall:.3f} s ({A} admissions, {S} steps "
+            f"of {ENGINE_UNROLL}); latency {json.dumps(stages[label]['latency'])}; stages "
+            f"(device spans) {json.dumps(stages[label]['stage_s'])}; the same 12 as one "
+            f"decode batch {batch_s:.3f} s ({smi})")
+    SERVICE_STAGES.update(stages)
+    loop_forms_ab(port, gpu, smi, f"loop forms {name}")
+    return paths
+
+
+def speculative_phase(port, target, cpu, draft, smi, label, kv_int8=False):
+    """Speculative greedy decode of 8 requests (f32, gamma 4) with ``draft``
+    (a model, or None for prompt lookup): exact launch counts (both
+    encoders; K9 once per layer in the prompt pass and each verify round on
+    an int8 target), tokens equal to plain greedy's on the card (or, where
+    a request differs, the CPU teacher-forced check), the rounds and tokens
+    per round (acceptance), the CUDA-event split of the rounds into draft
+    and verify, and wall time beside plain greedy's."""
+    from qasr_ijcnlp_tpu_torch.decode import DecodingTask, Draft
+
+    dims = target.dims
+    pcm = synthetic_pcm(B_KERNEL, SEED + 41)
+    # One task, whose last_spec_rounds the run leaves behind (the bench
+    # options' list of suppressed tokens keeps decode() from caching it).
+    task = DecodingTask(target, options(port, False, kv_int8, {"draft": Draft(draft,
+                                                                            SPEC_GAMMA)}))
+
+    def spec_run(events=None):
+        return task.run(port.log_mel_spectrogram(pcm, n_mels=dims.n_mels,
+                                                 device=target.device), spec_events=events)
+
+    with torch.inference_mode():
+        plain = run_requests(port, target, pcm, False, kv_int8)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = run_requests(port, target, pcm, False, kv_int8)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        spec_run()  # warm
+        events = []
+        cs = zero_counters()
+        t0 = time.perf_counter()
+        res = spec_run(events)
+        launches = read_counters(cs)
+        spec_s = time.perf_counter() - t0
+    rounds = task.last_spec_rounds
+    expect = add_expect({"mel": 1}, encoder_expect(dims, 1),
+                        encoder_expect(draft.dims, 1) if draft is not None else {})
+    if kv_int8:
+        expect["int8"] = dims.n_text_layer * (1 + rounds)
+    expect_launches(f"{label}, {B_KERNEL} requests, {rounds} rounds", launches, expect)
+    check_results(res, B_KERNEL, dims)
+    check_against(port, label, [r.tokens for r in res], plain, cpu, pcm, kv_int8,
+                  lambda i: res[i].audio_features)
+    per_round = (np.mean([len(r.tokens) for r in res]) - 1) / rounds
+    draft_ms = sum(a.elapsed_time(b) for a, b, _ in events)
+    verify_ms = sum(b.elapsed_time(c) for _, b, c in events)
+    SERVICE_STAGES[label] = {"rounds": rounds, "tokens_per_round": per_round,
+                             "gamma": SPEC_GAMMA, "requests": B_KERNEL,
+                             "draft_ms": draft_ms, "verify_ms": verify_ms,
+                             "spec_s": spec_s, "plain_greedy_s": plain_s}
+    log(f"{label}: {rounds} rounds, {per_round:.3f} tokens committed per row per round "
+        f"(gamma {SPEC_GAMMA}; the first token comes from the prompt pass); rounds' device "
+        f"time: draft {draft_ms:.1f} ms, verify {verify_ms:.1f} ms; wall {spec_s:.3f} s vs "
+        f"plain greedy {plain_s:.3f} s ({smi})")
+    return {label: launches}
+
+
+def loop_forms_ab(port, gpu, smi, label):
+    """The greedy loop's body (filters, argmax, one decoder step) over the
+    bench options' sample_len steps of B_KERNEL rows in f32, with the write
+    position and the filters' token count as a host int (the batch loop's
+    form: a slice write, one shared causal mask, scalar filter clauses) and
+    as a uniform (B,) tensor (the per-row form of the engine and of
+    speculative decode: a scatter, a per-row mask, per-row clauses).  Timed
+    int, tensor, tensor, int in one run, each after a prompt pass and a
+    synchronize; the forms' tokens must agree (uniform offsets are the
+    scalar path)."""
+    from qasr_ijcnlp_tpu_torch.decode import DecodingTask
+    from qasr_ijcnlp_tpu_torch.decode.filters import apply_filters
+    from qasr_ijcnlp_tpu_torch.decode.loop import _prompt_pass
+    from qasr_ijcnlp_tpu_torch.models.whisper import decoder_step, encoder_apply
+
+    task = DecodingTask(gpu, options(port, False))
+    cfg, dims, dev, B = task.loop_cfg, gpu.dims, gpu.device, B_KERNEL
+    decoder = gpu.decoder_for(cfg.compute_dtype)
+    steps = cfg.sample_len - 1
+    with torch.inference_mode():
+        mels = port.log_mel_spectrogram(synthetic_pcm(B, SEED + 91), dims.n_mels, device=dev)
+        xa = encoder_apply(gpu.module.encoder, mels, dims, cfg.compute_dtype)
+        init = torch.tensor(task.initial_tokens, device=dev).repeat(B, 1)
+
+        def run(per_row):
+            cache, logits, _ = _prompt_pass(decoder, cfg, xa, init)
+            last = prev = torch.full((B,), -1, dtype=torch.long, device=dev)
+            max_ts = torch.zeros(B, dtype=torch.long, device=dev)
+            toks = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(steps):
+                at = cfg.sample_begin + i
+                cur = torch.full((B,), at, device=dev) if per_row else at
+                tok = apply_filters(cfg.filters, logits, cur, last, prev, max_ts).argmax(-1)
+                toks.append(tok)
+                prev, last = last, tok
+                max_ts = torch.where(tok >= cfg.timestamp_begin, torch.maximum(max_ts, tok),
+                                     max_ts)
+                off = torch.full((B,), at, device=dev) if per_row else None
+                step_logits, cache = decoder_step(decoder, tok[:, None], cache, dims,
+                                                  cfg.compute_dtype, offsets=off)
+                logits = step_logits[:, 0]
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1000 / steps, torch.stack(toks, 1)
+
+        run(False), run(True)  # warm
+        ms = {"int": [], "tensor": []}
+        toks = {}
+        for per_row in (False, True, True, False):
+            t, toks[per_row] = run(per_row)
+            ms["tensor" if per_row else "int"].append(t)
+    same = int((toks[True] == toks[False]).sum())
+    if same != toks[True].numel():
+        raise AssertionError(f"{label}: the per-row form's tokens differ from the int form's "
+                             f"({same} of {toks[True].numel()} equal)")
+    mean = {k: sum(v) / len(v) for k, v in ms.items()}
+    SERVICE_STAGES[label] = {"rows": B, "steps": steps, "ms_per_step": ms,
+                             "tensor_over_int": mean["tensor"] / mean["int"]}
+    log(f"{label}: ms a step, int {ms['int']} / per-row tensor {ms['tensor']} (order int, "
+        f"tensor, tensor, int); tensor / int {mean['tensor'] / mean['int']:.3f}; tokens "
+        f"equal ({smi})")
+
+
+def medium_services(port, gpu, cpu, smi, name):
+    """medium as the speculative target of a tiny draft, fp and int8."""
+    from qasr_ijcnlp_tpu_torch.models.dims import tiny_dims
+    from qasr_ijcnlp_tpu_torch.models.whisper import init_params
+
+    tiny = port.WhisperModel.from_state_dict(
+        init_params(torch.Generator().manual_seed(SEED + 1), tiny_dims()), tiny_dims(),
+        gpu.device, name="tiny draft (random)")
+    paths = speculative_phase(port, gpu, cpu, tiny, smi, f"speculative {name} <- tiny")
+    paths.update(speculative_phase(port, gpu, cpu, tiny, smi,
+                                   f"speculative {name} int8 <- tiny", kv_int8=True))
+    return paths
+
+
+def beam_pool_phase(port, gpu, cpu, smi):
+    """tiny behind a beam pool (beam 5, 4 groups, unroll 4, audio front end),
+    6 requests in two waves: exact launch counts, each result equal to the
+    port's beam decode of the same wire audio on the card (or a near tie of
+    the CPU's beam, ``beam_check``), latency and stages."""
+    from qasr_ijcnlp_tpu_torch.decode.engine import DecodeEngine
+
+    dims, label = gpu.dims, "engine tiny beam 5"
+    pcm = synthetic_pcm(6, SEED + 51)
+    _, wire_f32 = wire(pcm)
+    opts = options(port, False, extra=BEAM)
+    with torch.inference_mode():
+        mels = port.log_mel_spectrogram(torch.from_numpy(wire_f32).to(gpu.device),
+                                        dims.n_mels, device=None)
+        ref = port.decode(gpu, mels, opts)
+    engine = DecodeEngine(gpu, opts, slots=4, unroll=ENGINE_UNROLL, audio_frontend=True)
+    try:
+        cs = zero_counters()
+        out, lat, wall = submit_waves(engine, list(pcm), [[0, 1, 2], [3, 4, 5]])
+        launches = read_counters(cs)
+    finally:
+        engine.close()
+    A, S = engine.admit_calls, engine.step_calls
+    expect_launches(f"{label}, 6 requests, {A} admissions, {S} steps", launches,
+                    add_expect({"mel": A}, encoder_expect(dims, A)))
+    differ = 0
+    for i, (o, r) in enumerate(zip(out, ref)):
+        if o["tokens"] != r.tokens:
+            differ += 1
+            xa = cpu_features(port, cpu, wire_f32[i])
+            with torch.inference_mode():
+                cpu_ref = port.decode(cpu, xa, opts)[0]
+            beam_check(port, cpu, xa, SimpleNamespace(tokens=o["tokens"]), cpu_ref,
+                       f"{label} request {i}", TOKEN_TIE)
+    log(f"{label}: tokens equal to the port's beam decode on the card in {6 - differ} of 6")
+    SERVICE_STAGES[label] = {"requests": 6, "admissions": A, "steps": S, "wall_s": wall,
+                             "latency": latency_line(lat),
+                             "stage_s": engine.stage_seconds}
+    log(f"{label}: {json.dumps(SERVICE_STAGES[label])} ({smi})")
+    return {label: launches}
+
+
+def http(port_, path, data=b"", ctype="application/json"):
+    """POST to the server at ``port_``: (the JSON answer, an error answer
+    included, seconds)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port_}{path}", data=data,
+                                 headers={"Content-Type": ctype})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            body = r.read()
+    except urllib.error.HTTPError as e:  # 400 / 404 carry {"error": ...}
+        body = e.read()
+    return json.loads(body), time.perf_counter() - t0
+
+
+def wav_bytes(pcm16):
+    import io
+    import wave
+
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes(pcm16.tobytes())
+    return buf.getvalue()
+
+
+def server_metric(tr, name):
+    """A counter of a server's ``/metrics`` registry (0 when absent)."""
+    for line in tr.metrics.render().splitlines():
+        key, _, value = line.rpartition(" ")
+        if key == f"qasr_{name}":
+            return float(value)
+    return 0.0
+
+
+def serve_phase(port, gpu, cpu, smi):
+    """``serving.serve`` at tiny on 127.0.0.1, ephemeral ports: 4 concurrent
+    short requests on the engine route, 2 on the micro-batch route of a
+    second server without an engine, one 40-s request on the long-form
+    route of the engine server (its long-form pool), one online session fed
+    1-s chunks then ended (the session pool), and ``/metrics``.
+
+    The routes run alone between zeroing the counters and reading them,
+    and the counts must equal what the routes' own work launches: K1 once
+    for each micro-batch, each admission of the two audio-input pools and
+    the long-form file; the encoder once for each micro-batch, each
+    admission of the three pools and each long-form window decoded outside
+    the pool (a prompted window or a sampling rung of the temperature
+    ladder).  The package's warnings are errors throughout, so a window
+    that leaves its pool for the plain path fails the phase.  Then every
+    answer against the direct call: the port's decode of the same wire
+    audio (teacher-forced on the CPU where tokens differ), ``transcribe``
+    on the server's long-form pool from the same seed, and a
+    ``StreamingTranscriber`` on the session pool fed the same chunks."""
+    import urllib.request
+    import warnings
+
+    from qasr_ijcnlp_tpu_torch import serving
+    from qasr_ijcnlp_tpu_torch.streaming import StreamingTranscriber
+
+    label = "serve tiny"
+    opts = port.DecodingOptions(language="en", without_timestamps=True, sample_len=32,
+                                fp16=False)
+    clips = [speechlike_pcm(int(s * 16000), SEED + 60 + i)
+             for i, s in enumerate((4.0, 9.5, 2.5, 14.0, 6.0, 11.0))]
+    q, wire_f32 = wire(clips)
+    # long-form: 40 s as a WAV body, independent windows (each window's
+    # t = 0 rung in the pool), the temperature ladder drawing from torch's
+    # generator, seeded alike for the route and the direct call
+    long_query = {"condition_on_previous_text": ["0"]}
+    long_pcm = speechlike_pcm(40 * 16000, SEED + 70)
+    pcm16 = np.clip(long_pcm * 32768, -32768, 32767).astype(np.int16)
+    sess_pcm = speechlike_pcm(5 * 16000, SEED + 80)
+    chunks = [sess_pcm[i:i + 16000] for i in range(0, len(sess_pcm), 16000)]
+    plain_decodes = [0]
+    model_decode = gpu.decode
+
+    def counting_decode(*a, **k):  # a long-form window decoded outside the pool
+        plain_decodes[0] += 1
+        return model_decode(*a, **k)
+
+    srv_e, tr_e = serving.serve(gpu, port=0, batch_size=4, block=False, options=opts,
+                                engine_slots=4)
+    srv_p, tr_p = serving.serve(gpu, port=0, batch_size=2, block=False, options=opts)
+    pe, pp = srv_e.server_address[1], srv_p.server_address[1]
+    times, answers = {}, [None] * 6
+
+    def ask(i, p):
+        answers[i] = http(p, "/v1/transcribe", json.dumps(
+            {"audio": clips[i].tolist()}).encode())
+
+    gpu.decode = counting_decode
+    try:
+        with warnings.catch_warnings():
+            warnings.filterwarnings("error", module="qasr_ijcnlp_tpu_torch")
+            cs = zero_counters()
+            threads = [threading.Thread(target=ask, args=(i, pe if i < 4 else pp))
+                       for i in range(6)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            if any(a is None for a in answers):
+                raise AssertionError(f"{label}: a short request got no answer")
+            admitted_short = server_metric(tr_e, "engine_admitted_total")
+            torch.manual_seed(SEED)
+            got, times["long_form_request_s"] = http(
+                pe, "/v1/transcribe?condition_on_previous_text=0", wav_bytes(pcm16),
+                "audio/wav")
+            t0 = time.perf_counter()
+            sid = http(pe, "/v1/stream/sessions")[0]["id"]
+            feeds = [http(pe, f"/v1/stream/sessions/{sid}/audio",
+                          json.dumps({"audio": c.tolist()}).encode())[1] for c in chunks]
+            final, times["session_end_s"] = http(pe, f"/v1/stream/sessions/{sid}/end")
+            times["session_feed_s"] = feeds
+            times["session_total_s"] = time.perf_counter() - t0
+            launches = read_counters(cs)
+            route_decodes, plain_decodes[0] = plain_decodes[0], 0
+            for what, a in [(f"request {i}", a[0]) for i, a in enumerate(answers)] + \
+                    [("long-form", got), ("session", final)]:
+                if "error" in a:
+                    raise AssertionError(f"{label} {what}: {a['error']}")
+            # What each pool admitted, and the launches of the routes' work.
+            pools = {"engine": srv_e.engine, "session": srv_e.stream_engine,
+                     "long-form": srv_e.long_engine}
+            A = {k: e.admit_calls for k, e in pools.items()}
+            batches = server_metric(tr_p, "batches_total")
+            if admitted_short != 4 or server_metric(tr_p, "batched_requests_total") != 2:
+                raise AssertionError(f"{label}: the engine pool admitted {admitted_short} "
+                                     "of 4 requests, or the micro-batcher did not carry 2")
+            if A["long-form"] < 1 or A["session"] < 1 or \
+                    server_metric(tr_e, "engine_admitted_total") != 4 + A["long-form"]:
+                raise AssertionError(f"{label}: the long-form or session pool admitted "
+                                     f"nothing, or windows went past the pool ({A})")
+            passes = int(batches) + sum(A.values()) + route_decodes
+            expect_launches(
+                f"{label}: {int(batches)} micro-batches, pool admissions {json.dumps(A)}, "
+                f"{route_decodes} long-form windows outside the pool", launches,
+                add_expect({"mel": int(batches) + A["engine"] + A["session"] + 1},
+                           encoder_expect(gpu.dims, passes)))
+            with urllib.request.urlopen(f"http://127.0.0.1:{pe}/metrics", timeout=60) as r:
+                metrics = r.read().decode()
+            for needle in ('qasr_requests_total{route="transcribe_engine"} 4',
+                           'qasr_requests_total{route="transcribe_long"} 1',
+                           'qasr_requests_total{route="stream_session_end"} 1',
+                           "qasr_engine_admitted_total", "qasr_engine_retired_total"):
+                if needle not in metrics:
+                    raise AssertionError(f"{label}: /metrics lacks {needle!r}:\n{metrics}")
+
+            # The direct calls, after the count.
+            with torch.inference_mode():
+                mels = port.log_mel_spectrogram(torch.from_numpy(wire_f32).to(gpu.device),
+                                                gpu.dims.n_mels, device=None)
+                direct = port.decode(gpu, mels, opts)
+            for name, idx in (("engine", range(4)), ("micro-batch", range(4, 6))):
+                check_against(port, f"{label} {name} route",
+                              [answers[i][0]["tokens"] for i in idx],
+                              [direct[i] for i in idx], cpu, [wire_f32[i] for i in idx], False,
+                              lambda j, idx=list(idx): direct[idx[j]].audio_features)
+                for i in idx:
+                    if answers[i][0]["tokens"] == direct[i].tokens and \
+                            answers[i][0]["text"] != direct[i].text:
+                        raise AssertionError(f"{label} request {i}: text differs")
+                times[f"{name}_request_s"] = [answers[i][1] for i in idx]
+            lf_pool = pools["long-form"]
+            before = lf_pool.admit_calls
+            torch.manual_seed(SEED)
+            want = gpu.transcribe(pcm16, engine=lf_pool,
+                                  **serving._long_form_kwargs(opts, long_query))
+            direct_pool = lf_pool.admit_calls - before
+            if got["text"] != want["text"] or \
+                    (direct_pool, plain_decodes[0]) != (A["long-form"], route_decodes):
+                raise AssertionError(
+                    f"{label} long-form: text differs from the direct transcribe's, or the "
+                    f"windows split otherwise: pool {A['long-form']} / {direct_pool}, outside "
+                    f"{route_decodes} / {plain_decodes[0]}")
+            log(f"{label} long-form route: text equal to the direct transcribe on the same "
+                f"pool ({len(got['segments'])} segments; {A['long-form']} windows in the "
+                f"pool, {route_decodes} decodes outside it)")
+            s_pool = pools["session"]
+            before = s_pool.admit_calls
+            st = StreamingTranscriber(gpu, replace(opts, without_timestamps=False),
+                                      decode_fn=s_pool.submit)
+            for c in chunks:
+                st.feed(c)
+            want = st.end()
+            if final["text"] != want["text"] or s_pool.admit_calls - before != A["session"]:
+                raise AssertionError(f"{label} session: text differs from the direct "
+                                     f"StreamingTranscriber's, or it decoded "
+                                     f"{s_pool.admit_calls - before} windows, not "
+                                     f"{A['session']}")
+            log(f"{label} session: committed text equal to the direct StreamingTranscriber's "
+                f"on the same pool ({len(chunks)} chunks, {A['session']} window decodes, "
+                f"{len(final['text'])} characters)")
+    finally:
+        del gpu.decode
+        for srv in (srv_e, srv_p):
+            srv.shutdown()
+            srv.close_all()
+    SERVICE_STAGES[label] = times
+    log(f"{label}: {json.dumps(times)}; /metrics {len(metrics.splitlines())} lines ({smi})")
+    return {label: launches}
+
+
+def tiny_services(port, dev, smi):
+    """tiny: speculative decode with a self-draft (the target drafts for
+    itself: nearly every proposal is accepted) and with prompt lookup, the
+    beam pool, the HTTP server, and the loop's two position forms timed."""
+    from qasr_ijcnlp_tpu_torch.models.dims import tiny_dims
+    from qasr_ijcnlp_tpu_torch.models.whisper import init_params
+
+    dims = tiny_dims()
+    sd = init_params(torch.Generator().manual_seed(SEED), dims)
+    gpu = port.WhisperModel.from_state_dict(sd, dims, dev, name="tiny (random)")
+    cpu = port.WhisperModel.from_state_dict(sd, dims, "cpu", name="tiny (random)")
+    paths = speculative_phase(port, gpu, cpu, gpu, smi, "speculative tiny <- self")
+    paths.update(speculative_phase(port, gpu, cpu, None, smi, "speculative tiny lookup"))
+    paths.update(beam_pool_phase(port, gpu, cpu, smi))
+    paths.update(serve_phase(port, gpu, cpu, smi))
+    loop_forms_ab(port, gpu, smi, "loop forms tiny")
+    del gpu, cpu, sd
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths
+
+
+def services_run(port, dev, smi):
+    """``python3 chip_smoke.py --services``: the service phases alone, at full
+    width and depth (the large-v3 engine pools, medium and tiny speculative
+    decode, the tiny beam pool and server), with their launch counts and
+    checks as in the full run; the stages as one JSON line."""
+    from qasr_ijcnlp_tpu_torch.models.dims import dims_for
+    from qasr_ijcnlp_tpu_torch.models.whisper import init_params
+
+    t0 = time.perf_counter()
+    paths = {}
+    for name, hook in (("large-v3", engine_phase), ("medium", medium_services)):
+        dims = dims_for(name)
+        sd = init_params(torch.Generator().manual_seed(SEED), dims)
+        gpu = port.WhisperModel.from_state_dict(sd, dims, dev, name=f"{name} (random)")
+        cpu = port.WhisperModel.from_state_dict(sd, dims, "cpu", name=f"{name} (random)")
+        paths.update(hook(port, gpu, cpu, smi, name))
+        del gpu, cpu, sd
+        gc.collect()
+        torch.cuda.empty_cache()
+    paths.update(tiny_services(port, dev, smi))
+    log(json.dumps({"service_stages": SERVICE_STAGES, "service_launches": paths}))
+    log(f"services seconds: {time.perf_counter() - t0:.1f}")
     log(smi)
 
 
@@ -2325,21 +2955,24 @@ def main():
         run(port, dev, smi, stages=sys.argv[2:] == ["--stages"])
         return
     modes = {"--stem": stem_run, "--attn": attn_run, "--diag": diag_run,
-             "--longform": longform_run}
+             "--longform": longform_run, "--services": services_run}
     if len(sys.argv) == 2 and sys.argv[1] in modes:
         modes[sys.argv[1]](port, dev, smi)
         return
     if sys.argv[1:]:
-        raise SystemExit(f"usage: python3 chip_smoke.py [--stem | --attn | --diag | "
-                         f"--longform | --k9 | --k10 [--stages]]; got {sys.argv[1:]}")
+        print(f"usage: python3 chip_smoke.py [--stem | --attn | --diag | --longform | "
+              f"--services | --k9 | --k10 [--stages]]; got {sys.argv[1:]}", file=sys.stderr)
+        raise SystemExit(2)
 
     kres, by_path = tiny_path(port, tiny_dims(), dev, smi)
+    by_path.update(tiny_services(port, dev, smi))
     # == medium and large-v3, full width and depth ==================================
     medium, large = dims_for("medium"), dims_for("large-v3")
     mres, mpaths = family_path(port, "medium", medium, dev, smi, FUSED_EXPECT,
-                               medium_kernel_phase)
+                               medium_kernel_phase, services=medium_services)
     lres, lpaths = family_path(port, "large-v3", large, dev, smi, large_expect(large),
-                               large_kernel_phase, int8=True, beam=True, longform=True)
+                               large_kernel_phase, int8=True, beam=True, longform=True,
+                               services=engine_phase)
     # == small's width and depth with head geometries off the family ===============
     # 8 heads of 96 (the trunk runs K7) and 6 of 128 in encoder and decoder
     # (K4 and K9 at head width 128).
@@ -2357,6 +2990,7 @@ def main():
 
     kernels = kernel_table(kres, by_path)
     log(json.dumps({"longform_stages": LONGFORM_STAGES}))
+    log(json.dumps({"service_stages": SERVICE_STAGES}))
     log(f"total seconds: {time.perf_counter() - t_start:.1f}")
     log(json.dumps({"kernels": kernels}))
     log(smi)

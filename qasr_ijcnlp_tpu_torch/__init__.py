@@ -5,8 +5,11 @@ text) for every family size, tiny to large-v3, in PyTorch, with the int8
 cross cache (``kv_int8``) and the opt-in fused decoder step; long-form
 transcription with word timings (``model.transcribe``, the
 :mod:`.transcribe` module, ``python -m qasr_ijcnlp_tpu_torch.cli.
-transcribe``), audio files and local checkpoints; and the JAX package's TPU
-kernels rewritten by hand for Hopper (``csrc/``).  The package imports
+transcribe``), audio files and local checkpoints; the decode services
+(speculative decoding with ``Draft``, the continuous-batching
+``decode.engine.DecodeEngine``, the HTTP server ``serving`` and online
+sessions ``streaming``); and the JAX package's TPU kernels rewritten by
+hand for Hopper (``csrc/``).  The package imports
 torch and numpy and never JAX or the JAX package, which stays beside it as
 the reference.
 """
@@ -25,7 +28,9 @@ from .audio import (  # noqa: F401
     mel_filters,
     pad_or_trim,
 )
-from .decode import DecodingOptions, DecodingResult, decode, detect_language  # noqa: F401
+from .decode import (  # noqa: F401
+    DecodingOptions, DecodingResult, Draft, decode, detect_language,
+)
 from .models.registry import (  # noqa: F401
     WhisperModel,
     available_models,

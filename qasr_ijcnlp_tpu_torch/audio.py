@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import functools
 import subprocess
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -289,3 +289,21 @@ def log_mel_spectrogram(
     lead = audio.shape[:-1]
     out = fused_log_mel_batched(audio.reshape(-1, audio.shape[-1]), n_mels, padding)
     return out.reshape(*lead, *out.shape[1:])
+
+
+def wire_pcm16(audio) -> Tuple[np.ndarray, float]:
+    """A clip as the engine and the server carry it to the device: padded or
+    trimmed to 30 s and quantized to int16 against its own peak (float32 in
+    [-1, 1], or int16 PCM), with the factor back (float = int16 * scale)."""
+    audio = np.asarray(audio)
+    if audio.dtype == np.int16:
+        audio = audio.astype(np.float32) / 32768.0
+    audio = pad_or_trim(np.asarray(audio, np.float32))
+    peak = float(max(np.max(np.abs(audio)), 1e-9))
+    return (audio * (32767.0 / peak)).astype(np.int16), peak / 32767.0
+
+
+def wire_log_mel(pcm16: torch.Tensor, scales: torch.Tensor, n_mels: int = 80) -> torch.Tensor:
+    """(B, n_mels, 3000) log-mel of int16 clips (B, 480000) times their
+    scales (B,), on their device: K1 on the card."""
+    return log_mel_spectrogram(pcm16.float() * scales[:, None], n_mels, device=None)

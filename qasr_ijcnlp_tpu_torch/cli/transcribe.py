@@ -4,7 +4,7 @@
 the flags of ``qasr_ijcnlp_tpu/cli/transcribe.py`` (the reference's
 transcribe.py:517-620), its writers and per-file error handling.
 ``--device auto`` is the card; ``--device cpu`` runs on the CPU.
-``--draft_model`` (speculative decoding) is not ported yet and raises.
+``--draft_model NAME`` (or ``lookup``) decodes greedy windows speculatively.
 """
 
 from __future__ import annotations
@@ -84,7 +84,10 @@ def build_parser():
                         "decode kernel; logits perturbed ~1e-2)")
     p.add_argument("--draft_model", default=None,
                    type=lambda n: n if n == "lookup" else valid_model_name(n),
-                   help="speculative greedy decoding (not ported yet: raises)")
+                   help="speculative greedy decoding: this smaller model drafts "
+                        "tokens the main model verifies in slab forwards "
+                        "(token-exact; greedy windows only); 'lookup' drafts by "
+                        "copying earlier n-grams of the transcript instead")
     p.add_argument("--draft_gamma", type=int, default=4,
                    help="tokens drafted per speculative round")
     p.add_argument("--prompt_bucket", type=optional_int, default=None,
@@ -102,11 +105,7 @@ def main(argv=None):
     output_dir = args.pop("output_dir")
     output_format = args.pop("output_format")
     device = resolve_device(args.pop("device"))
-    if args.pop("draft_model") is not None:
-        raise NotImplementedError(
-            "--draft_model is not ported yet: ROADMAP.md queue 1, 'Decode services'"
-        )
-    args.pop("draft_gamma")
+    draft_name, draft_gamma = args.pop("draft_model"), args.pop("draft_gamma")
     os.makedirs(output_dir, exist_ok=True)
 
     if model_name.endswith(".en") and args["language"] not in {"en", "English"}:
@@ -129,6 +128,17 @@ def main(argv=None):
         torch.set_num_threads(threads)
 
     model = load_model_with_fallback(model_name, device=device, download_root=model_dir)
+    if draft_name is not None:
+        from ..decode import Draft
+
+        if args.get("beam_size") is not None:
+            warnings.warn("--draft_model accelerates GREEDY decoding only; pass "
+                          "--beam_size None (and keep temperature 0) for the speculative "
+                          "path to engage on beam-default windows")
+        args["draft"] = Draft(
+            None if draft_name == "lookup"
+            else load_model_with_fallback(draft_name, device=device, download_root=model_dir),
+            draft_gamma)
 
     writer = get_writer(output_format, output_dir)
     word_options = ["highlight_words", "max_line_count", "max_line_width",

@@ -3,8 +3,11 @@
 Port of ``qasr_ijcnlp_tpu/decode/__init__.py``: greedy and temperature
 sampling, best-of (``best_of`` sampled rows per audio, ranked), beam search
 (``beam_size``, ``patience``, ``length_penalty``), each with the int8 cross
-cache of ``kv_int8``.  Speculative drafts are not ported yet and raise
-``NotImplementedError``; nothing falls back to another path.
+cache of ``kv_int8``, and speculative greedy decoding (``draft=Draft(model
+or None, gamma)``, :mod:`.speculative`), which runs where the JAX package
+runs it: at temperature 0 with no beam or best-of, a draft model only on a
+mel input of known language (its encoder needs the mel), prompt lookup on
+any input.
 """
 
 from __future__ import annotations
@@ -21,6 +24,22 @@ from ..tokenizer import Tokenizer, get_tokenizer
 from ..utils import compression_ratio
 from . import loop as _loop
 from .filters import build_config
+
+
+class Draft:
+    """A draft model and the speculation width ``gamma`` for speculative
+    greedy decoding (:mod:`.speculative`); ``model=None`` drafts by prompt
+    lookup (proposals copied from the row's own tokens).  A plain class
+    with identity hash and equality, so options carrying one stay hashable
+    for the model's task cache."""
+
+    __slots__ = ("model", "gamma")
+
+    def __init__(self, model=None, gamma: int = 4):
+        if gamma < 1:
+            raise ValueError("draft gamma must be >= 1")
+        self.model = model
+        self.gamma = int(gamma)
 
 
 @dataclass(frozen=True)
@@ -51,7 +70,8 @@ class DecodingOptions:
     fp16: bool = True
 
     kv_int8: bool = False
-    draft: Optional[object] = None
+    # Speculative greedy decoding: token-exact against plain greedy.
+    draft: Optional[Draft] = None
     prompt_bucket: Optional[int] = None
 
 
@@ -220,6 +240,22 @@ class DecodingTask:
             kv_int8=options.kv_int8,
         )
 
+        draft = options.draft
+        self.use_lookup_draft = draft is not None and draft.model is None
+        self.draft_cfg = None
+        if draft is not None and draft.model is not None:
+            dd, td = draft.model.dims, model_obj.dims
+            if dd.n_vocab != td.n_vocab or dd.n_mels != td.n_mels:
+                raise ValueError(
+                    f"draft model (vocab {dd.n_vocab}, {dd.n_mels} mels) is incompatible "
+                    f"with the target (vocab {td.n_vocab}, {td.n_mels} mels); draft and "
+                    "target must share the tokenizer and mel frontend")
+            # The target's filters and prompt; the draft's cross cache fp.
+            self.draft_cfg = self.loop_cfg._replace(dims=dd, kv_int8=False)
+        # Verify rounds of the last speculative run (committed tokens /
+        # rounds is the mean accepted slab length).
+        self.last_spec_rounds: Optional[int] = None
+
     def _verify_options(self, options: DecodingOptions) -> DecodingOptions:
         if options.beam_size is not None and options.best_of is not None:
             raise ValueError("beam_size and best_of can't be given together")
@@ -231,10 +267,6 @@ class DecodingTask:
             0 <= options.length_penalty <= 1
         ):
             raise ValueError("length_penalty (alpha) should be a value between 0 and 1")
-        if options.draft:
-            raise NotImplementedError(
-                "draft is not ported yet: ROADMAP.md queue 1, 'Decode services'"
-            )
         return options
 
     def _get_initial_tokens(self) -> Tuple[int, ...]:
@@ -298,11 +330,20 @@ class DecodingTask:
             suppress_tokens.append(self.tokenizer.no_speech)
         return tuple(sorted(set(t for t in suppress_tokens if t < self.model.dims.n_vocab)))
 
-    def run(self, mel: torch.Tensor,
-            generator: Optional[torch.Generator] = None) -> List[DecodingResult]:
+    def run(self, mel: torch.Tensor, generator: Optional[torch.Generator] = None,
+            spec_events: Optional[list] = None) -> List[DecodingResult]:
+        """Decode ``mel`` (or encoder features).  ``spec_events``: a list
+        that a speculative decode on the card fills with each verify round's
+        CUDA events (``speculative.spec_greedy_decode``'s ``events``)."""
         tokenizer = self.tokenizer
         n_audio = mel.shape[0]
         opts = self.options
+        dims = self.model.dims
+        # The JAX package encodes inside the decode program when the input
+        # is a mel of known language; only then can a draft model encode it.
+        is_mel = tuple(mel.shape[-2:]) != (dims.n_audio_ctx, dims.n_audio_state)
+        draft_mel = mel if is_mel and opts.language is not None and \
+            opts.task != "lang_id" else None
 
         audio_features = _audio_features(self.model, mel, opts.fp16)
 
@@ -334,7 +375,7 @@ class DecodingTask:
             tokens_lists, logprob_lists, no_speech = self._run_beam(audio_features, init_rep)
         else:
             tokens_lists, logprob_lists, no_speech = self._run_greedy(
-                audio_features, init_rep, generator)
+                audio_features, init_rep, generator, draft_mel, spec_events)
 
         eot = tokenizer.eot
         sliced = [[_cut_at_eot(np.asarray(seq), self.sample_begin, eot) for seq in group]
@@ -368,13 +409,32 @@ class DecodingTask:
         return (self.model.decoder_for(self.loop_cfg.compute_dtype),
                 self.model.module.decoder if self.options.kv_int8 else None)
 
-    def _run_greedy(self, audio_features, init_rep, generator):
+    def _run_greedy(self, audio_features, init_rep, generator, draft_mel=None,
+                    spec_events=None):
         G = self.n_group
         decoder, cross_decoder = self._decoders()
-        buf, _, sum_lp, no_speech = _loop.greedy_decode(
-            decoder, self.loop_cfg, audio_features, init_rep,
-            float(self.options.temperature), generator, cross_decoder=cross_decoder,
-        )
+        greedy = self.options.temperature == 0 and G == 1
+        gamma = self.options.draft.gamma if self.options.draft is not None else 0
+        if greedy and self.use_lookup_draft:
+            from .speculative import lookup_greedy_decode
+
+            buf, _, sum_lp, no_speech, self.last_spec_rounds = lookup_greedy_decode(
+                decoder, self.loop_cfg, audio_features, init_rep, gamma, cross_decoder,
+                spec_events)
+        elif greedy and self.draft_cfg is not None and draft_mel is not None:
+            from .speculative import spec_greedy_decode
+
+            dm = self.options.draft.model
+            dt = self.draft_cfg.compute_dtype
+            xa_d = model.encoder_apply(dm.module.encoder, draft_mel.to(dm.device), dm.dims, dt)
+            buf, _, sum_lp, no_speech, self.last_spec_rounds = spec_greedy_decode(
+                decoder, dm.decoder_for(dt), self.loop_cfg, self.draft_cfg, audio_features,
+                xa_d, init_rep, gamma, cross_decoder, spec_events)
+        else:
+            buf, _, sum_lp, no_speech = _loop.greedy_decode(
+                decoder, self.loop_cfg, audio_features, init_rep,
+                float(self.options.temperature), generator, cross_decoder=cross_decoder,
+            )
         # one device -> host copy for the whole batch
         buf, sum_lp = buf.cpu().numpy(), sum_lp.cpu().numpy()
         no_speech = no_speech[::G].cpu().numpy()

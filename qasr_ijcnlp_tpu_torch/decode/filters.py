@@ -4,8 +4,10 @@ Port of ``qasr_ijcnlp_tpu/decode/filters.py``: the reference's per-row
 filters (SuppressBlank, SuppressTokens, ApplyTimestampRules) as batched mask
 arithmetic.  The timestamp grammar is derived from per-row state (last and
 penultimate sampled token, running max timestamp) instead of re-scanning
-each row's history.  ``cur_len`` is a host int here (the loop runs in
-Python), where the JAX loop carries it as a traced scalar.
+each row's history.  ``cur_len`` is a host int where every row sits at
+one length (the loops run in Python), or a (B,) tensor of per-row lengths
+(speculative decode and the decode engine, where rows commit different
+numbers of tokens), as the JAX filters take a scalar or a (B,) array.
 """
 
 from __future__ import annotations
@@ -93,16 +95,22 @@ def _masks(cfg: FilterConfig, device: torch.device) -> _Masks:
 def apply_filters(
     cfg: FilterConfig,
     logits: torch.Tensor,  # (B, V) fp32
-    cur_len: int,  # tokens written so far
+    cur_len,  # tokens written so far: a host int, or (B,) per row
     last_tok: torch.Tensor,  # (B,) last written token
     prev_tok: torch.Tensor,  # (B,) second-to-last written token
     max_ts: torch.Tensor,  # (B,) running max timestamp token (0 if none)
 ) -> torch.Tensor:
     m = _masks(cfg, logits.device)
     at_begin = cur_len == cfg.sample_begin
+    if isinstance(at_begin, torch.Tensor):
+        def fill_at_begin(x, vocab_mask):  # per row
+            return x.masked_fill(at_begin[:, None] & vocab_mask[None], NEG_INF)
+    else:
+        def fill_at_begin(x, vocab_mask):
+            return x.masked_fill(vocab_mask, NEG_INF) if at_begin else x
 
-    if m.blank is not None and at_begin:
-        logits = logits.masked_fill(m.blank, NEG_INF)
+    if m.blank is not None:
+        logits = fill_at_begin(logits, m.blank)
     if m.suppress is not None:
         logits = logits.masked_fill(m.suppress, NEG_INF)
 
@@ -135,11 +143,10 @@ def apply_filters(
         logits = logits.masked_fill(have_ts[:, None] & ts_too_small, NEG_INF)
 
         # The first sampled token must be a timestamp, bounded by max_initial.
-        if at_begin:
-            logits = logits.masked_fill(vocab_ids < ts_begin, NEG_INF)
-            if cfg.max_initial_timestamp_index is not None:
-                last_allowed = ts_begin + cfg.max_initial_timestamp_index
-                logits = logits.masked_fill(vocab_ids > last_allowed, NEG_INF)
+        logits = fill_at_begin(logits, vocab_ids < ts_begin)
+        if cfg.max_initial_timestamp_index is not None:
+            last_allowed = ts_begin + cfg.max_initial_timestamp_index
+            logits = fill_at_begin(logits, vocab_ids > last_allowed)
 
         # If the total timestamp probability beats every text token, force a
         # timestamp.

@@ -58,17 +58,19 @@ class LoopConfig(NamedTuple):
 
 
 def _prompt_pass(decoder, cfg: LoopConfig, audio_features, initial_tokens,
-                 cross_decoder=None):
+                 cross_decoder=None, ctx: Optional[int] = None):
     """Encoder features -> cross K/V + prompt logits + no-speech probs.
 
     The self cache is bounded to the reachable length (prompt + samples +
     the unroll overshoot of the JAX loop), rounded up to 16, as in the
-    reference: every step reads the whole buffer.  The cross K/V are
-    projected with ``cross_decoder`` (default ``decoder``), which must hold
-    fp32 weights when ``cfg.kv_int8``."""
+    reference: every step reads the whole buffer; ``ctx`` overrides it (the
+    decode engine sizes its pool once).  The cross K/V are projected with
+    ``cross_decoder`` (default ``decoder``), which must hold fp32 weights
+    when ``cfg.kv_int8``."""
     B = initial_tokens.shape[0]
-    reach = cfg.sample_begin + cfg.sample_len + cfg.unroll + 1
-    ctx = min(cfg.dims.n_text_ctx, round_up(reach, 16))
+    if ctx is None:
+        reach = cfg.sample_begin + cfg.sample_len + cfg.unroll + 1
+        ctx = min(cfg.dims.n_text_ctx, round_up(reach, 16))
     cache = model.init_kv_cache(
         cfg.dims, B, cfg.compute_dtype, audio_features.device,
         cross_batch=audio_features.shape[0], ctx=ctx, cross_int8=cfg.kv_int8,
@@ -186,13 +188,16 @@ class BeamState(NamedTuple):
 
 
 def beam_transition(cfg: LoopConfig, K: int, C: int, logits: torch.Tensor,
-                    cur_len: int, st: BeamState):
+                    cur_len, st: BeamState):
     """One beam-search selection step over B groups of K rows (JAX
     ``_beam_transition``; reference BeamSearchDecoder.update).  ``logits``
-    (B K, V) are the decoder outputs for the tokens at ``cur_len - 1``.
-    Returns (the new state, ``flat_src`` (B K,): the parent row of each new
-    row, for the caller's self-cache gather, and the (B K,) tokens just
-    written at ``cur_len``)."""
+    (B K, V) are the decoder outputs for the tokens at ``cur_len - 1``;
+    ``cur_len`` is a host int (every group at one position, the batch beam
+    loop) or a (B K,) tensor constant within each group (the decode
+    engine's beam pool, each group at its own position).  Returns (the new
+    state, ``flat_src`` (B K,): the parent row of each new row, for the
+    caller's self-cache gather, and the (B K,) tokens just written at
+    ``cur_len``)."""
     BK = logits.shape[0]
     B = BK // K
     eot = cfg.eot
@@ -234,7 +239,11 @@ def beam_transition(cfg: LoopConfig, K: int, C: int, logits: torch.Tensor,
 
     flat_src = (torch.arange(B, device=dev)[:, None] * K + new_parent).reshape(-1)
     new_buf = buf[flat_src]
-    new_buf[:, cur_len] = new_tok
+    per_row = isinstance(cur_len, torch.Tensor)
+    if per_row:  # group-constant, so invariant under the parent gather
+        new_buf.scatter_(1, cur_len[:, None], new_tok[:, None])
+    else:
+        new_buf[:, cur_len] = new_tok
     prev = st.last[flat_src]
     max_ts = st.max_ts[flat_src]
     max_ts = torch.where(new_tok >= cfg.timestamp_begin, torch.maximum(max_ts, new_tok), max_ts)
@@ -246,7 +255,11 @@ def beam_transition(cfg: LoopConfig, K: int, C: int, logits: torch.Tensor,
     dest = torch.where((elig == 1) & (dest < C), dest, torch.full_like(dest, C))
     # each candidate's parent prefix, (B, K(K+1), W)
     cand_bufs = buf.reshape(B, K, W)[torch.arange(B, device=dev)[:, None], s_parent]
-    cand_bufs[:, :, cur_len] = eot
+    if per_row:
+        cur_g = cur_len.reshape(B, K)[:, 0]
+        cand_bufs.scatter_(2, cur_g[:, None, None].expand(B, cand_bufs.shape[1], 1), eot)
+    else:
+        cand_bufs[:, :, cur_len] = eot
     fin_toks = torch.cat([st.fin_toks, st.fin_toks.new_zeros(B, 1, W)], 1)
     fin_toks = fin_toks.scatter_(1, dest[:, :, None].expand(-1, -1, W), cand_bufs)[:, :C]
     fin_scores = torch.cat([st.fin_scores, st.fin_scores.new_zeros(B, 1)], 1)

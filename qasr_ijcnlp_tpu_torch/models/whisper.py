@@ -472,24 +472,37 @@ def precompute_cross_kv(decoder: TextDecoder, xa, cache: Dict,
     return {**cache, "cross_k": ks, "cross_v": vs}
 
 
-def decoder_layer(bp: ResidualAttentionBlock, x, cache: Dict, l: int, offset: int,
+def _write_self_kv(buf, new, offset):
+    """Write ``new`` (B, H, T_new, Dh) into the self cache ``buf`` (B, H,
+    Tmax, Dh) in place at ``offset``: a host int (every row at one
+    position), or a (B,) tensor of per-row starts already clamped to
+    [0, Tmax - T_new], written by one scatter on the time axis."""
+    if isinstance(offset, int):
+        buf[:, :, offset:offset + new.shape[2]] = new
+        return
+    B, H, T_new, Dh = new.shape
+    t = offset[:, None] + torch.arange(T_new, device=buf.device)
+    buf.scatter_(2, t[:, None, :, None].expand(B, H, T_new, Dh), new.to(buf.dtype))
+
+
+def decoder_layer(bp: ResidualAttentionBlock, x, cache: Dict, l: int, offset,
                   mask, n_head: int, t_real_cross: int):
     """Layer ``l`` of :func:`decoder_step` on x (B, T_new, D) at cache
-    position ``offset``, writing its self K/V into the cache in place (the
-    JAX step returns a new buffer); ``mask`` (T_new, ctx) is additive.  A
-    cross cache of B rows serves x's B G rows in groups of G, group-major
+    position ``offset`` (a host int, or a (B,) tensor of per-row write
+    starts), writing its self K/V into the cache in place (the JAX step
+    returns a new buffer); ``mask`` (T_new, ctx), or (B, 1, T_new, ctx)
+    per row, is additive.  A cross cache of B rows serves x's B G rows in
+    groups of G, group-major
     (beam, best-of): K9 takes the groups itself; on the fp cache each
     audio's G T queries attend as one (B, H, G T, dh) block, the JAX
     package's ``_grouped_cross_attention``, so the cache is read once per
     audio and never repeated (G = 1 is the ungrouped step)."""
-    T_new = x.shape[1]
     scale = head_scale(x.shape[-1] // n_head, cache["self_k"][l].dtype)
     xn = layer_norm(x, bp.attn_ln)
     q = linear(xn, bp.attn.query)
-    cache["self_k"][l][:, :, offset:offset + T_new] = _split_heads(
-        linear(xn, bp.attn.key), n_head)
-    cache["self_v"][l][:, :, offset:offset + T_new] = _split_heads(
-        linear(xn, bp.attn.value), n_head)
+    _write_self_kv(cache["self_k"][l], _split_heads(linear(xn, bp.attn.key), n_head), offset)
+    _write_self_kv(cache["self_v"][l], _split_heads(linear(xn, bp.attn.value), n_head),
+                   offset)
     a = _attend(scaled_heads(q, n_head), cache["self_k"][l] * scale, cache["self_v"][l], mask)
     x = x + linear(a, bp.attn.out)
     qc = linear(layer_norm(x, bp.cross_attn_ln), bp.cross_attn.query)
@@ -516,28 +529,50 @@ def decoder_step(
     The first call may pass the whole prompt; later calls one token.  An
     int8 cross cache (``init_kv_cache(cross_int8=True)``) runs the int8
     attention kernel (K9), whose fp32 output is cast to the compute dtype.
-    A cross cache of B / G rows serves ``tokens``' B rows in groups of G."""
-    if offsets is not None:
-        raise NotImplementedError(
-            "per-row offsets (speculative decode) are not ported yet: "
-            "ROADMAP.md queue 1, 'Decode services'"
-        )
+    A cross cache of B / G rows serves ``tokens``' B rows in groups of G.
+
+    ``offsets`` (B,) int gives each row its own position (speculative
+    decode, the decode engine): row b's queries sit at offsets[b] + t, read
+    their positional embedding at min(offsets[b] + t, n_text_ctx - 1), see
+    the keys at positions <= their own (a per-row causal mask), and write
+    their K/V at offsets[b] clamped to [0, Tmax - T_new], as JAX's
+    ``dynamic_update_slice`` clamps its start, so the slab always fits.  A
+    row rewinds by passing a smaller offset: keys past its position are
+    masked and overwritten before any query sees them.  With ``offsets``
+    ``cache['idx']`` is neither read nor advanced.  The batch loops keep
+    the host-int position: on the card the per-row form with equal
+    offsets costs 8-20% more a greedy step (``chip_smoke.py``
+    ``loop_forms_ab``)."""
     B, T_new = tokens.shape
     H = dims.n_text_head
     Tmax = cache["self_k"][0].shape[2]
-    offset = int(cache["idx"])
-    if offset + T_new > Tmax:
-        raise ValueError(f"kv cache of {Tmax} positions is full")
     dev = tokens.device
-    q_pos = offset + torch.arange(T_new, device=dev)
-    keep = torch.arange(Tmax, device=dev)[None, :] <= q_pos[:, None]
-    mask = torch.zeros(T_new, Tmax, device=dev).masked_fill(~keep, float("-inf"))
-    pos = decoder.positional_embedding[offset:offset + T_new]
+    k_pos = torch.arange(Tmax, device=dev)
+    if offsets is None:
+        offset = int(cache["idx"])
+        if offset + T_new > Tmax:
+            raise ValueError(f"kv cache of {Tmax} positions is full")
+        q_pos = offset + torch.arange(T_new, device=dev)
+        mask = torch.zeros(T_new, Tmax, device=dev).masked_fill(
+            k_pos[None, :] > q_pos[:, None], float("-inf"))
+        pos = decoder.positional_embedding[offset:offset + T_new]
+        write_at = offset
+    else:
+        if T_new > Tmax:
+            raise ValueError(f"a slab of {T_new} does not fit a cache of {Tmax} positions")
+        offsets = torch.as_tensor(offsets, device=dev).long()
+        q_pos = offsets[:, None] + torch.arange(T_new, device=dev)  # (B, T_new)
+        pos = decoder.positional_embedding[q_pos.clamp_max(dims.n_text_ctx - 1)]
+        mask = torch.zeros(B, 1, T_new, Tmax, device=dev).masked_fill(
+            (k_pos[None, None, :] > q_pos[:, :, None])[:, None], float("-inf"))
+        write_at = offsets.clamp(0, Tmax - T_new)
     x = (decoder.token_embedding.weight[tokens] + pos).to(compute_dtype)
     for l, bp in enumerate(decoder.blocks):
-        x = decoder_layer(bp, x, cache, l, offset, mask, H, dims.n_audio_ctx)
+        x = decoder_layer(bp, x, cache, l, write_at, mask, H, dims.n_audio_ctx)
     x = layer_norm(x, decoder.ln)
     logits = (x @ decoder.token_embedding.weight.to(x.dtype).t()).float()
+    if offsets is not None:
+        return logits, {**cache}
     return logits, {**cache, "idx": offset + T_new}
 
 

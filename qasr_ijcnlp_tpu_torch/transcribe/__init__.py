@@ -43,7 +43,7 @@ from ..audio import (
 from ..decode import DecodingOptions, DecodingResult
 from ..decode import decode as _decode
 from ..tokenizer import LANGUAGES, get_tokenizer
-from ..utils import exact_div, format_timestamp, get_end, make_safe
+from ..utils import compression_ratio, exact_div, format_timestamp, get_end, make_safe
 
 _PUNCTUATION = "\"'“¿([{-\"'.。,，!！?？:：”)]}、"
 
@@ -180,11 +180,16 @@ class _Session:
     """State for one transcription run (prompt history, seek, segments)."""
 
     def __init__(self, model, tokenizer, options: dict, temperatures, thresholds,
-                 device_lock=None, generator: Optional[torch.Generator] = None):
+                 device_lock=None, generator: Optional[torch.Generator] = None,
+                 engine_t0=None):
         self.model = model
         self.tokenizer = tokenizer
         self.options = options
         self.temperatures = temperatures
+        # The ladder's t = 0 rung through a shared decode engine (promptless
+        # windows only: the engine's prompt is fixed), so concurrent
+        # long-form requests share its slot pool.
+        self.engine_t0 = engine_t0
         # Drives every sampling rung (t > 0) of the ladder.
         self.generator = generator
         # Serializes device work (ladder decodes, alignment) against other
@@ -219,11 +224,24 @@ class _Session:
                 kwargs.pop("patience", None)
             else:
                 kwargs.pop("best_of", None)
-            with self.device_lock:
-                result = self.model.decode(
-                    mel_segment, DecodingOptions(**kwargs, temperature=t),
-                    generator=self.generator,
-                )
+            result = None
+            if t == 0 and self.engine_t0 is not None and not kwargs.get("prompt"):
+                # Token-exact against model.decode at t = 0; outside the
+                # device lock, since the engine serializes its own device work.
+                try:
+                    result = self.engine_t0(mel_segment)
+                except Exception as e:
+                    # A pool timeout or shutdown mid-file sends this request
+                    # down the locked per-window path instead of aborting it.
+                    warnings.warn(f"engine window decode failed ({type(e).__name__}: {e}); "
+                                  "continuing via the locked per-window path")
+                    self.engine_t0 = None
+            if result is None:
+                with self.device_lock:
+                    result = self.model.decode(
+                        mel_segment, DecodingOptions(**kwargs, temperature=t),
+                        generator=self.generator,
+                    )
             if self._acceptable(result):
                 break
         return result
@@ -466,6 +484,42 @@ def _transcribe_batched(
         session.commit(segments, False, result.temperature)
 
 
+def _engine_shortcut(engine, decode_options: dict):
+    """A ``mel_segment -> DecodingResult`` t = 0 decoder on a shared
+    ``decode.engine.DecodeEngine``, or None (with a warning) when the pool
+    decodes with other options than this call's t = 0 rung (language, task,
+    sample_len, kv_int8, timestamps, ...), takes audio instead of mels (it
+    would recompute the window mels with other padding), or detects each
+    request's language (the reference detects once per file): those windows
+    take the plain path, so the engine never changes a window's tokens.
+    Engine results carry no audio features, so word timings re-encode."""
+    kwargs = dict(decode_options)
+    kwargs.pop("best_of", None)  # decode_window drops it at t = 0
+    kwargs.pop("prompt", None)  # only promptless windows reach the engine
+    try:
+        t0 = DecodingOptions(**kwargs, temperature=0.0)
+    except TypeError:
+        return None
+    if t0 != engine.task.options or t0.draft is not None or engine.audio_frontend \
+            or engine._detect:
+        warnings.warn(
+            "transcribe(engine=...) ignored: the engine's decode options do not match "
+            "this call's t=0 options (or the pool is audio-input / per-request-detect); "
+            "decoding via the plain path.")
+        return None
+    language = engine.task.options.language or "en"
+
+    def _decode(mel_segment) -> DecodingResult:
+        r = engine.submit(np.asarray(torch.as_tensor(mel_segment).float().cpu()))
+        return DecodingResult(
+            audio_features=None, language=language, tokens=list(r["tokens"]),
+            text=r["text"], avg_logprob=float(r["avg_logprob"]),
+            no_speech_prob=float(r["no_speech_prob"]), temperature=0.0,
+            compression_ratio=compression_ratio(r["text"]))
+
+    return _decode
+
+
 @torch.inference_mode()
 def transcribe(
     model,
@@ -509,13 +563,16 @@ def transcribe(
     REENTRANT lock serializing the device work against other host threads.
     ``generator`` drives the sampling rungs (t > 0) of the ladder; the JAX
     package draws a numpy seed per decode instead, so those rungs are not
-    token-exact against it.  ``engine`` (a shared decode engine) is not
-    ported yet and raises.
+    token-exact against it.
+
+    ``engine``: a ``decode.engine.DecodeEngine`` (mel input, timestamps)
+    that runs the ladder's t = 0 rung of every promptless window (pass
+    ``condition_on_previous_text=False`` to make every window eligible), so
+    concurrent calls share its slot pool; used only where its options equal
+    this call's t = 0 options (:func:`_engine_shortcut`), so the
+    transcript is the same with or without it.  Not used by
+    ``batch_windows``, which batches its own windows under the lock.
     """
-    if engine is not None:
-        raise NotImplementedError(
-            "engine is not ported yet: ROADMAP.md queue 1, 'Decode services'"
-        )
     _lk = device_lock if device_lock is not None else contextlib.nullcontext()
     # 30 s of zero padding on the right so the last window is full-size.
     with _lk:
@@ -569,6 +626,7 @@ def transcribe(
     temperatures = (
         [temperature] if isinstance(temperature, (int, float)) else list(temperature)
     )
+    engine_t0 = _engine_shortcut(engine, decode_options) if engine is not None else None
     session = _Session(
         model,
         tokenizer,
@@ -577,6 +635,7 @@ def transcribe(
         (compression_ratio_threshold, logprob_threshold, no_speech_threshold),
         device_lock=device_lock,
         generator=generator,
+        engine_t0=engine_t0,
     )
     session.on_segments = on_segments
 
@@ -597,6 +656,10 @@ def transcribe(
                 "to enable hallucination skipping."
             )
         max_batch = 64 if batch_windows is True else max(int(batch_windows), 2)
+        # The batched path decodes its own device batches under the lock;
+        # an engine rung in its ladder would block on the pool while
+        # holding it.
+        session.engine_t0 = None
         with _lk:
             _transcribe_batched(
                 session, mel_dev, content_frames, max_batch, no_speech_threshold,

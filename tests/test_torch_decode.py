@@ -98,14 +98,21 @@ def test_decode_kv_int8_matches_jax(models, opts):
             b.avg_logprob * (len(b.tokens) + 1), abs=1e-3)  # sum_logprobs
 
 
-@pytest.mark.parametrize("kw", [dict(draft=object())], ids=["draft"])
+@pytest.mark.parametrize("kw", [dict(draft=None)], ids=["draft"])
 def test_unported_options_raise(models, kw):
-    """Options still to port raise, naming their ROADMAP item (beam search
-    and best-of are ported: tests/test_torch_beam.py)."""
-    _, tm = models
-    mel = np.zeros((1, 80, 1000), np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.decode(tm, mel, port.DecodingOptions(language="en", **kw))
+    """``draft``, the last option the port refused, now decodes: prompt
+    lookup gives JAX's greedy tokens (tests/test_torch_speculative.py holds
+    the model drafts and the round counts)."""
+    from qasr_ijcnlp_tpu.decode import Draft as JDraft
+    from qasr_ijcnlp_tpu_torch.decode import Draft
+
+    jm, tm = models
+    mel = np.random.default_rng(15).standard_normal((2, 80, 1000)).astype(np.float32)
+    ref = jdecode(jm, jnp.asarray(mel), JOptions(fp16=False, draft=JDraft(kw["draft"], 2),
+                                                 **BENCH))
+    ours = port.decode(tm, mel, port.DecodingOptions(fp16=False, draft=Draft(kw["draft"], 2),
+                                                     **BENCH))
+    assert _tokens(ours) == _tokens(ref)
 
 
 def test_sampling_is_seeded_by_generator(models):
@@ -132,8 +139,12 @@ def test_port_runs_without_jax():
         r = port.decode(m, port.log_mel_spectrogram(pcm, device="cpu"), language="en",
                         sample_len=4, without_timestamps=True)
         assert len(r.tokens) <= 4
-        from qasr_ijcnlp_tpu_torch import align, transcribe  # noqa: F401
+        from qasr_ijcnlp_tpu_torch import align, serving, streaming, transcribe  # noqa: F401
         from qasr_ijcnlp_tpu_torch.cli import transcribe as cli  # noqa: F401
+        from qasr_ijcnlp_tpu_torch.decode import Draft, engine, speculative  # noqa: F401
+        s = port.decode(m, port.log_mel_spectrogram(pcm, device="cpu"), language="en",
+                        sample_len=4, without_timestamps=True, draft=Draft(None, 2))
+        assert s.tokens == r.tokens
         lf = ModelDimensions(80, 1500, 128, 2, 1, 51865, 48, 128, 2, 1)
         m = port.WhisperModel.from_state_dict(
             init_params(torch.Generator().manual_seed(0), lf), lf, "cpu")

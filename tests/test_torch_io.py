@@ -189,14 +189,29 @@ def test_resample_and_preprocess_equal():
     assert ours.shape == (80, 3000)
 
 
-def test_cli_device_and_draft(tmp_path):
+def test_cli_device_and_draft(tmp_path, monkeypatch):
+    """``--draft_model`` builds a ``Draft``, as the JAX CLI does: the named
+    model on the same device, or ``lookup`` for no model, with
+    ``--draft_gamma``; transcribe gets it with the other options."""
+    from qasr_ijcnlp_tpu_torch.decode import Draft
+
     assert resolve_device("cpu") == "cpu"
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="no CUDA device"):
             resolve_device("auto")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcli.main(["x.wav", "--model", "tiny", "--device", "cpu", "--draft_model",
-                   "tiny", "-o", str(tmp_path)])
+    loaded, calls = [], []
+    monkeypatch.setattr(tcli, "load_model_with_fallback",
+                        lambda name, **kw: loaded.append((name, kw["device"])) or name)
+    monkeypatch.setattr(tcli, "transcribe", lambda model, path, **kw: calls.append(kw) or
+                        dict(text="", segments=[], language="en"))
+    for draft, gamma in (("tiny", "3"), ("lookup", "2")):
+        tcli.main(["x.wav", "--model", "base", "--device", "cpu", "--draft_model", draft,
+                   "--draft_gamma", gamma, "--beam_size", "None", "-o", str(tmp_path),
+                   "-f", "txt"])
+        d = calls[-1]["draft"]
+        assert isinstance(d, Draft) and d.gamma == int(gamma)
+        assert d.model == (None if draft == "lookup" else "tiny")
+    assert loaded == [("base", "cpu"), ("tiny", "cpu"), ("base", "cpu")]
 
 
 def test_cli_all_outputs_equal(models, tmp_path, no_network):

@@ -16,6 +16,8 @@ rounding probes (chip_smoke.py ``k4_probe``, ``k8_probe``) must come out
 exact.
 """
 
+import concurrent.futures
+
 import numpy as np
 import pytest
 import torch
@@ -867,3 +869,70 @@ def test_beam_decode_on_card_matches_cpu(model):
     ours = port.decode(model, port.log_mel_spectrogram(pcm, device="cuda"), opts)
     ref = port.decode(cpu, port.log_mel_spectrogram(pcm, device="cpu"), opts)
     assert [r.tokens for r in ours] == [r.tokens for r in ref]
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["fp", "int8"])
+def test_per_row_offsets_on_card(model, int8):
+    """``decoder_step(offsets=...)`` on the card against the CPU in f32: the
+    per-row scatter of the self K/V (a row at the cache's end clamped to
+    Tmax - T_new) and the per-row causal mask, a prompt then a ragged slab
+    of 3; with the int8 cache K9 runs once per layer and step on the pool
+    (the engine's and the speculative verify's shapes: T_new 1 and 3)."""
+    dims, B = model.dims, 4
+    sd = {k: v.cpu() for k, v in model.module.state_dict().items()}
+    cpu = WhisperModel.from_state_dict(sd, dims, "cpu")
+    g = torch.Generator().manual_seed(7)
+    xa = torch.randn(B, dims.n_audio_ctx, dims.n_audio_state, generator=g)
+    prompt = torch.randint(0, 50000, (B, 5), generator=g)
+    slab = torch.randint(0, 50000, (B, 3), generator=g)
+    one = torch.randint(0, 50000, (B, 1), generator=g)
+    steps = ((prompt, [0, 0, 0, 0]), (slab, [5, 2, 15, 4]), (one, [8, 3, 15, 6]))
+    outs = []
+    for m in (model, cpu):
+        dev = m.device
+        cache = tmodel.precompute_cross_kv(
+            m.module.decoder, xa.to(dev),
+            tmodel.init_kv_cache(dims, B, device=dev, ctx=16, cross_int8=int8))
+        before = decode_attn.launches
+        logits = []
+        for toks, off in steps:
+            lg, cache = tmodel.decoder_step(m.module.decoder, toks.to(dev), cache, dims,
+                                            offsets=torch.tensor(off, device=dev))
+            logits.append(lg.cpu())
+        if dev.type == "cuda":
+            assert decode_attn.launches - before == (3 * dims.n_text_layer if int8 else 0)
+        outs.append((logits, [k.cpu() for k in cache["self_k"] + cache["self_v"]]))
+    for x, y in zip(outs[0][0] + outs[0][1], outs[1][0] + outs[1][1]):
+        assert float((x - y).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("kind", ["int8", "lookup", "beam"])
+def test_engine_pool_on_card_matches_cpu_decode(model, kind):
+    """A pool of 3 slots, 5 requests with mid-flight admission, on the card:
+    each request's f32 tokens equal the CPU plain path's decode; the int8
+    pool runs K9 once per layer in every step and prompt pass."""
+    import qasr_ijcnlp_tpu_torch as port
+    from qasr_ijcnlp_tpu_torch.decode.engine import DecodeEngine
+
+    sd = {k: v.cpu() for k, v in model.module.state_dict().items()}
+    cpu = WhisperModel.from_state_dict(sd, model.dims, "cpu")
+    T = model.dims.n_audio_ctx
+    pcm = (np.random.default_rng(8).standard_normal((5, 2 * T * 160)) * 0.1).astype(
+        np.float32)
+    extra = {"int8": dict(kv_int8=True), "lookup": {}, "beam": dict(beam_size=3)}[kind]
+    opts = port.DecodingOptions(language="en", sample_len=8, fp16=False, **extra)
+    mel = port.log_mel_spectrogram(pcm, device="cpu")
+    ref = port.decode(cpu, mel, opts)
+    engine = DecodeEngine(model, opts, slots=3, unroll=2,
+                          lookup_gamma=3 if kind == "lookup" else 0)
+    try:
+        before = decode_attn.launches
+        with concurrent.futures.ThreadPoolExecutor(5) as pool:
+            out = list(pool.map(engine.submit, mel))
+    finally:
+        engine.close()
+    if kind != "int8":
+        assert decode_attn.launches == before
+    else:
+        assert decode_attn.launches > before
+    assert [o["tokens"] for o in out] == [r.tokens for r in ref]

@@ -101,9 +101,23 @@ def test_seeded_generator_repeats(models, pcm):
 
 
 def test_engine_raises(models, pcm):
+    """``engine=`` (once refused) runs the t = 0 rung through a decode
+    engine whose options match: the same tokens and text as without it
+    (tests/test_torch_engine.py holds the rest)."""
+    from qasr_ijcnlp_tpu_torch.decode.engine import DecodeEngine
+
     _, tm = models
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.transcribe(pcm[:16000], engine=object(), language="en")
+    kw = dict(GREEDY, language="en", sample_len=6)
+    plain = tm.transcribe(pcm[:16000], **kw)
+    engine = DecodeEngine(tm, ttranscribe.DecodingOptions(language="en", fp16=False,
+                                                          sample_len=6), slots=1)
+    try:
+        ours = tm.transcribe(pcm[:16000], engine=engine, **kw)
+        assert engine.admit_calls == 1
+    finally:
+        engine.close()
+    assert ours["text"] == plain["text"]
+    assert [s["tokens"] for s in ours["segments"]] == [s["tokens"] for s in plain["segments"]]
 
 
 # -- the ladder, the no-speech skip and the prompt reset on a stub model -------------

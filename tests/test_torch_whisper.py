@@ -134,11 +134,22 @@ def test_decoder_step_matches_jax(models, features):
 
 
 @pytest.mark.parametrize("feature", ["offsets"])
-def test_unported_decoder_features_raise(models, feature):
-    """Per-row offsets (speculative decode) still raise; grouped caches are
-    ported (tests/test_torch_beam.py)."""
-    _, m = models
-    cache = tmodel.init_kv_cache(DIMS, 1, device="cpu", ctx=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodel.decoder_step(m.module.decoder, torch.zeros(1, 1, dtype=torch.long),
-                            cache, DIMS, offsets=torch.zeros(1))
+def test_unported_decoder_features_raise(models, features, feature):
+    """Per-row offsets (speculative decode, the decode engine), once refused,
+    now run: a prompt at offset 0 of every row, then one token per row at
+    ragged positions, as JAX's per-row path gives them (logits within the
+    scalar step's 5e-4)."""
+    params, m = models
+    prompt = np.array([[50258, 50259, 50359], [50258, 50259, 50359]])
+    tok = np.array([[220], [11]])
+    jc = jmodel.init_kv_cache(DIMS, 2, ctx=16)
+    jc = jmodel.precompute_cross_kv(params["decoder"], jnp.asarray(features), jc)
+    tc = tmodel.init_kv_cache(DIMS, 2, device="cpu", ctx=16)
+    tc = tmodel.precompute_cross_kv(m.module.decoder, torch.from_numpy(features), tc)
+    for toks, off in ((prompt, [0, 0]), (tok, [3, 2])):
+        ref, jc = jmodel.decoder_step(params["decoder"], jnp.asarray(toks), jc, DIMS,
+                                      offsets=jnp.asarray(off))
+        ours, tc = tmodel.decoder_step(m.module.decoder, torch.from_numpy(toks), tc, DIMS,
+                                       offsets=torch.tensor(off))
+        np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=5e-4)
+    assert tc["idx"] == 0
