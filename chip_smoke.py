@@ -9,6 +9,7 @@
     python3 chip_smoke.py --diag            # K11 and K12 alone (the diagnostics)
     python3 chip_smoke.py --longform        # the long-form paths alone (tiny, large-v3)
     python3 chip_smoke.py --services        # the decode services alone (engine, speculative, HTTP)
+    python3 chip_smoke.py --quantum         # the source paper's model alone (quantum, char ASR)
 
 Drives the port's request path (qasr_ijcnlp_tpu_torch) at the full width of
 three Whisper sizes and of two head geometries at small's width, with random
@@ -136,7 +137,20 @@ and the opt-in fused step) and its grouped decodes (beam search, best-of):
    alone, before any direct call); and, for large-v3 and tiny, the greedy
    loop's body timed with the position as a host int and as a per-row
    tensor;
-11. prints the long-form and service stages as JSON lines, the whole script's
+11. the source paper's model: (a) quantum tiny at full width (D 384, 4 +
+   4 layers, 4 qubits), 16 requests end to end in f32 and bf16 with
+   exact launches (K1 once, the classical stem kernel never, K4 = K5 =
+   4), requests 0 and 1 against the CPU plain path, times, the stage
+   split by CUDA events (mel, quantum stem, trunk, decode) and the stem
+   alone beside its bound and beside K2 on the same mel; (b) a quantum
+   large-v3 encoder pass at B=2 (its quantum stem against the CPU's, K8
+   exactly 32 times, the stem kernel and K4 never); (c) char ASR
+   evaluation at quantum tiny over 16 synthetic LibriSpeech items (LSTM
+   head, MLP head teacher-forced and decoding; each card char within
+   1e-4 of the CPU's top logit); (d) both evaluation CLIs in this
+   process with ``--device cuda`` on a numpy-pickle checkpoint written
+   here (the classification CLI on classical tiny and on quantum tiny);
+12. prints the long-form, service and quantum stages as JSON lines, the whole script's
    seconds, the per-kernel JSON line (every ported kernel with its
    launches, times, error and bound), the card line, then ``{"ok": true,
    "device": ...}`` as the last line.
@@ -147,6 +161,7 @@ printed as a result.  There is no CPU fallback: without a CUDA device the
 script exits non-zero at once.
 """
 
+import copy
 import gc
 import json
 import math
@@ -1162,7 +1177,7 @@ def stage_times(port, model, pcm, fp16, label, kv_int8=False, extra=None):
     """Host-clock ms of each stage of one warm request batch: PCM (host) to
     log-mel, encoder, and decode (cross K/V, prompt, greedy loop, results),
     each ended by a synchronize."""
-    from qasr_ijcnlp_tpu_torch.models.whisper import encoder_apply
+    from qasr_ijcnlp_tpu_torch.models.whisper import dispatch_encoder_apply
 
     dt = torch.bfloat16 if fp16 else torch.float32
     marks = [time.perf_counter()]
@@ -1170,7 +1185,7 @@ def stage_times(port, model, pcm, fp16, label, kv_int8=False, extra=None):
     torch.cuda.synchronize()
     marks.append(time.perf_counter())
     with torch.inference_mode():
-        feats = encoder_apply(model.module.encoder, mel, model.dims, dt)
+        feats = dispatch_encoder_apply(model.module.encoder, mel, model.dims, dt)
     torch.cuda.synchronize()
     marks.append(time.perf_counter())
     port.decode(model, feats, options(port, fp16, kv_int8, extra))
@@ -1306,12 +1321,12 @@ def counted_run(port, model, pcm, expect, label, kv_int8=False, extra=None, gene
 
 def cpu_features(port, cpu_model, pcm0):
     """Request 0's encoder output on the CPU plain path."""
-    from qasr_ijcnlp_tpu_torch.models.whisper import encoder_apply
+    from qasr_ijcnlp_tpu_torch.models.whisper import dispatch_encoder_apply
 
     dims = cpu_model.dims
     with torch.inference_mode():
         mel = port.log_mel_spectrogram(pcm0[None], n_mels=dims.n_mels, device="cpu")
-        return encoder_apply(cpu_model.module.encoder, mel, dims)
+        return dispatch_encoder_apply(cpu_model.module.encoder, mel, dims)
 
 
 def teacher_forced_check(port, cpu_model, xa, card_result, label, tie=TOKEN_TIE,
@@ -2618,6 +2633,419 @@ def services_run(port, dev, smi):
     log(smi)
 
 
+# -- the source paper's model: quantum Whisper, char ASR, the evaluation CLIs -------------
+
+# Qubits of the quantum stem (the JAX package's default and the paper's).
+N_QUBITS = 4
+# Char ASR phases: the synthetic LibriSpeech test split, its batch, the heads'
+# width, depth and decode length (the JAX CLI's defaults).
+CHAR_ITEMS, CHAR_BATCH, CHAR_HIDDEN, CHAR_LAYERS, CHAR_MAX_LEN = 16, 8, 384, 2, 100
+# A card char must be within this of the CPU's top logit at its step (the
+# LSTM's and the MLP's fp32 products summed in other orders).
+CHAR_TIE = 1e-4
+# Stages and launches of every quantum and evaluation phase, by path.
+QUANTUM_STAGES = {}
+
+
+def quantum_encoder_expect(dims, passes, mels):
+    """A quantum encoder's launches for ``passes`` encoder calls and ``mels``
+    K1 calls: the trunk's kernels as the classical encoder's, the classical
+    stem kernel never."""
+    return {**{k: 0 for k in FUSED_EXPECT}, **encoder_expect(dims, passes), "stem": 0,
+            "mel": mels}
+
+
+def quantum_model(port, dims, dev, seed=SEED):
+    """A quantum model with the JAX package's distributions from ``seed``,
+    on ``dev`` and on the CPU (one weight set)."""
+    from qasr_ijcnlp_tpu_torch.models.quantum import QuantumWhisperModel, init_quantum_params
+
+    sd = init_quantum_params(torch.Generator().manual_seed(seed), dims, N_QUBITS)
+    name = "quantum-tiny (random)"
+    return (QuantumWhisperModel.from_state_dict(sd, dims, dev, name=name),
+            QuantumWhisperModel.from_state_dict(sd, dims, "cpu", name=name))
+
+
+def stem_work_quantum(B, C0, Tm, D, nq, s):
+    """The quantum stem's (flops, bytes): its products (pre, circuit, post
+    of both convolutions) and, as the least traffic, the mel read once and
+    the trunk input written once."""
+    T = Tm // 2
+    flops = 2 * B * Tm * (3 * C0 * nq + nq * D) + 2 * B * T * (3 * D * nq + nq * D)
+    flops += 2 * 2 * B * (Tm + T) * (2 * nq * (1 << nq) + (1 << nq) * nq)
+    return flops, 4 * B * C0 * Tm + s * B * T * D
+
+
+def aten_calls(fn):
+    """The ATen operator calls one call of ``fn`` makes (each launches at
+    most a kernel or two on the card; views launch none)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
+
+
+def quantum_stage_split(port, model, pcm, fp16, label, repeats=3):
+    """``repeats`` warm batches, each split by CUDA events into mel (PCM
+    host to log-mel on the card), the quantum stem, the trunk and decode
+    (prompt, greedy loop, results): the median ms of each stage, and every
+    batch's."""
+    from qasr_ijcnlp_tpu_torch.models.quantum import quantum_stem
+    from qasr_ijcnlp_tpu_torch.models.whisper import transformer_trunk
+
+    dt = torch.bfloat16 if fp16 else torch.float32
+    runs = []
+    for _ in range(repeats):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        torch.cuda.synchronize()
+        with torch.inference_mode():
+            ev[0].record()
+            mel = port.log_mel_spectrogram(pcm, n_mels=model.dims.n_mels, device=model.device)
+            ev[1].record()
+            x = quantum_stem(model.module.encoder, mel, dt)
+            ev[2].record()
+            feats = transformer_trunk(model.module.encoder, x, model.dims)
+            ev[3].record()
+            port.decode(model, feats, options(port, fp16))
+            ev[4].record()
+        ev[4].synchronize()
+        runs.append([a.elapsed_time(b) for a, b in zip(ev, ev[1:])])
+    names = ("mel", "quantum_stem", "trunk", "decode")
+    split = {k: float(np.median([r[i] for r in runs])) for i, k in enumerate(names)}
+    log(f"{label} stages B={pcm.shape[0]} {'bf16' if fp16 else 'f32'} (CUDA events, median "
+        f"of {repeats}): " + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
+        + f"; each: {[[round(v, 3) for v in r] for r in runs]}")
+    return {**split, "runs": runs}
+
+
+def quantum_tiny_path(port, dev, smi):
+    """(a) quantum tiny at full width (D 384, 4 + 4 layers, 80 mels, 4
+    qubits), B=16: synthetic PCM -> K1 -> quantum stem -> K4/K5 trunk ->
+    greedy 64 tokens, eot suppressed, in f32 and bf16 with exact launches
+    (K1 once, the stem kernel never, K4 = K5 = 4); f32 requests 0 and 1
+    against the CPU plain path; times, the stage split and the stem beside
+    its bound and beside K2 on the same mel."""
+    from qasr_ijcnlp_tpu_torch.models.dims import tiny_dims
+    from qasr_ijcnlp_tpu_torch.models.quantum import quantum_stem
+    from qasr_ijcnlp_tpu_torch.models.whisper import AudioEncoder
+    from qasr_ijcnlp_tpu_torch.ops import conv_stem
+    from qasr_ijcnlp_tpu_torch.ops.qsim import circuit_unitary
+
+    dims = tiny_dims()
+    gpu, cpu = quantum_model(port, dims, dev)
+    pcm16 = synthetic_pcm(16, SEED + 20)
+    expect = quantum_encoder_expect(dims, 1, 1)
+    res32, launches = counted_run(port, gpu, pcm16, expect, "quantum tiny")
+    check_results(res32, 16, dims)
+    paths = {"quantum tiny": launches}
+    cpu_res = run_requests(port, cpu, pcm16[:2], fp16=False)
+    for i in range(2):
+        if cpu_res[i].tokens == res32[i].tokens:
+            log(f"quantum tiny request {i}: f32 tokens identical to the CPU plain path")
+        else:
+            teacher_forced_check(port, cpu, cpu_features(port, cpu, pcm16[i]), res32[i],
+                                 f"quantum tiny request {i}")
+    cs = zero_counters()
+    res16 = run_requests(port, gpu, pcm16, fp16=True)
+    paths["quantum tiny bf16"] = read_counters(cs)
+    expect_launches("quantum tiny, bf16, 16 requests", paths["quantum tiny bf16"], expect)
+    check_results(res16, 16, dims)
+    same, total = token_agreement(res32, res16)
+    log(f"quantum tiny bf16 vs f32 token agreement: {same}/{total} = {same / total:.4f}")
+    timed_batches(port, gpu, pcm16, "quantum tiny", smi)
+    stages = {key: quantum_stage_split(port, gpu, pcm16, key == "bf16", "quantum tiny")
+              for _, key in dtypes()}
+
+    # the stem alone at B=16 beside its bound and beside K2 on the same mel
+    enc = gpu.module.encoder
+    T, Tp, D, H, C0, Tm = geometry(dims)
+    with torch.device(dev):
+        classical = AudioEncoder(C0, T, D, H, 0)
+    classical = classical.to(dev).requires_grad_(False)
+    stem = {}
+    with torch.inference_mode():
+        mel = port.log_mel_spectrogram(pcm16, n_mels=C0, device=dev)
+        for dt, key in dtypes():
+            ms = cuda_ms(lambda: quantum_stem(enc, mel, dt))
+            k2 = cuda_ms(lambda: conv_stem.fused_conv_stem(classical, mel, Tp, dt))
+            bound_ms, bound_by = bound(*stem_work_quantum(16, C0, Tm, D, N_QUBITS,
+                                                          elem_size(key)), "f32")
+            split = device_split(f"quantum stem tiny B=16 {key}",
+                                 lambda: quantum_stem(enc, mel, dt))
+            calls = aten_calls(lambda: quantum_stem(enc, mel, dt))
+            unitary = aten_calls(lambda: circuit_unitary(enc.qconv1.qweights, N_QUBITS))
+            stem[key] = {"ms": ms, "bound_ms": bound_ms, "bound_by": bound_by, "k2_ms": k2,
+                         "device_ms": sum(split.values()), "aten_calls": calls,
+                         "unitary_aten_calls": unitary, "split": split}
+            log(f"quantum stem tiny B=16 {key}: {ms:.4f} ms (bound {bound_ms:.4f} ms, "
+                f"{bound_by}); device time {stem[key]['device_ms']:.4f} ms; {calls} ATen "
+                f"calls, {unitary} of them each circuit unitary's; K2 on the same mel "
+                f"{k2:.4f} ms; {ms / stages[key]['trunk']:.3f} of the trunk's "
+                f"{stages[key]['trunk']:.3f} ms ({smi})")
+    QUANTUM_STAGES["quantum tiny"] = {"stages": stages, "stem": stem}
+    del gpu, cpu, classical, enc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths
+
+
+def quantum_large_phase(port, dev, smi):
+    """(b) a quantum large-v3 encoder pass (128 mels, D 1280, 32 layers,
+    B=2) through ``dispatch_encoder_apply``: the card's quantum stem against
+    the CPU's on the same mel, then one counted pass from PCM (K1 once, K8
+    exactly 32 times, the stem kernel and K4 never); times in f32 and
+    bf16."""
+    from qasr_ijcnlp_tpu_torch.models.dims import dims_for
+    from qasr_ijcnlp_tpu_torch.models.quantum import (
+        QuantumAudioEncoder, init_quantum_conv, quantum_stem,
+    )
+    from qasr_ijcnlp_tpu_torch.models.whisper import dispatch_encoder_apply
+
+    dims = dims_for("large-v3")
+    T, Tp, D, H, C0, Tm = geometry(dims)
+    torch.manual_seed(SEED + 21)
+    with torch.device(dev):
+        enc = QuantumAudioEncoder(C0, T, D, H, dims.n_audio_layer, N_QUBITS)
+    g = torch.Generator().manual_seed(SEED + 22)
+    for name, c_in in (("qconv1", C0), ("qconv2", D)):
+        getattr(enc, name).load_state_dict(init_quantum_conv(g, c_in, D, 3, N_QUBITS))
+    enc = enc.to(dev).eval().requires_grad_(False)
+    pcm = synthetic_pcm(2, SEED + 23)
+    res = {}
+    with torch.inference_mode():
+        mel = port.log_mel_spectrogram(pcm, n_mels=C0, device=dev)
+        stem_cpu = SimpleNamespace(qconv1=copy.deepcopy(enc.qconv1).cpu(),
+                                   qconv2=copy.deepcopy(enc.qconv2).cpu(),
+                                   positional_embedding=enc.positional_embedding.cpu())
+        want = quantum_stem(stem_cpu, mel.cpu())
+        got = quantum_stem(enc, mel)
+        err = float((got.cpu() - want).abs().max())
+        if got.shape != (2, T, D) or not torch.isfinite(got).all() or err > TOL["f32"]:
+            raise AssertionError(f"quantum stem large-v3: error {err} (tol {TOL['f32']}), "
+                                 f"shape {tuple(got.shape)}")
+        log(f"quantum stem large-v3 B=2 f32: card vs CPU max_abs_err {err:.3e} "
+            f"(tol {TOL['f32']:.0e})")
+        res["stem_max_abs_err"] = err
+        cs = zero_counters()
+        mel = port.log_mel_spectrogram(pcm, n_mels=C0, device=dev)
+        feats = dispatch_encoder_apply(enc, mel, dims)
+        launches = read_counters(cs)
+        expect_launches("quantum large-v3 encoder, f32, B=2", launches,
+                        quantum_encoder_expect(dims, 1, 1))
+        if feats.shape != (2, T, D) or not torch.isfinite(feats).all():
+            raise AssertionError("quantum large-v3: bad encoder output")
+        for dt, key in dtypes():
+            res[key] = {"stem_ms": cuda_ms(lambda: quantum_stem(enc, mel, dt), iters=5),
+                        "encoder_ms": cuda_ms(lambda: dispatch_encoder_apply(enc, mel, dims,
+                                                                             dt),
+                                              iters=3, warmup=1)}
+            log(f"quantum large-v3 B=2 {key}: stem {res[key]['stem_ms']:.4f} ms, encoder "
+                f"{res[key]['encoder_ms']:.3f} ms (CUDA events; {smi})")
+    QUANTUM_STAGES["quantum large-v3"] = res
+    del enc, feats, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"quantum large-v3": launches}
+
+
+def char_check(label, card_ids, cpu_logits, max_steps=None):
+    """Teacher-forced check of a card's char ids (B, T) against the CPU's
+    logits (B, T, C) on those ids: every chosen char within CHAR_TIE of the
+    CPU's top logit, up to and including each row's first <END>."""
+    from qasr_ijcnlp_tpu_torch.data import END
+
+    worst, steps = 0.0, 0
+    for b in range(card_ids.shape[0]):
+        for t in range(card_ids.shape[1] if max_steps is None else max_steps):
+            c = int(card_ids[b, t])
+            behind = float(cpu_logits[b, t].max() - cpu_logits[b, t, c])
+            worst = max(worst, behind)
+            steps += 1
+            if behind > CHAR_TIE:
+                raise AssertionError(f"{label}: row {b} step {t}: card char {c} is "
+                                     f"{behind:.3e} below the CPU's top logit")
+            if c == END:
+                break
+    log(f"{label}: {steps} card chars within {worst:.3e} of the CPU's top logit "
+        f"(tie {CHAR_TIE:g})")
+
+
+def char_asr_phase(port, gpu, cpu, dev, smi):
+    """(c) char ASR evaluation at quantum tiny: 16 synthetic LibriSpeech
+    test items, B=8, with the LSTM head (384 wide, 2 layers, 100 chars) and
+    the MLP head teacher-forced and decoding; each evaluation counted (K1
+    once an item, the trunk's kernels once a batch, the stem kernel never)
+    and its CER/WER printed; the card's char ids against the CPU's logits on
+    the same encoder input."""
+    from qasr_ijcnlp_tpu_torch.data import (
+        CharASRView, CharVocabulary, END, START, dataset_texts, load_librispeech,
+    )
+    from qasr_ijcnlp_tpu_torch.data.loader import DataLoader
+    from qasr_ijcnlp_tpu_torch.models import asr
+    from qasr_ijcnlp_tpu_torch.train.loops import encoder_fn_for, evaluate_char_asr
+
+    dims = gpu.dims
+    base = load_librispeech("test", CHAR_ITEMS, verbose=False)
+    if not getattr(base, "is_synthetic", False):
+        raise AssertionError("expected the synthetic LibriSpeech set")
+    vocab = CharVocabulary.build(dataset_texts(base))
+    D = dims.n_audio_state
+    heads_cpu = {
+        "lstm": asr.init_lstm_decoder(torch.Generator().manual_seed(SEED + 30), D,
+                                      vocab.num_chars, CHAR_HIDDEN, CHAR_LAYERS),
+        # the MLP head's width is the encoder's (audio and char rows share it)
+        "mlp": asr.init_mlp_head(torch.Generator().manual_seed(SEED + 31), D,
+                                 vocab.num_chars, D, CHAR_LAYERS),
+    }
+    heads = {k: copy.deepcopy(h).to(dev).requires_grad_(False) for k, h in heads_cpu.items()}
+    loader = DataLoader(CharASRView(base, vocab, CHAR_MAX_LEN, device=dev), CHAR_BATCH,
+                        shuffle=False)
+    n_batches = -(-CHAR_ITEMS // CHAR_BATCH)
+    expect = quantum_encoder_expect(dims, n_batches, CHAR_ITEMS)
+    encoder_apply = encoder_fn_for(gpu)
+    paths, results = {}, {}
+    for kind, real in (("lstm", False), ("mlp", False), ("mlp", True)):
+        label = f"char asr {kind}" + (" real_decode" if real else "")
+        params = {"encoder": gpu.module.encoder, "head": heads[kind]}
+        cs = zero_counters()
+        t0 = time.perf_counter()
+        results[label] = evaluate_char_asr(params, encoder_apply, kind, loader, vocab,
+                                           CHAR_MAX_LEN, real)
+        torch.cuda.synchronize()
+        results[label]["seconds"] = time.perf_counter() - t0
+        paths[label] = read_counters(cs)
+        expect_launches(f"{label}, f32, {CHAR_ITEMS} items", paths[label], expect)
+        log(f"{label}: CER {results[label]['cer']:.4f} WER {results[label]['wer']:.4f} "
+            f"loss {results[label]['loss']:.4f} ({results[label]['seconds']:.2f} s; {smi})")
+
+    # the card's ids against the CPU's logits, batch by batch
+    with torch.inference_mode():
+        for mel, char_ids in loader:
+            mel_d = torch.from_numpy(mel).to(dev)
+            enc = encoder_apply(gpu.module.encoder, mel_d)
+            enc_cpu = encoder_apply(cpu.module.encoder, mel_d.cpu())
+            ids = torch.from_numpy(char_ids).long()
+            start = torch.full((ids.shape[0], 1), START, dtype=torch.long)
+            out, _ = asr.lstm_greedy_decode(heads["lstm"], enc, START, END, CHAR_MAX_LEN)
+            out = out.cpu()
+            char_check("char asr lstm", out, asr.lstm_teacher_forced(
+                heads_cpu["lstm"], enc_cpu, torch.cat([start, out], 1)))
+            tf = asr.mlp_head_char_logits(heads["mlp"], enc, ids.to(dev)).argmax(-1).cpu()
+            char_check("char asr mlp", tf, asr.mlp_head_char_logits(
+                heads_cpu["mlp"], enc_cpu, ids), max_steps=tf.shape[1])
+            out, _ = asr.mlp_greedy_decode(heads["mlp"], enc, START, END, CHAR_MAX_LEN)
+            out = out.cpu()
+            char_check("char asr mlp real_decode", out, asr.mlp_head_char_logits(
+                heads_cpu["mlp"], enc_cpu, torch.cat([start, out], 1)))
+    QUANTUM_STAGES["char asr"] = results
+    return paths, heads["lstm"], vocab, results["char asr lstm"]
+
+
+def cli_phase(port, gpu, lstm, vocab, lstm_result, smi):
+    """(d) both evaluation CLIs in this process with ``--device cuda`` from a
+    temporary directory: the quantum ASR CLI on a numpy-pickle
+    checkpoint written here in the JAX package's layout (the quantum
+    encoder and the LSTM head of phase (c)), its CER equal to phase (c)'s
+    on the same items; the classification CLI on classical tiny (the stem
+    kernel launched) and on quantum tiny (never)."""
+    import os
+    import pickle
+    import shutil
+    import tempfile
+
+    from qasr_ijcnlp_tpu_torch.cli import evaluate_quantum_whisper_asr as qcli
+    from qasr_ijcnlp_tpu_torch.cli import evaluate_whisper_pretrained_modified_gspeech as gcli
+    from qasr_ijcnlp_tpu_torch.models.convert import to_jax_encoder, to_jax_head
+
+    dims = gpu.dims
+    work = tempfile.mkdtemp(prefix="qasr_quantum_cli_")
+    ckpt = os.path.join(work, "best_cer")
+    with open(ckpt + ".pkl", "wb") as f:
+        pickle.dump({"encoder": to_jax_encoder(gpu.module.encoder, dims),
+                     "head": to_jax_head(lstm)}, f)
+    with open(ckpt + ".meta.json", "w") as f:
+        json.dump({"char_vocab": vocab.to_json()}, f)
+    here = os.getcwd()
+    os.chdir(work)
+    paths, out = {}, {}
+    try:
+        runs = (
+            ("cli quantum asr", qcli.main, ["--model_path", ckpt, "--batch_size",
+                                            str(CHAR_BATCH), "--max_samples", str(CHAR_ITEMS),
+                                            "--max_text_len", str(CHAR_MAX_LEN)],
+             quantum_encoder_expect(dims, 2, CHAR_ITEMS)),
+            ("cli gspeech classical", gcli.main, ["--batch_size", "16", "--max_samples", "16",
+                                                  "--n_repeats", "2"],
+             {**FUSED_EXPECT, "mel": 16, "stem": 1, "attn": 4, "finish": 4}),
+            ("cli gspeech quantum", gcli.main, ["--model_size", "quantum-tiny",
+                                                "--batch_size", "16", "--max_samples", "16"],
+             quantum_encoder_expect(dims, 1, 16)),
+        )
+        for label, main_fn, argv, expect in runs:
+            cs = zero_counters()
+            t0 = time.perf_counter()
+            out[label] = main_fn(argv + ["--device", "cuda"])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            paths[label] = read_counters(cs)
+            expect_launches(label, paths[label], expect)
+            log(f"{label}: " + json.dumps({k: v for k, v in out[label].items()
+                                           if k in ("cer", "wer", "accuracy")})
+                + f" ({seconds:.2f} s; {smi})")
+    finally:
+        os.chdir(here)
+        shutil.rmtree(work, ignore_errors=True)
+    if (out["cli quantum asr"]["cer"], out["cli quantum asr"]["wer"]) != \
+            (lstm_result["cer"], lstm_result["wer"]):
+        raise AssertionError(f"quantum ASR CLI: CER/WER {out['cli quantum asr']['cer']}, "
+                             f"{out['cli quantum asr']['wer']} differ from the in-process "
+                             f"evaluation's {lstm_result['cer']}, {lstm_result['wer']}")
+    log("quantum ASR CLI: CER and WER equal to the in-process evaluation of the same "
+        "checkpoint")
+    for label in ("cli gspeech classical", "cli gspeech quantum"):
+        if not 0.0 <= out[label]["accuracy"] <= 1.0:
+            raise AssertionError(f"{label}: accuracy {out[label]['accuracy']}")
+    QUANTUM_STAGES["cli"] = {k: {m: v for m, v in o.items() if m in ("cer", "wer", "accuracy")}
+                             for k, o in out.items()}
+    return paths
+
+
+def quantum_phases(port, dev, smi):
+    """Phases (a)-(d): the source paper's model on the card."""
+    from qasr_ijcnlp_tpu_torch.models.dims import tiny_dims
+
+    t0 = time.perf_counter()
+    paths = quantum_tiny_path(port, dev, smi)
+    paths.update(quantum_large_phase(port, dev, smi))
+    gpu, cpu = quantum_model(port, tiny_dims(), dev)
+    cpaths, lstm, vocab, lstm_result = char_asr_phase(port, gpu, cpu, dev, smi)
+    paths.update(cpaths)
+    paths.update(cli_phase(port, gpu, lstm, vocab, lstm_result, smi))
+    del gpu, cpu, lstm
+    gc.collect()
+    torch.cuda.empty_cache()
+    QUANTUM_STAGES["seconds"] = time.perf_counter() - t0
+    log(f"quantum phases seconds: {QUANTUM_STAGES['seconds']:.1f}")
+    return paths
+
+
+def quantum_run(port, dev, smi):
+    """``python3 chip_smoke.py --quantum``: phases (a)-(d) alone, with
+    their launch counts and checks as in the full run; the stages and
+    launches as one JSON line."""
+    paths = quantum_phases(port, dev, smi)
+    log(json.dumps({"quantum_stages": QUANTUM_STAGES, "quantum_launches": paths}))
+    log(smi)
+
+
 def kernel_table(kres, by_path):
     """The per-kernel JSON entries: each row's f32 (and bf16) measurements
     and its launches on its path's counted batch and on every path."""
@@ -2955,17 +3383,22 @@ def main():
         run(port, dev, smi, stages=sys.argv[2:] == ["--stages"])
         return
     modes = {"--stem": stem_run, "--attn": attn_run, "--diag": diag_run,
-             "--longform": longform_run, "--services": services_run}
+             "--longform": longform_run, "--services": services_run,
+             "--quantum": quantum_run}
     if len(sys.argv) == 2 and sys.argv[1] in modes:
         modes[sys.argv[1]](port, dev, smi)
+        log(f"total seconds: {time.perf_counter() - t_start:.1f}")
+        ok_line()
         return
     if sys.argv[1:]:
         print(f"usage: python3 chip_smoke.py [--stem | --attn | --diag | --longform | "
-              f"--services | --k9 | --k10 [--stages]]; got {sys.argv[1:]}", file=sys.stderr)
+              f"--services | --quantum | --k9 | --k10 [--stages]]; got {sys.argv[1:]}",
+              file=sys.stderr)
         raise SystemExit(2)
 
     kres, by_path = tiny_path(port, tiny_dims(), dev, smi)
     by_path.update(tiny_services(port, dev, smi))
+    by_path.update(quantum_phases(port, dev, smi))
     # == medium and large-v3, full width and depth ==================================
     medium, large = dims_for("medium"), dims_for("large-v3")
     mres, mpaths = family_path(port, "medium", medium, dev, smi, FUSED_EXPECT,
@@ -2991,9 +3424,14 @@ def main():
     kernels = kernel_table(kres, by_path)
     log(json.dumps({"longform_stages": LONGFORM_STAGES}))
     log(json.dumps({"service_stages": SERVICE_STAGES}))
+    log(json.dumps({"quantum_stages": QUANTUM_STAGES}))
     log(f"total seconds: {time.perf_counter() - t_start:.1f}")
     log(json.dumps({"kernels": kernels}))
     log(smi)
+    ok_line()
+
+
+def ok_line():
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -8,8 +8,11 @@ transcription with word timings (``model.transcribe``, the
 transcribe``), audio files and local checkpoints; the decode services
 (speculative decoding with ``Draft``, the continuous-batching
 ``decode.engine.DecodeEngine``, the HTTP server ``serving`` and online
-sessions ``streaming``); and the JAX package's TPU kernels rewritten by
-hand for Hopper (``csrc/``).  The package imports
+sessions ``streaming``); the source paper's model at inference (the
+quantum Whisper encoder ``models.quantum``, the character-ASR heads
+``models.asr``, the classifier, ``data``, ``metrics`` and the two
+evaluation CLIs); and the JAX package's TPU kernels rewritten by hand for
+Hopper (``csrc/``).  The package imports
 torch and numpy and never JAX or the JAX package, which stays beside it as
 the reference.
 """

@@ -1,11 +1,13 @@
-"""ctypes binding of the native audio decoders (``native/*.cpp``).
+"""ctypes binding of the native audio decoders and edit distance
+(``native/*.cpp``).
 
-The port keeps its own copies of the JAX package's WAV, FLAC and
-resampling sources (``tests/test_torch_io.py`` holds them equal byte for
-byte, but for the reference's paths in comments) and builds them with the
-system ``g++`` at first use into ``native/build/libqasr_torch_audio_<hash>
-.so`` (keyed by the sources' hash).  A ``None`` handle (no ``g++``) sends
-the caller to the stdlib WAV decoder, a host decoding path.
+The port keeps its own copies of the JAX package's WAV, FLAC, resampling
+and Levenshtein sources (``tests/test_torch_io.py`` and
+``tests/test_torch_packaging.py`` hold them equal byte for byte, but for
+the reference's paths in comments) and builds them with the system ``g++``
+at first use into ``native/build/libqasr_torch_audio_<hash>.so`` (keyed by
+the sources' hash).  A ``None`` handle (no ``g++``) sends the caller to the
+stdlib WAV decoder or the numpy edit distance, host paths.
 """
 
 from __future__ import annotations
@@ -20,12 +22,13 @@ import numpy as np
 
 _NATIVE_DIR = os.path.join(os.path.dirname(__file__), "native")
 _BUILD_DIR = os.path.join(_NATIVE_DIR, "build")
-SOURCES = ("wavio.cpp", "flac.cpp", "resample.cpp")
+SOURCES = ("wavio.cpp", "flac.cpp", "resample.cpp")  # the audio decoders
+EDITDIST = "editdist.cpp"  # the Levenshtein core of ``metrics``
 
 
 def sources():
     """The native sources the library is built from (package data)."""
-    return [os.path.join(_NATIVE_DIR, s) for s in SOURCES]
+    return [os.path.join(_NATIVE_DIR, s) for s in (*SOURCES, EDITDIST)]
 
 
 def _build() -> Optional[str]:
@@ -60,6 +63,9 @@ def _lib() -> Optional[ctypes.CDLL]:
                 fn.restype = ctypes.c_int64
                 fn.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_int32,
                                ctypes.POINTER(ctypes.c_float), ctypes.c_int64]
+            i32p = ctypes.POINTER(ctypes.c_int32)
+            _LIB.qasr_levenshtein.restype = ctypes.c_int32
+            _LIB.qasr_levenshtein.argtypes = [i32p, ctypes.c_int32, i32p, ctypes.c_int32]
     return _LIB
 
 
@@ -94,3 +100,16 @@ def native_flac_decode(data: bytes, target_rate: int = 16000):
     """FLAC bytes -> mono float32 at ``target_rate``; as
     :func:`native_wav_decode`."""
     return _decode("qasr_flac_decode", "FLAC", data, target_rate)
+
+
+def native_levenshtein(a_ids, b_ids) -> Optional[int]:
+    """Edit distance over two int-id sequences by the C++ core; None
+    without the library."""
+    lib = _lib()
+    if lib is None:
+        return None
+    a = np.ascontiguousarray(a_ids, np.int32)
+    b = np.ascontiguousarray(b_ids, np.int32)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    return int(lib.qasr_levenshtein(a.ctypes.data_as(i32p), len(a), b.ctypes.data_as(i32p),
+                                    len(b)))

@@ -35,3 +35,13 @@ def load_model_with_fallback(name: str, compute_dtype: str = "float32", device="
             "meaningless, but the pipeline is exercised end-to-end."
         )
     return model
+
+
+def load_checkpoint_into(module, state_dict, device):
+    """``module`` holding ``state_dict`` (names and shapes must match, as the
+    JAX package restores onto a target tree) on ``device``, frozen.  The
+    tensors replace the module's own (``assign``), so weight packs kept for
+    the old ones are rebuilt at first use."""
+    module.load_state_dict({k: v.to(device) for k, v in state_dict.items()}, strict=True,
+                           assign=True)
+    return module.to(device).eval().requires_grad_(False)

@@ -98,7 +98,7 @@ def _audio_features(model_obj, mel: torch.Tensor, fp16: bool) -> torch.Tensor:
     dims = model_obj.dims
     if tuple(mel.shape[-2:]) == (dims.n_audio_ctx, dims.n_audio_state):
         return mel  # already encoded
-    return model.encoder_apply(
+    return model.dispatch_encoder_apply(
         model_obj.module.encoder, mel, dims, _compute_dtype(fp16, mel.device)
     )
 
@@ -426,7 +426,8 @@ class DecodingTask:
 
             dm = self.options.draft.model
             dt = self.draft_cfg.compute_dtype
-            xa_d = model.encoder_apply(dm.module.encoder, draft_mel.to(dm.device), dm.dims, dt)
+            xa_d = model.dispatch_encoder_apply(dm.module.encoder, draft_mel.to(dm.device),
+                                                dm.dims, dt)
             buf, _, sum_lp, no_speech, self.last_spec_rounds = spec_greedy_decode(
                 decoder, dm.decoder_for(dt), self.loop_cfg, self.draft_cfg, audio_features,
                 xa_d, init_rep, gamma, cross_decoder, spec_events)

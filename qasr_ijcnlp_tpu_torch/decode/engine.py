@@ -97,7 +97,7 @@ def _admit_frontend(model_obj, cfg: LoopConfig, payload, init_tokens, scales,
     a fixed language."""
     dims = cfg.dims
     mels = wire_log_mel(payload, scales, dims.n_mels) if audio_frontend else payload
-    xa = model.encoder_apply(model_obj.module.encoder, mels, dims, cfg.compute_dtype)
+    xa = model.dispatch_encoder_apply(model_obj.module.encoder, mels, dims, cfg.compute_dtype)
     if not detect:
         return xa, init_tokens, torch.full_like(init_tokens[:, 0], -1)
     sot = init_tokens[:, cfg.sot_index:cfg.sot_index + 1]

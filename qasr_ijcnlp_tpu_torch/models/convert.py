@@ -12,8 +12,15 @@ The JAX package stores its parameters as a tree of arrays with every
 transformer block stacked on a leading layer axis, Linear weights ``(in,
 out)`` and conv weights ``(O, I, K)`` (``qasr_ijcnlp_tpu/models/whisper.py``).
 :func:`from_jax_params` maps that tree, given as numpy arrays, onto the
-state-dict names and layouts.  It mirrors the JAX package's
+state-dict names and layouts, classical or quantum stem alike (a quantum
+encoder holds ``qconv1``/``qconv2``: ``pre_w`` (in, out) becomes
+``qconv1.pre.weight`` (out, in), and so on); :func:`from_jax_encoder` maps
+an encoder tree alone, :func:`from_jax_head` a task head (the MLP and LSTM
+character heads, the classifier).  It mirrors the JAX package's
 ``to_torch_state_dict`` without importing it, so the port never imports JAX.
+:func:`to_jax_encoder` and :func:`to_jax_head` go the other way, to numpy
+trees in the JAX layout (the JAX package's checkpoint pickles hold such
+trees).
 """
 
 from __future__ import annotations
@@ -63,18 +70,36 @@ def _layer(tree, i):
     return np.asarray(tree)[i]
 
 
+def _quantum_conv(out, prefix, p):
+    _linear(out, f"{prefix}.pre", {"w": p["pre_w"], "b": p["pre_b"]})
+    _linear(out, f"{prefix}.post", {"w": p["post_w"], "b": p["post_b"]})
+    out[f"{prefix}.qweights"] = _tensor(p["qweights"])
+
+
+def from_jax_encoder(enc: Dict[str, Any], dims: ModelDimensions,
+                     prefix: str = "encoder") -> Dict[str, torch.Tensor]:
+    """A JAX encoder tree (numpy leaves), classical or quantum stem, -> the
+    port's encoder state dict under ``prefix`` ("" for the encoder module's
+    own names)."""
+    out: Dict[str, torch.Tensor] = {}
+    pre = f"{prefix}." if prefix else ""
+    if "qconv1" in enc:
+        for name in ("qconv1", "qconv2"):
+            _quantum_conv(out, f"{pre}{name}", enc[name])
+    else:
+        for name in ("conv1", "conv2"):
+            out[f"{pre}{name}.weight"] = _tensor(enc[name]["w"])
+            out[f"{pre}{name}.bias"] = _tensor(enc[name]["b"])
+    out[f"{pre}positional_embedding"] = _tensor(enc["pos"])
+    for i in range(dims.n_audio_layer):
+        _block(out, f"{pre}blocks.{i}", _layer(enc["blocks"], i))
+    _ln(out, f"{pre}ln_post", enc["ln_post"])
+    return out
+
+
 def from_jax_params(tree: Dict[str, Any], dims: ModelDimensions) -> Dict[str, torch.Tensor]:
     """JAX parameter tree (numpy leaves) -> the port's state dict."""
-    out: Dict[str, torch.Tensor] = {}
-    enc = tree["encoder"]
-    for name in ("conv1", "conv2"):
-        out[f"encoder.{name}.weight"] = _tensor(enc[name]["w"])
-        out[f"encoder.{name}.bias"] = _tensor(enc[name]["b"])
-    out["encoder.positional_embedding"] = _tensor(enc["pos"])
-    for i in range(dims.n_audio_layer):
-        _block(out, f"encoder.blocks.{i}", _layer(enc["blocks"], i))
-    _ln(out, "encoder.ln_post", enc["ln_post"])
-
+    out = from_jax_encoder(tree["encoder"], dims)
     dec = tree["decoder"]
     out["decoder.token_embedding.weight"] = _tensor(dec["tok_emb"])
     out["decoder.positional_embedding"] = _tensor(dec["pos_emb"])
@@ -82,6 +107,112 @@ def from_jax_params(tree: Dict[str, Any], dims: ModelDimensions) -> Dict[str, to
         _block(out, f"decoder.blocks.{i}", _layer(dec["blocks"], i))
     _ln(out, "decoder.ln", dec["ln"])
     return out
+
+
+def from_jax_head(tree: Any, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """A JAX task-head tree (numpy leaves) -> the state dict of the port's
+    head module: each ``{"w", "b"}`` Linear becomes ``weight`` (its
+    transpose) and ``bias``, list items are numbered, other arrays
+    (``char_emb``, ``pos``) keep their names.  The MLP and LSTM character
+    heads (``models.asr``) and the classifier (``models.classifier``)."""
+    out: Dict[str, torch.Tensor] = {}
+    if isinstance(tree, dict) and "w" in tree and set(tree) <= {"w", "b"}:
+        out[f"{prefix}weight"] = _tensor(np.asarray(tree["w"]).T)
+        if "b" in tree:
+            out[f"{prefix}bias"] = _tensor(tree["b"])
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(from_jax_head(v, f"{prefix}{k}."))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(from_jax_head(v, f"{prefix}{i}."))
+    else:
+        out[prefix.rstrip(".")] = _tensor(tree)
+    return out
+
+
+def _np(t) -> np.ndarray:
+    return t.detach().to("cpu", torch.float32).numpy().copy()
+
+
+def _state(module_or_sd) -> Dict[str, torch.Tensor]:
+    return module_or_sd.state_dict() if hasattr(module_or_sd, "state_dict") else module_or_sd
+
+
+def to_jax_head(module_or_sd) -> Any:
+    """The inverse of :func:`from_jax_head`: a head module (or its state
+    dict) -> a numpy tree in the JAX layout."""
+    sd = _state(module_or_sd)
+    tree: Dict[str, Any] = {}
+    for name, t in sd.items():
+        *path, leaf = name.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        if leaf == "weight" and t.dim() == 2:
+            node["w"] = _np(t).T.copy()
+        elif leaf == "bias" and ".".join(path + ["weight"]) in sd:
+            node["b"] = _np(t)
+        else:
+            node[leaf] = _np(t)
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: lists(v) for k, v in node.items()}
+        if node and all(k.isdigit() for k in node):
+            return [node[str(i)] for i in range(len(node))]
+        return node
+
+    return lists(tree)
+
+
+def _linear_np(sd, prefix):
+    p = {"w": _np(sd[f"{prefix}.weight"]).T.copy()}
+    if f"{prefix}.bias" in sd:
+        p["b"] = _np(sd[f"{prefix}.bias"])
+    return p
+
+
+def _ln_np(sd, prefix):
+    return {"g": _np(sd[f"{prefix}.weight"]), "b": _np(sd[f"{prefix}.bias"])}
+
+
+def _block_np(sd, prefix):
+    return {
+        "attn": {lin: _linear_np(sd, f"{prefix}.attn.{lin}")
+                 for lin in ("query", "key", "value", "out")},
+        "attn_ln": _ln_np(sd, f"{prefix}.attn_ln"),
+        "mlp": {"fc": _linear_np(sd, f"{prefix}.mlp.0"),
+                "proj": _linear_np(sd, f"{prefix}.mlp.2")},
+        "mlp_ln": _ln_np(sd, f"{prefix}.mlp_ln"),
+    }
+
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
+
+
+def to_jax_encoder(module_or_sd, dims: ModelDimensions) -> Dict[str, Any]:
+    """The inverse of :func:`from_jax_encoder` (prefix ""): an encoder
+    module (or its state dict), classical or quantum, -> a numpy tree in
+    the JAX layout, blocks stacked on a leading layer axis."""
+    sd = _state(module_or_sd)
+    enc: Dict[str, Any] = {}
+    if "qconv1.qweights" in sd:
+        for name in ("qconv1", "qconv2"):
+            pre, post = _linear_np(sd, f"{name}.pre"), _linear_np(sd, f"{name}.post")
+            enc[name] = {"pre_w": pre["w"], "pre_b": pre["b"], "post_w": post["w"],
+                         "post_b": post["b"], "qweights": _np(sd[f"{name}.qweights"])}
+    else:
+        for name in ("conv1", "conv2"):
+            enc[name] = {"w": _np(sd[f"{name}.weight"]), "b": _np(sd[f"{name}.bias"])}
+    enc["pos"] = _np(sd["positional_embedding"])
+    enc["blocks"] = _stack([_block_np(sd, f"blocks.{i}") for i in range(dims.n_audio_layer)])
+    enc["ln_post"] = _ln_np(sd, "ln_post")
+    return enc
 
 
 def from_torch_state_dict(sd: Dict[str, Any], dims: ModelDimensions) -> Dict[str, torch.Tensor]:

@@ -149,7 +149,8 @@ class WhisperModel:
     @torch.inference_mode()
     def embed_audio(self, mel):
         mel = torch.as_tensor(mel).to(self.device)
-        return _model.encoder_apply(self.module.encoder, mel, self.dims, self.compute_dtype)
+        return _model.dispatch_encoder_apply(self.module.encoder, mel, self.dims,
+                                             self.compute_dtype)
 
     @torch.inference_mode()
     def logits(self, tokens, audio_features):
@@ -263,5 +264,15 @@ def load_model(
 
 
 def save_model(model: WhisperModel, path: str) -> None:
-    """Save in the official .pt format (loadable by the reference)."""
+    """Save in the official .pt format (loadable by the reference).
+
+    Only classical-stem models map onto the official layout; a quantum-stem
+    model (``qconv1``/``qconv2`` in place of ``conv1``/``conv2``) has no
+    official format."""
+    if not hasattr(model.module.encoder, "conv1"):
+        raise ValueError(
+            "save_model exports the official .pt layout, which has no "
+            "quantum stem; save quantum models with "
+            "train.checkpoint.save_pytree instead"
+        )
     save_torch_checkpoint(path, model.module, model.dims)

@@ -268,6 +268,19 @@ def _mlp(mlp, x):
 # ---------------------------------------------------------------------------
 
 
+def dispatch_encoder_apply(encoder, mel, dims: ModelDimensions, compute_dtype=torch.float32):
+    """The one quantum-vs-classical encoder dispatch, which every encoder
+    call of the port takes (decode, the draft, the decode engine,
+    ``embed_audio``, ``forward``).  The variant comes from the encoder
+    module itself (a ``qconv1`` stem), so a caller can never pair quantum
+    weights with the classical stem."""
+    if hasattr(encoder, "qconv1"):
+        from .quantum import quantum_encoder_apply
+
+        return quantum_encoder_apply(encoder, mel, dims, compute_dtype)
+    return encoder_apply(encoder, mel, dims, compute_dtype)
+
+
 def encoder_apply(encoder: AudioEncoder, mel, dims: ModelDimensions,
                   compute_dtype=torch.float32):
     """Audio encoder forward: (B, n_mels, 2 n_audio_ctx) -> (B, n_audio_ctx, D)."""
@@ -387,7 +400,7 @@ def forward(module: Whisper, mel, tokens, dims: ModelDimensions,
             compute_dtype=torch.float32):
     """Full forward (reference Whisper.forward): mel (B, n_mels, 3000) and
     tokens (B, T) -> fp32 logits (B, T, vocab)."""
-    xa = encoder_apply(module.encoder, mel, dims, compute_dtype)
+    xa = dispatch_encoder_apply(module.encoder, mel, dims, compute_dtype)
     return decoder_apply(module.decoder, tokens, xa, dims, compute_dtype)
 
 

@@ -142,6 +142,17 @@ def test_port_runs_without_jax():
         from qasr_ijcnlp_tpu_torch import align, serving, streaming, transcribe  # noqa: F401
         from qasr_ijcnlp_tpu_torch.cli import transcribe as cli  # noqa: F401
         from qasr_ijcnlp_tpu_torch.decode import Draft, engine, speculative  # noqa: F401
+        from qasr_ijcnlp_tpu_torch import data, metrics, reporting  # noqa: F401
+        from qasr_ijcnlp_tpu_torch.cli import (  # noqa: F401
+            evaluate_quantum_whisper_asr, evaluate_whisper_pretrained_modified_gspeech)
+        from qasr_ijcnlp_tpu_torch.models import asr, classifier, quantum
+        from qasr_ijcnlp_tpu_torch.train import checkpoint, loops  # noqa: F401
+        q = quantum.QuantumWhisperModel.from_state_dict(
+            quantum.init_quantum_params(torch.Generator().manual_seed(0), dims, 3), dims, "cpu")
+        qr = port.decode(q, port.log_mel_spectrogram(pcm, device="cpu"), language="en",
+                         sample_len=4, without_timestamps=True)
+        assert len(qr.tokens) <= 4
+        assert metrics.calculate_wer(["a b"], ["a c"]) == 0.5
         s = port.decode(m, port.log_mel_spectrogram(pcm, device="cpu"), language="en",
                         sample_len=4, without_timestamps=True, draft=Draft(None, 2))
         assert s.tokens == r.tokens

@@ -936,3 +936,98 @@ def test_engine_pool_on_card_matches_cpu_decode(model, kind):
     else:
         assert decode_attn.launches > before
     assert [o["tokens"] for o in out] == [r.tokens for r in ref]
+
+
+# -- the quantum encoder, the char heads and the data views on the card -------------------
+
+def _quantum_pair(dims, dev, seed=2):
+    from qasr_ijcnlp_tpu_torch.models.quantum import QuantumWhisperModel, init_quantum_params
+
+    sd = init_quantum_params(torch.Generator().manual_seed(seed), dims, 4)
+    return (QuantumWhisperModel.from_state_dict(sd, dims, dev),
+            QuantumWhisperModel.from_state_dict(sd, dims, "cpu"))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_quantum_encoder_on_card(cuda_dev, dtype):
+    """The quantum stem on the card against the CPU's (f32: 1e-4; it runs
+    in f32 in both dtypes), then a counted encoder pass: the classical stem
+    kernel never, K4 and the finish once a layer."""
+    from qasr_ijcnlp_tpu_torch.models.quantum import quantum_stem
+
+    gpu, cpu = _quantum_pair(SMALL, cuda_dev)
+    mel = torch.randn(2, 80, 1000, generator=torch.Generator().manual_seed(3))
+    with torch.inference_mode():
+        got = quantum_stem(gpu.module.encoder, mel.to(cuda_dev), dtype)
+        want = quantum_stem(cpu.module.encoder, mel, dtype)
+        tol = 1e-4 if dtype == torch.float32 else 2 ** -7 * float(want.abs().max())
+        assert float((got.float().cpu() - want.float()).abs().max()) <= tol
+        conv_stem.launches = encoder_block.attn_launches = encoder_block.finish_launches = 0
+        feats = tmodel.dispatch_encoder_apply(gpu.module.encoder, mel.to(cuda_dev), SMALL,
+                                              dtype)
+        torch.cuda.synchronize()
+    assert conv_stem.launches == 0
+    assert encoder_block.attn_launches == encoder_block.finish_launches == SMALL.n_audio_layer
+    assert feats.shape == (2, 500, 128) and torch.isfinite(feats).all()
+    if dtype == torch.float32:
+        ref = tmodel.dispatch_encoder_apply(cpu.module.encoder, mel, SMALL)
+        assert float((feats.cpu() - ref).abs().max()) <= 1e-4
+
+
+def test_quantum_decode_on_card_matches_cpu(cuda_dev):
+    import qasr_ijcnlp_tpu_torch as port
+
+    gpu, cpu = _quantum_pair(SMALL, cuda_dev)
+    mel = np.random.default_rng(4).standard_normal((2, 80, 1000)).astype(np.float32)
+    opts = port.DecodingOptions(fp16=False, language="en", without_timestamps=True,
+                                sample_len=8)
+    assert [r.tokens for r in port.decode(gpu, mel, opts)] == \
+        [r.tokens for r in port.decode(cpu, mel, opts)]
+
+
+def test_char_heads_on_card_match_cpu(cuda_dev):
+    """The LSTM and MLP heads on the card against the CPU on the same
+    encoder output: logits to 1e-4, greedy ids equal."""
+    import copy
+
+    from qasr_ijcnlp_tpu_torch.models import asr
+
+    enc = torch.randn(3, 50, 128, generator=torch.Generator().manual_seed(5))
+    ids = torch.randint(0, 30, (3, 12), generator=torch.Generator().manual_seed(6))
+    for init, hidden in ((asr.init_lstm_decoder, 64), (asr.init_mlp_head, 128)):
+        head = init(torch.Generator().manual_seed(7), 128, 30, hidden, 2)
+        card = copy.deepcopy(head).to(cuda_dev)
+        with torch.inference_mode():
+            if init is asr.init_lstm_decoder:
+                pairs = [(asr.lstm_teacher_forced, (enc, ids))]
+                greedy = asr.lstm_greedy_decode
+            else:
+                pairs = [(asr.mlp_head_apply, (enc, ids)), (asr.mlp_head_char_logits, (enc, ids))]
+                greedy = asr.mlp_greedy_decode
+            for fn, (e, i) in pairs:
+                got = fn(card, e.to(cuda_dev), i.to(cuda_dev)).cpu()
+                assert float((got - fn(head, e, i)).abs().max()) <= 1e-4
+            out, n = greedy(card, enc.to(cuda_dev), 2, 3, 20)
+            want, wn = greedy(head, enc, 2, 3, 20)
+        assert torch.equal(out.cpu(), want) and torch.equal(n.cpu(), wn)
+
+
+def test_data_views_and_prefetch_on_card(cuda_dev):
+    """A view asked for the card computes its mel there (K1 once an item) and
+    returns numpy within the mel tolerance of the CPU's; the prefetcher
+    lands batches on the card through pinned memory."""
+    from qasr_ijcnlp_tpu_torch.data import CharASRView, CharVocabulary, SyntheticLibriSpeech
+    from qasr_ijcnlp_tpu_torch.data.loader import DataLoader, prefetch_to_device
+
+    base = SyntheticLibriSpeech("test", 2)
+    vocab = CharVocabulary.build([base[i][1] for i in range(2)])
+    melfront.launches = 0
+    mel, ids = CharASRView(base, vocab, 32, device=cuda_dev)[0]
+    assert melfront.launches == 1 and isinstance(mel, np.ndarray)
+    ref, rids = CharASRView(base, vocab, 32, device="cpu")[0]
+    np.testing.assert_allclose(mel, ref, atol=2e-4, rtol=1e-4)
+    np.testing.assert_array_equal(ids, rids)
+    loader = DataLoader(CharASRView(base, vocab, 32, device=cuda_dev), 2, shuffle=False)
+    (m, i), = list(prefetch_to_device(iter(loader), device=cuda_dev))
+    assert m.device.type == "cuda" and i.device.type == "cuda"
+    np.testing.assert_allclose(m[0].cpu().numpy(), ref, atol=2e-4, rtol=1e-4)

@@ -2,14 +2,18 @@
 
 The port reads its tokenizer's rank tables (``tokenizer/bpe.py``),
 compiles its CUDA sources (``_kernels.py``) and its native audio decoders
-(``_native.py``) from files beside its modules, so each must match a
-``[tool.setuptools.package-data]`` glob of ``pyproject.toml``, or an
-installed port has no tokenizer, no kernels or no file decoders.
+and edit distance (``_native.py``) from files beside its modules, and its
+English normalizer reads ``metrics/english_spelling.json``, so each must
+match a ``[tool.setuptools.package-data]`` glob of ``pyproject.toml``, or an
+installed port has no tokenizer, no kernels, no file decoders or no
+normalizer.  The port's copies of the edit distance and the spelling table
+are the JAX package's, byte for byte (but for a comment's path).
 """
 
 import fnmatch
 import glob
 import os
+import re
 import tomllib
 
 import pytest
@@ -19,8 +23,9 @@ from qasr_ijcnlp_tpu_torch.tokenizer import bpe
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = os.path.join(ROOT, "qasr_ijcnlp_tpu_torch")
+SPELLING = os.path.join(PACKAGE, "metrics", "english_spelling.json")
 OPENED = (sorted(glob.glob(os.path.join(bpe.ASSETS_DIR, "*.tiktoken"))) + _kernels._sources()
-          + _native.sources())
+          + _native.sources() + [SPELLING])
 
 
 def package_data():
@@ -49,10 +54,23 @@ def test_every_opened_file_is_listed():
     names = {os.path.basename(p) for p in OPENED}
     assert {"gpt2.tiktoken", "multilingual.tiktoken", "flash.cu", "attention_tc.cuh",
             "common.cuh", "gemm_tc.cuh", "hopper.cuh", "wavio.cpp", "flac.cpp",
-            "resample.cpp"} <= names
+            "resample.cpp", "editdist.cpp", "english_spelling.json"} <= names
 
 
 @pytest.mark.parametrize("path", OPENED, ids=lambda p: os.path.relpath(p, PACKAGE))
 def test_opened_file_is_package_data(path):
     assert os.path.isfile(path)
     assert shipped(path, package_data()), f"{path} matches no package-data glob"
+
+
+@pytest.mark.parametrize("rel", [("native", "editdist.cpp"),
+                                 ("metrics", "english_spelling.json")],
+                         ids=lambda r: r[1])
+def test_copies_equal_the_jax_package(rel):
+    """The edit distance cites the reference's utils.py by its own name, not
+    by where a checkout of it lay; otherwise both files are the JAX
+    package's."""
+    with open(os.path.join(ROOT, "qasr_ijcnlp_tpu", *rel), "rb") as f:
+        want = re.sub(rb"/[\w/]*/reference/", b"reference ", f.read())
+    with open(os.path.join(PACKAGE, *rel), "rb") as f:
+        assert f.read() == want
