@@ -10,6 +10,7 @@
     python3 chip_smoke.py --longform        # the long-form paths alone (tiny, large-v3)
     python3 chip_smoke.py --services        # the decode services alone (engine, speculative, HTTP)
     python3 chip_smoke.py --quantum         # the source paper's model alone (quantum, char ASR)
+    python3 chip_smoke.py --train           # training and the classical evaluation CLIs alone
 
 Drives the port's request path (qasr_ijcnlp_tpu_torch) at the full width of
 three Whisper sizes and of two head geometries at small's width, with random
@@ -150,7 +151,26 @@ and the opt-in fused step) and its grouped decodes (beam search, best-of):
    1e-4 of the CPU's top logit); (d) both evaluation CLIs in this
    process with ``--device cuda`` on a numpy-pickle checkpoint written
    here (the classification CLI on classical tiny and on quantum tiny);
-12. prints the long-form, service and quantum stages as JSON lines, the whole script's
+12. training (``--train``): (a) one step of the quantum tiny char-ASR model
+   (LSTM head, B=8, f32; trainable: the quantum layers and the head) and
+   of the classical tiny token model on the card and on the CPU plain
+   path from equal weights and batch: the loss, every trainable gradient
+   (none missing, finite) and each update against the CPU's, the frozen
+   trunk bit-identical, the forward's kernels counted and none in the
+   backward; (b) the three trainer CLIs with ``--device cuda`` from a
+   temporary directory (2 epochs over 16 synthetic items; the token
+   trainer with ``--grad_accum 2 --remat``): exact K1, stem, K4 and K5
+   counts, checkpoints, finite histories with no skipped batch, then the
+   token trainer resumed from its epoch-1 state for a third epoch (the
+   step count carries on); (c) token train steps at large-v3's full width
+   and depth (B=2, f32, remat: the stem once, K8 32 + 32 times a step),
+   step times and peak memory, the loss against the kernels-off path's;
+   (d) the tiny token step from PCM at B=8 in f32 and bf16 with the
+   kernels on and off (``set_flash_attention(False)`` +
+   ``set_fused_mel(False)``), in turns, median of 3; (e) the two classical
+   evaluation CLIs at tiny (16 items at B=16; ``transcribe`` on 4, no
+   failure sentinel);
+13. prints the long-form, service, quantum and training stages as JSON lines, the whole script's
    seconds, the per-kernel JSON line (every ported kernel with its
    launches, times, error and bound), the card line, then ``{"ok": true,
    "device": ...}`` as the last line.
@@ -3046,6 +3066,455 @@ def quantum_run(port, dev, smi):
     log(smi)
 
 
+# -- training: gradients through the card's kernels, the trainers, large-v3 --------------
+
+# Items and batch of the training phases (synthetic LibriSpeech / Speech
+# Commands), and the learning rate of the one-step checks.
+TRAIN_ITEMS, TRAIN_BATCH, STEP_LR = 16, 8, 1e-3
+# One step on the card against the CPU plain path from equal weights and
+# batch (f32): the loss within 1e-4 relative; each trainable leaf's
+# gradient within GRAD_TOL of its largest magnitude (the card's forward
+# runs the 3xTF32 kernels, each within 1e-5 of fp32, through the trunk and
+# the head, and its backward the plain versions in another summation
+# order); each trainable leaf's update within UPDATE_TOL of the CPU's in
+# L2 norm (Adam moves an element by g / (|g| + eps) lr: where |g| is near
+# eps = 1e-6, as in the embedding rows of tokens the batch lacks, that is
+# as sensitive as 1 / eps to the gradient's last bits, so single elements
+# may differ by a good part of lr); the frozen trunk bit for bit.
+GRAD_TOL, UPDATE_TOL = 1e-3, 1e-2
+# Stages, times and launches of the training phases.
+TRAIN_STAGES = {}
+
+
+def grad_step_check(label, card, cpu, loss_fn, mask, batch, expect, smi):
+    """One optimizer step of ``card`` and of ``cpu`` (modules with equal
+    weights) on ``batch`` (numpy): loss, every trainable gradient (none
+    missing, finite) and the parameters after the step against the CPU's;
+    frozen parameters bit-identical; the card's forward and backward
+    counted (``expect``: every kernel's Function launches in the forward
+    only)."""
+    from qasr_ijcnlp_tpu_torch.train import loops, step as tstep
+
+    out = {}
+    for side, module in (("card", card), ("cpu", cpu)):
+        dev = next(module.parameters()).device
+        mel, ids = (torch.from_numpy(np.ascontiguousarray(b)).to(dev) for b in batch)
+        ids = ids.long()
+        tx = tstep.make_optimizer(STEP_LR, trainable_mask=mask)
+        with loops._trainable(module, tx.trainable_mask):
+            named = tx.trainable(module)
+            before = {n: p.detach().clone() for n, p in module.named_parameters()}
+            cs = zero_counters()
+            t0 = time.perf_counter()
+            loss = loss_fn(module, mel, ids)
+            grads = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
+            if side == "card":
+                launches = read_counters(cs)
+                seconds = time.perf_counter() - t0
+            missing = [n for (n, _), g in zip(named, grads) if g is None]
+            if missing:
+                raise AssertionError(f"{label} ({side}): no gradient for {missing[:5]}")
+            bad = [n for (n, _), g in zip(named, grads) if not torch.isfinite(g).all()]
+            if bad:
+                raise AssertionError(f"{label} ({side}): non-finite gradient of {bad[:5]}")
+            state, met = tstep.make_train_step(loss_fn, tx)(tstep.init_state(module, tx),
+                                                            mel, ids)
+            if int(met["skipped"]):
+                raise AssertionError(f"{label} ({side}): the step was skipped")
+            after = {n: p.detach().clone() for n, p in module.named_parameters()}
+        frozen = [n for n in after if n not in tx.trainable_mask] if mask is not None else []
+        moved = [n for n in frozen if not torch.equal(after[n], before[n])]
+        if moved:
+            raise AssertionError(f"{label} ({side}): frozen parameters moved: {moved[:5]}")
+        out[side] = dict(loss=loss.item(), grads={n: g.detach().cpu() for (n, _), g in
+                                                   zip(named, grads)},
+                         update={n: (after[n] - before[n]).cpu() for n, _ in named},
+                         frozen=len(frozen))
+    expect_launches(f"{label}, forward + backward", launches, expect)
+    c, p = out["card"], out["cpu"]
+    if abs(c["loss"] - p["loss"]) > 1e-4 * abs(p["loss"]):
+        raise AssertionError(f"{label}: loss {c['loss']} vs the CPU's {p['loss']}")
+    worst_g = worst_p = 0.0
+    for n, g in p["grads"].items():
+        err = float((c["grads"][n] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+        worst_g = max(worst_g, err)
+        if err > GRAD_TOL:
+            raise AssertionError(f"{label}: gradient of {n} off by {err:.2e} of its max")
+        du, dp = c["update"][n], p["update"][n]
+        err = float((du - dp).norm()) / max(float(dp.norm()), 1e-30)
+        worst_p = max(worst_p, err)
+        if err > UPDATE_TOL:
+            raise AssertionError(f"{label}: the update of {n} off by {err:.2e} (L2, relative)")
+    TRAIN_STAGES[label] = {"loss": c["loss"], "cpu_loss": p["loss"],
+                           "trainable_leaves": len(p["grads"]), "frozen_leaves": c["frozen"],
+                           "worst_grad_rel_err": worst_g, "worst_update_rel_err": worst_p,
+                           "forward_backward_s": seconds}
+    log(f"{label}: loss {c['loss']:.6f} (CPU {p['loss']:.6f}), {len(p['grads'])} trainable "
+        f"leaves with finite gradients within {worst_g:.2e} of the CPU's, updates within "
+        f"{worst_p:.2e} (L2), {c['frozen']} frozen leaves bit-identical ({smi})")
+    return launches
+
+
+def train_grad_phase(port, dev, smi):
+    """(a) one step of the quantum tiny char-ASR model (LSTM head, B=8, f32;
+    trainable: the quantum layers and the head) and of the classical tiny
+    token model (every leaf trains) on the card and on the CPU plain path."""
+    from torch import nn
+
+    from qasr_ijcnlp_tpu_torch.data import (
+        CharASRView, CharVocabulary, TokenASRView, dataset_texts, load_librispeech,
+    )
+    from qasr_ijcnlp_tpu_torch.models import asr
+    from qasr_ijcnlp_tpu_torch.models.dims import tiny_dims
+    from qasr_ijcnlp_tpu_torch.models.quantum import trainable_mask
+    from qasr_ijcnlp_tpu_torch.models.whisper import init_params
+    from qasr_ijcnlp_tpu_torch.tokenizer import get_tokenizer
+    from qasr_ijcnlp_tpu_torch.train import loops, step as tstep
+
+    dims = tiny_dims()
+    base = load_librispeech("train.100", TRAIN_BATCH, verbose=False)
+    vocab = CharVocabulary.build(dataset_texts(base))
+    view = CharASRView(base, vocab, CHAR_MAX_LEN, device=dev)
+    batch = [np.stack(f) for f in zip(*(view[i] for i in range(TRAIN_BATCH)))]
+    gpu, cpu = quantum_model(port, dims, dev, seed=SEED + 50)
+    head = asr.init_lstm_decoder(torch.Generator().manual_seed(SEED + 51), dims.n_audio_state,
+                                 vocab.num_chars, CHAR_HIDDEN, CHAR_LAYERS)
+    card = nn.ModuleDict({"encoder": gpu.module.encoder, "head": copy.deepcopy(head).to(dev)})
+    # a copy: a module on the CPU may share its tensors with the state dict
+    host = nn.ModuleDict({"encoder": copy.deepcopy(cpu.module.encoder), "head": head})
+    mask = trainable_mask(card, extra_names=("head",))
+    paths = {"train char step": grad_step_check(
+        "train char step (quantum tiny, LSTM head, B=8, f32)", card, host,
+        loops.char_asr_loss_fn(loops.encoder_fn_for(gpu), "lstm"), mask, batch,
+        quantum_encoder_expect(dims, 1, 0), smi)}
+    del gpu, cpu, card, host
+
+    tok = get_tokenizer(True, num_languages=99, language="en", task="transcribe")
+    view = TokenASRView(base, tok, 64, dims.n_mels, device=dev)
+    batch = [np.stack(f) for f in zip(*(view[i] for i in range(TRAIN_BATCH)))]
+    sd = init_params(torch.Generator().manual_seed(SEED + 52), dims)
+    card = port.WhisperModel.from_state_dict(sd, dims, dev).module
+    host = port.WhisperModel.from_state_dict({k: v.clone() for k, v in sd.items()}, dims,
+                                             "cpu").module
+    paths["train token step"] = grad_step_check(
+        "train token step (classical tiny, B=8, f32)", card, host, tstep.whisper_loss_fn(dims),
+        None, batch, {**{k: 0 for k in FUSED_EXPECT}, **encoder_expect(dims, 1)}, smi)
+    return paths
+
+
+def _history_ok(path, label, epochs):
+    with open(path) as f:
+        hist = json.load(f)["epochs"]
+    if [e["epoch"] for e in hist] != list(epochs):
+        raise AssertionError(f"{label}: history epochs {[e['epoch'] for e in hist]}")
+    for e in hist:
+        if not math.isfinite(e["train_loss"]) or e["skipped"] != 0:
+            raise AssertionError(f"{label}: epoch {e}")
+    return hist
+
+
+def train_cli_phase(port, dev, smi):
+    """(b) the three trainer CLIs in this process with ``--device cuda`` from
+    a temporary directory (removed after): 2 epochs over 16 synthetic
+    items, checkpoints, histories and exact launches; then the token
+    trainer resumed from its epoch-1 state for a third epoch."""
+    import os
+    import shutil
+    import tempfile
+
+    from qasr_ijcnlp_tpu_torch.cli import train_classical_whisper_asr as tcli
+    from qasr_ijcnlp_tpu_torch.cli import train_quantum_whisper as qcli
+    from qasr_ijcnlp_tpu_torch.cli import train_quantum_whisper_asr as acli
+    from qasr_ijcnlp_tpu_torch.models.dims import tiny_dims
+
+    L = tiny_dims().n_audio_layer
+    n_val = TRAIN_ITEMS // 4
+    steps = -(-TRAIN_ITEMS // TRAIN_BATCH)  # optimizer steps an epoch
+    zero = {k: 0 for k in FUSED_EXPECT}
+    # the quantum trainers: the stem kernel never; K4/K5 once a layer per
+    # training forward and per validation batch; K1 once an item a pass
+    asr_expect = {**zero, "mel": 2 * (TRAIN_ITEMS + n_val), "attn": 2 * L * (steps + 1),
+                  "finish": 2 * L * (steps + 1)}
+    clf_expect = {**zero, "mel": 2 * (TRAIN_ITEMS + n_val) + n_val, "attn": L * 5,
+                  "finish": L * 5}  # one batch of 16 an epoch, 2 epochs of train + val, test
+    # the token trainer, --grad_accum 2 --remat: two micro-batches a step, each
+    # a stem pass and every block twice (forward, then its recompute in the
+    # backward); one validation batch an epoch
+    epoch_tok = {"mel": TRAIN_ITEMS + n_val, "stem": 2 * steps + 1,
+                 "attn": (2 * steps) * 2 * L + L, "finish": (2 * steps) * 2 * L + L}
+    tok_expect = {**zero, **{k: 2 * v for k, v in epoch_tok.items()}}
+    work = tempfile.mkdtemp(prefix="qasr_train_cli_")
+    here = os.getcwd()
+    os.chdir(work)
+    paths, out = {}, {}
+    common = ["--epochs", "2", "--max_samples", str(TRAIN_ITEMS), "--device", "cuda"]
+    runs = (
+        ("cli train_quantum_whisper_asr", acli.main,
+         common + ["--batch_size", str(TRAIN_BATCH), "--checkpoint_dir", "ck_asr"], asr_expect,
+         "quantum_whisper_asr_training_history.json", ("best_cer", "best_wer"), "ck_asr"),
+        ("cli train_quantum_whisper", qcli.main,
+         common + ["--batch_size", "16", "--checkpoint_dir", "ck_clf"], clf_expect,
+         "quantum_whisper_training_history.json", ("best_accuracy", "best_loss", "best_wer"),
+         "ck_clf"),
+        ("cli train_classical_whisper_asr", tcli.main,
+         common + ["--model_size", "tiny", "--batch_size", str(TRAIN_BATCH), "--grad_accum",
+                   "2", "--remat", "--save_every", "1", "--warmup_epochs", "1",
+                   "--checkpoint_dir", "ck_tok"], tok_expect,
+         "classical_whisper_asr_training_history.json",
+         ("best_wer", "best_wer_state", "state_epoch_0", "state_epoch_1"), "ck_tok"),
+    )
+    try:
+        for label, main_fn, argv, expect, hist, ckpts, ck_dir in runs:
+            cs = zero_counters()
+            t0 = time.perf_counter()
+            out[label] = main_fn(argv)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            paths[label] = read_counters(cs)
+            expect_launches(label, paths[label], expect)
+            epochs = _history_ok(hist, label, range(2))
+            missing = [c for c in ckpts if not os.path.exists(os.path.join(ck_dir, c + ".pkl"))]
+            if missing:
+                raise AssertionError(f"{label}: no checkpoint {missing}")
+            TRAIN_STAGES[label] = {"seconds": seconds, "epochs": epochs,
+                                   "best": out[label]["tracker"].best}
+            log(f"{label}: {seconds:.1f} s, train_loss "
+                f"{[round(e['train_loss'], 4) for e in epochs]}, best "
+                f"{out[label]['tracker'].best} ({smi})")
+        label = "cli train_classical_whisper_asr resumed"
+        cs = zero_counters()
+        resumed = tcli.main(runs[2][2][:1] + ["3"] + runs[2][2][2:]
+                            + ["--resume_state", "ck_tok/state_epoch_1"])
+        paths[label] = read_counters(cs)
+        expect_launches(label, paths[label], {**zero, **epoch_tok})
+        _history_ok(runs[2][4], label, [2])
+        if int(resumed["state"].step) != 3 * steps:
+            raise AssertionError(f"{label}: step {int(resumed['state'].step)}, expected "
+                                 f"{3 * steps}")
+        log(f"{label}: epoch 2 only, step count {int(resumed['state'].step)} = 3 x {steps} "
+            f"({smi})")
+    finally:
+        os.chdir(here)
+        shutil.rmtree(work, ignore_errors=True)
+    TRAIN_STAGES["resume_step"] = int(resumed["state"].step)
+    return paths
+
+
+def train_large_phase(port, dev, smi, steps=3):
+    """(c) token-ASR train steps at large-v3's full width and depth (B=2,
+    f32, remat; weights from a seeded torch.Generator): the stem (K3's
+    kernel at D 1280) once a step, K8 32 times in the forward and 32 in the
+    blocks' recompute; step times (CUDA events) and peak memory; the loss
+    against the plain versions' (``set_flash_attention(False)``)."""
+    from qasr_ijcnlp_tpu_torch.data import TokenASRView, load_librispeech
+    from qasr_ijcnlp_tpu_torch.models import whisper as tmodel
+    from qasr_ijcnlp_tpu_torch.models.dims import dims_for
+    from qasr_ijcnlp_tpu_torch.tokenizer import get_tokenizer
+    from qasr_ijcnlp_tpu_torch.train import loops, schedule, step as tstep
+
+    dims = dims_for("large-v3")
+    tok = get_tokenizer(True, num_languages=tmodel.num_languages(dims), language="en",
+                        task="transcribe")
+    view = TokenASRView(load_librispeech("train.100", 2, verbose=False), tok, 64, dims.n_mels,
+                        device=dev)
+    mel, ids = (torch.from_numpy(np.stack(f)).to(dev) for f in zip(view[0], view[1]))
+    ids = ids.long()
+    module = port.WhisperModel.from_state_dict(
+        tmodel.init_params(torch.Generator().manual_seed(SEED + 60), dims), dims, dev).module
+    loss_fn = tstep.whisper_loss_fn(dims)
+    tx = tstep.make_optimizer(schedule.warmup_cosine(1e-4, 0, 10))
+    expect = {**{k: 0 for k in FUSED_EXPECT}, "stem": 1, "packed": 2 * dims.n_audio_layer}
+    times, losses = [], []
+    tmodel.set_remat(True)
+    try:
+        with loops._trainable(module, None):
+            state = tstep.init_state(module, tx)
+            fn = tstep.make_train_step(loss_fn, tx)
+            for i in range(steps):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                cs = zero_counters()
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                state, met = fn(state, mel, ids)
+                ev[1].record()
+                ev[1].synchronize()
+                times.append(ev[0].elapsed_time(ev[1]))
+                launches = read_counters(cs)
+                expect_launches(f"large-v3 train step {i}", launches, expect)
+                if int(met["skipped"]) or not math.isfinite(float(met["loss"])):
+                    raise AssertionError(f"large-v3 train step {i}: {met}")
+                losses.append(float(met["loss"]))
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        with torch.no_grad():
+            on = float(loss_fn(module, mel, ids))
+            tmodel.set_flash_attention(False)
+            off = float(loss_fn(module, mel, ids))
+    finally:
+        tmodel.set_remat(False)
+        tmodel.set_flash_attention(None)
+    if abs(on - off) > 1e-3 * abs(off):
+        raise AssertionError(f"large-v3: loss {on} with the kernels, {off} without")
+    TRAIN_STAGES["large-v3 train step"] = {"ms": times, "median_ms": float(np.median(times)),
+                                           "peak_gib": peak, "losses": losses,
+                                           "loss_kernels_on_off": [on, off]}
+    log(f"large-v3 train step (B=2, f32, remat): {[round(t, 1) for t in times]} ms, median "
+        f"{np.median(times):.1f} ms, peak {peak:.2f} GiB allocated, losses "
+        f"{[round(x, 4) for x in losses]}, loss with the kernels {on:.6f} vs without "
+        f"{off:.6f} ({smi})")
+    del module, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"large-v3 train step": launches}
+
+
+def train_ab_phase(port, dev, smi, repeats=3):
+    """(d) the tiny token train step from PCM (mel, forward, backward, AdamW)
+    at B=8 in f32 and bf16, kernels on against ``set_flash_attention(False)``
+    + ``set_fused_mel(False)`` (every kernel's plain version), in turns;
+    median of ``repeats`` by CUDA events."""
+    from qasr_ijcnlp_tpu_torch import audio
+    from qasr_ijcnlp_tpu_torch.models import whisper as tmodel
+    from qasr_ijcnlp_tpu_torch.models.dims import tiny_dims
+    from qasr_ijcnlp_tpu_torch.train import loops, step as tstep
+
+    dims = tiny_dims()
+    pcm = torch.from_numpy(synthetic_pcm(TRAIN_BATCH, SEED + 70)).to(dev)
+    ids = torch.full((TRAIN_BATCH, 64), -100, dtype=torch.long)
+    ids[:, :40] = torch.randint(220, 5000, (TRAIN_BATCH, 40),
+                                generator=torch.Generator().manual_seed(SEED + 71))
+    ids = ids.to(dev)
+    on_expect = {**{k: 0 for k in FUSED_EXPECT}, "mel": 1, **encoder_expect(dims, 1)}
+    res, paths = {}, {}
+    for dt in ("float32", "bfloat16"):
+        module = port.WhisperModel.from_state_dict(
+            tmodel.init_params(torch.Generator().manual_seed(SEED + 72), dims), dims, dev).module
+        tx = tstep.make_optimizer(STEP_LR)
+        fn = tstep.make_train_step(tstep.whisper_loss_fn(dims, dt), tx)
+        with loops._trainable(module, None):
+            state = [tstep.init_state(module, tx)]
+
+            def step():
+                mel = port.log_mel_spectrogram(pcm, dims.n_mels, device=None)
+                state[0], m = fn(state[0], mel, ids)
+                return m
+
+            ms = {"on": [], "off": []}
+            for rep in range(repeats + 1):
+                for mode in ("on", "off") if rep % 2 else ("off", "on"):
+                    kernels = None if mode == "on" else False
+                    tmodel.set_flash_attention(kernels)
+                    audio.set_fused_mel(kernels)
+                    try:
+                        cs = zero_counters()
+                        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                        ev[0].record()
+                        m = step()
+                        ev[1].record()
+                        ev[1].synchronize()
+                    finally:
+                        tmodel.set_flash_attention(None)
+                        audio.set_fused_mel(None)
+                    launches = read_counters(cs)
+                    expect_launches(f"tiny train step {dt} kernels {mode}", launches,
+                                    on_expect if mode == "on" else {})
+                    paths[f"tiny train step {dt} kernels {mode}"] = launches
+                    if int(m["skipped"]):
+                        raise AssertionError(f"tiny train step {dt} {mode}: skipped")
+                    if rep:  # the first round warms up
+                        ms[mode].append(ev[0].elapsed_time(ev[1]))
+        res[dt] = {mode: {"ms": v, "median_ms": float(np.median(v))} for mode, v in ms.items()}
+        log(f"tiny train step B={TRAIN_BATCH} {dt} from PCM: kernels on "
+            f"{res[dt]['on']['median_ms']:.2f} ms, off {res[dt]['off']['median_ms']:.2f} ms "
+            f"(median of {repeats}; off/on "
+            f"{res[dt]['off']['median_ms'] / res[dt]['on']['median_ms']:.2f}) ({smi})")
+        del module, state
+    TRAIN_STAGES["kernels on vs off"] = res
+    return {k: v for k, v in paths.items() if k.endswith("float32 kernels on")}
+
+
+def eval_cli_phase(port, dev, smi):
+    """(e) the two classical evaluation CLIs at tiny with ``--device cuda``:
+    the batched one over 16 synthetic items at B=16 (K1, the stem, K4 and
+    the finish once a batch), the transcribe one over 4 (K1 once an item;
+    the encoder once a decode, whatever the temperature ladder asks), no
+    failure sentinel."""
+    import os
+    import shutil
+    import tempfile
+
+    from qasr_ijcnlp_tpu_torch.cli import evaluate_pretrained_whisper as bcli
+    from qasr_ijcnlp_tpu_torch.cli import evaluate_pretrained_whisper_asr as tcli
+
+    zero = {k: 0 for k in FUSED_EXPECT}
+    work = tempfile.mkdtemp(prefix="qasr_eval_cli_")
+    paths = {}
+    try:
+        cs = zero_counters()
+        t0 = time.perf_counter()
+        b = bcli.main(["--model_size", "tiny", "--batch_size", "16", "--max_samples", "16",
+                       "--device", "cuda", "--output", os.path.join(work, "b.json")])
+        torch.cuda.synchronize()
+        bs = time.perf_counter() - t0
+        paths["cli evaluate_pretrained_whisper"] = read_counters(cs)
+        expect_launches("cli evaluate_pretrained_whisper", paths["cli evaluate_pretrained_whisper"],
+                        {**zero, "mel": 1, "stem": 1, "attn": 4, "finish": 4})
+        if len(b["hypotheses"]) != 16 or any(h is None for h in b["hypotheses"]):
+            raise AssertionError("evaluate_pretrained_whisper: missing hypotheses")
+        cs = zero_counters()
+        t0 = time.perf_counter()
+        t = tcli.main(["--model_size", "tiny", "--max_samples", "4", "--device", "cuda",
+                       "--output", os.path.join(work, "t.json")])
+        torch.cuda.synchronize()
+        ts = time.perf_counter() - t0
+        got = paths["cli evaluate_pretrained_whisper_asr"] = read_counters(cs)
+        passes = got["stem"]
+        expect_launches("cli evaluate_pretrained_whisper_asr", got,
+                        {**zero, "mel": 4, "stem": max(passes, 4), "attn": 4 * passes,
+                         "finish": 4 * passes})
+        if tcli.SENTINEL in t["predictions"] or len(t["predictions"]) != 4:
+            raise AssertionError(f"evaluate_pretrained_whisper_asr: {t['predictions']}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    TRAIN_STAGES["eval clis"] = {
+        "batched": {"wer": b["wer"], "cer": b["cer"], "rtf": b["rtf"], "seconds": bs},
+        "transcribe": {"wer": t["wer"], "cer": t["cer"], "seconds": ts,
+                       "encoder_passes": passes}}
+    log(f"cli evaluate_pretrained_whisper (tiny, 16 items, B=16): WER {b['wer']:.4f} CER "
+        f"{b['cer']:.4f} RTF {b['rtf']:.1f} audio-s/s, {bs:.2f} s; "
+        f"cli evaluate_pretrained_whisper_asr (4 items): WER {t['wer']:.4f} CER {t['cer']:.4f}, "
+        f"{passes} encoder passes, {ts:.2f} s ({smi})")
+    return paths
+
+
+def train_phases(port, dev, smi):
+    """Phases (a)-(e): training and the classical evaluation CLIs on the
+    card."""
+    t0 = time.perf_counter()
+    paths = train_grad_phase(port, dev, smi)
+    gc.collect()
+    paths.update(train_cli_phase(port, dev, smi))
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths.update(train_large_phase(port, dev, smi))
+    paths.update(train_ab_phase(port, dev, smi))
+    paths.update(eval_cli_phase(port, dev, smi))
+    gc.collect()
+    torch.cuda.empty_cache()
+    TRAIN_STAGES["seconds"] = time.perf_counter() - t0
+    log(f"training phases seconds: {TRAIN_STAGES['seconds']:.1f}")
+    return paths
+
+
+def train_run(port, dev, smi):
+    """``python3 chip_smoke.py --train``: phases (a)-(e) alone, with their
+    launch counts and checks as in the full run; the stages and launches as
+    one JSON line."""
+    paths = train_phases(port, dev, smi)
+    log(json.dumps({"train_stages": TRAIN_STAGES, "train_launches": paths}, default=str))
+    log(smi)
+
+
 def kernel_table(kres, by_path):
     """The per-kernel JSON entries: each row's f32 (and bf16) measurements
     and its launches on its path's counted batch and on every path."""
@@ -3384,7 +3853,7 @@ def main():
         return
     modes = {"--stem": stem_run, "--attn": attn_run, "--diag": diag_run,
              "--longform": longform_run, "--services": services_run,
-             "--quantum": quantum_run}
+             "--quantum": quantum_run, "--train": train_run}
     if len(sys.argv) == 2 and sys.argv[1] in modes:
         modes[sys.argv[1]](port, dev, smi)
         log(f"total seconds: {time.perf_counter() - t_start:.1f}")
@@ -3392,13 +3861,15 @@ def main():
         return
     if sys.argv[1:]:
         print(f"usage: python3 chip_smoke.py [--stem | --attn | --diag | --longform | "
-              f"--services | --quantum | --k9 | --k10 [--stages]]; got {sys.argv[1:]}",
+              f"--services | --quantum | --train | --k9 | --k10 [--stages]]; got "
+              f"{sys.argv[1:]}",
               file=sys.stderr)
         raise SystemExit(2)
 
     kres, by_path = tiny_path(port, tiny_dims(), dev, smi)
     by_path.update(tiny_services(port, dev, smi))
     by_path.update(quantum_phases(port, dev, smi))
+    by_path.update(train_phases(port, dev, smi))
     # == medium and large-v3, full width and depth ==================================
     medium, large = dims_for("medium"), dims_for("large-v3")
     mres, mpaths = family_path(port, "medium", medium, dev, smi, FUSED_EXPECT,
@@ -3425,6 +3896,7 @@ def main():
     log(json.dumps({"longform_stages": LONGFORM_STAGES}))
     log(json.dumps({"service_stages": SERVICE_STAGES}))
     log(json.dumps({"quantum_stages": QUANTUM_STAGES}))
+    log(json.dumps({"train_stages": TRAIN_STAGES}, default=str))
     log(f"total seconds: {time.perf_counter() - t_start:.1f}")
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -10,9 +10,11 @@ transcribe``), audio files and local checkpoints; the decode services
 ``decode.engine.DecodeEngine``, the HTTP server ``serving`` and online
 sessions ``streaming``); the source paper's model at inference (the
 quantum Whisper encoder ``models.quantum``, the character-ASR heads
-``models.asr``, the classifier, ``data``, ``metrics`` and the two
-evaluation CLIs); and the JAX package's TPU kernels rewritten by hand for
-Hopper (``csrc/``).  The package imports
+``models.asr``, the classifier, ``data``, ``metrics`` and the evaluation
+CLIs); training (``train``: the AdamW step, schedules, checkpoints, the
+three trainers and their CLIs, with gradients through the encoder
+kernels); and the JAX package's TPU kernels rewritten by hand for Hopper
+(``csrc/``).  The package imports
 torch and numpy and never JAX or the JAX package, which stays beside it as
 the reference.
 """

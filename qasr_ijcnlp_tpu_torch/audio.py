@@ -281,14 +281,32 @@ def log_mel_spectrogram(
 
     Batched calls clamp each item's dynamic range by its own max, matching
     the reference's per-clip computation."""
-    from .ops.melfront import fused_log_mel_batched
+    from .ops.melfront import (
+        _plain_log10_mel, clamp_and_scale, fused_log_mel_batched, reflect_pad,
+    )
 
     if isinstance(audio, str):
         audio = _load_audio_any(audio)
     audio = _as_waveform(audio, device)
     lead = audio.shape[:-1]
-    out = fused_log_mel_batched(audio.reshape(-1, audio.shape[-1]), n_mels, padding)
+    audio = audio.reshape(-1, audio.shape[-1])
+    if _USE_FUSED_MEL is False:
+        out = clamp_and_scale(_plain_log10_mel(reflect_pad(audio, padding), n_mels))
+    else:
+        out = fused_log_mel_batched(audio, n_mels, padding)
     return out.reshape(*lead, *out.shape[1:])
+
+
+# None: the mel kernel (K1) wherever the audio lies on the card (the
+# default); False: its plain version on the card too (as the JAX package's
+# ``set_fused_mel(False)``); True: as None.
+_USE_FUSED_MEL: Optional[bool] = None
+
+
+def set_fused_mel(enabled: Optional[bool]) -> None:
+    """The mel kernel K1: None or True on the card, False plain."""
+    global _USE_FUSED_MEL
+    _USE_FUSED_MEL = enabled
 
 
 def wire_pcm16(audio) -> Tuple[np.ndarray, float]:

@@ -18,15 +18,16 @@ encoder holds ``qconv1``/``qconv2``: ``pre_w`` (in, out) becomes
 an encoder tree alone, :func:`from_jax_head` a task head (the MLP and LSTM
 character heads, the classifier).  It mirrors the JAX package's
 ``to_torch_state_dict`` without importing it, so the port never imports JAX.
-:func:`to_jax_encoder` and :func:`to_jax_head` go the other way, to numpy
-trees in the JAX layout (the JAX package's checkpoint pickles hold such
-trees).
+:func:`to_jax_params`, :func:`to_jax_encoder` and :func:`to_jax_head` go the
+other way, to numpy trees in the JAX layout (the JAX package's checkpoint
+pickles hold such trees; the trainers write their best-metric checkpoints
+so).
 """
 
 from __future__ import annotations
 
 import io
-from typing import Any, Dict, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -76,13 +77,15 @@ def _quantum_conv(out, prefix, p):
     out[f"{prefix}.qweights"] = _tensor(p["qweights"])
 
 
-def from_jax_encoder(enc: Dict[str, Any], dims: ModelDimensions,
+def from_jax_encoder(enc: Dict[str, Any], dims: Optional[ModelDimensions],
                      prefix: str = "encoder") -> Dict[str, torch.Tensor]:
     """A JAX encoder tree (numpy leaves), classical or quantum stem, -> the
     port's encoder state dict under ``prefix`` ("" for the encoder module's
-    own names)."""
+    own names).  ``dims`` None: the layer count from the stacked blocks."""
     out: Dict[str, torch.Tensor] = {}
     pre = f"{prefix}." if prefix else ""
+    n_layer = (np.asarray(enc["blocks"]["attn_ln"]["g"]).shape[0] if dims is None
+               else dims.n_audio_layer)
     if "qconv1" in enc:
         for name in ("qconv1", "qconv2"):
             _quantum_conv(out, f"{pre}{name}", enc[name])
@@ -91,7 +94,7 @@ def from_jax_encoder(enc: Dict[str, Any], dims: ModelDimensions,
             out[f"{pre}{name}.weight"] = _tensor(enc[name]["w"])
             out[f"{pre}{name}.bias"] = _tensor(enc[name]["b"])
     out[f"{pre}positional_embedding"] = _tensor(enc["pos"])
-    for i in range(dims.n_audio_layer):
+    for i in range(n_layer):
         _block(out, f"{pre}blocks.{i}", _layer(enc["blocks"], i))
     _ln(out, f"{pre}ln_post", enc["ln_post"])
     return out
@@ -179,14 +182,16 @@ def _ln_np(sd, prefix):
 
 
 def _block_np(sd, prefix):
-    return {
-        "attn": {lin: _linear_np(sd, f"{prefix}.attn.{lin}")
-                 for lin in ("query", "key", "value", "out")},
-        "attn_ln": _ln_np(sd, f"{prefix}.attn_ln"),
-        "mlp": {"fc": _linear_np(sd, f"{prefix}.mlp.0"),
-                "proj": _linear_np(sd, f"{prefix}.mlp.2")},
-        "mlp_ln": _ln_np(sd, f"{prefix}.mlp_ln"),
-    }
+    out = {}
+    for name in ("attn", "cross_attn"):
+        if f"{prefix}.{name}.query.weight" in sd:
+            out[name] = {lin: _linear_np(sd, f"{prefix}.{name}.{lin}")
+                         for lin in ("query", "key", "value", "out")}
+            out[f"{name}_ln"] = _ln_np(sd, f"{prefix}.{name}_ln")
+    out["mlp"] = {"fc": _linear_np(sd, f"{prefix}.mlp.0"),
+                  "proj": _linear_np(sd, f"{prefix}.mlp.2")}
+    out["mlp_ln"] = _ln_np(sd, f"{prefix}.mlp_ln")
+    return out
 
 
 def _stack(trees):
@@ -195,11 +200,17 @@ def _stack(trees):
     return np.stack(trees)
 
 
-def to_jax_encoder(module_or_sd, dims: ModelDimensions) -> Dict[str, Any]:
+def _n_blocks(sd, prefix: str = "blocks.") -> int:
+    return len({k[len(prefix):].split(".")[0] for k in sd if k.startswith(prefix)})
+
+
+def to_jax_encoder(module_or_sd, dims: Optional[ModelDimensions] = None) -> Dict[str, Any]:
     """The inverse of :func:`from_jax_encoder` (prefix ""): an encoder
     module (or its state dict), classical or quantum, -> a numpy tree in
-    the JAX layout, blocks stacked on a leading layer axis."""
+    the JAX layout, blocks stacked on a leading layer axis.  ``dims`` None:
+    the layer count from the state dict."""
     sd = _state(module_or_sd)
+    n_layer = _n_blocks(sd) if dims is None else dims.n_audio_layer
     enc: Dict[str, Any] = {}
     if "qconv1.qweights" in sd:
         for name in ("qconv1", "qconv2"):
@@ -210,9 +221,29 @@ def to_jax_encoder(module_or_sd, dims: ModelDimensions) -> Dict[str, Any]:
         for name in ("conv1", "conv2"):
             enc[name] = {"w": _np(sd[f"{name}.weight"]), "b": _np(sd[f"{name}.bias"])}
     enc["pos"] = _np(sd["positional_embedding"])
-    enc["blocks"] = _stack([_block_np(sd, f"blocks.{i}") for i in range(dims.n_audio_layer)])
+    enc["blocks"] = _stack([_block_np(sd, f"blocks.{i}") for i in range(n_layer)])
     enc["ln_post"] = _ln_np(sd, "ln_post")
     return enc
+
+
+def to_jax_params(module_or_sd, dims: ModelDimensions) -> Dict[str, Any]:
+    """The inverse of :func:`from_jax_params`: a whole ``Whisper`` (or
+    ``QuantumWhisper``) module or its state dict -> the JAX package's
+    parameter tree with numpy leaves, which its ``load_pytree`` reads from a
+    checkpoint pickle."""
+    sd = _state(module_or_sd)
+    sub = lambda pre: {k[len(pre):]: v for k, v in sd.items() if k.startswith(pre)}
+    dec = sub("decoder.")
+    return {
+        "encoder": to_jax_encoder(sub("encoder."), dims),
+        "decoder": {
+            "tok_emb": _np(dec["token_embedding.weight"]),
+            "pos_emb": _np(dec["positional_embedding"]),
+            "blocks": _stack([_block_np(dec, f"blocks.{i}")
+                              for i in range(dims.n_text_layer)]),
+            "ln": _ln_np(dec, "ln"),
+        },
+    }
 
 
 def from_torch_state_dict(sd: Dict[str, Any], dims: ModelDimensions) -> Dict[str, torch.Tensor]:

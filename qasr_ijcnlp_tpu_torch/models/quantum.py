@@ -90,9 +90,9 @@ class QuantumAudioEncoder(nn.Module):
         super().__init__()
         self.qconv1 = QuantumConv1d(n_mels, n_state, 3, n_qubits)
         self.qconv2 = QuantumConv1d(n_state, n_state, 3, n_qubits)
-        self.register_buffer(
-            "positional_embedding", torch.from_numpy(cmodel.sinusoids(n_ctx, n_state))
-        )
+        # a parameter, as in models.whisper.AudioEncoder (frozen by the mask)
+        self.positional_embedding = nn.Parameter(
+            torch.from_numpy(cmodel.sinusoids(n_ctx, n_state)))
         self.blocks = nn.ModuleList(
             cmodel.ResidualAttentionBlock(n_state, n_head) for _ in range(n_layer)
         )

@@ -18,7 +18,7 @@ import copy
 import gzip
 import hashlib
 import os
-from typing import Dict, List, Optional, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -87,7 +87,7 @@ class WhisperModel:
         self.compute_dtype = _as_dtype(compute_dtype)
         # (n_text_layer, n_text_head) bool; None: ``default_alignment_heads``
         self.alignment_heads: Optional[np.ndarray] = None
-        self._decoders: Dict[torch.dtype, _model.TextDecoder] = {}
+        self._decoders: Dict[torch.dtype, Tuple[tuple, _model.TextDecoder]] = {}
         self._task_cache: Dict = {}
 
     @classmethod
@@ -119,18 +119,23 @@ class WhisperModel:
         once and kept.  The reference casts its fp32 parameters per op;
         casting once gives the same values without re-casting every weight
         at every decode step.  LayerNorms and the embeddings stay fp32 (the
-        embedding sum is formed in fp32 before the cast)."""
+        embedding sum is formed in fp32 before the cast).  The copy is made
+        anew once any decoder weight lies in another storage or was changed
+        in place (an optimizer step)."""
         if dtype == torch.float32:
             return self.module.decoder
-        dec = self._decoders.get(dtype)
-        if dec is None:
-            dec = copy.deepcopy(self.module.decoder)
-            for mod in dec.blocks.modules():
-                if isinstance(mod, nn.Linear):
-                    for p in mod.parameters(recurse=False):
-                        p.data = p.data.to(dtype)
-            self._decoders[dtype] = dec
-        return dec
+        tag = tuple((p.data_ptr(), 0 if p.is_inference() else p._version)
+                    for p in self.module.decoder.parameters())
+        kept = self._decoders.get(dtype)
+        if kept is None or kept[0] != tag:
+            with torch.no_grad():
+                dec = copy.deepcopy(self.module.decoder).requires_grad_(False)
+                for mod in dec.blocks.modules():
+                    if isinstance(mod, nn.Linear):
+                        for p in mod.parameters(recurse=False):
+                            p.data = p.data.to(dtype)
+            kept = self._decoders[dtype] = (tag, dec)
+        return kept[1]
 
     def set_alignment_heads(self, dump: bytes):
         array = np.frombuffer(

@@ -26,6 +26,13 @@ to XLA, except for two kernels of the decode loop: the int8 cross
 attention (K9, ``ops/decode_attn.py``) behind an int8 cross cache, and the
 opt-in fused single-token step (K10, ``ops/decoder_step.py``) that the
 greedy loop takes in place of :func:`decoder_step`.
+
+Two switches, as in the JAX package: :func:`set_flash_attention` (None,
+the default: the encoder's kernels on the card and their plain versions on
+the CPU; False: the plain versions on the card too, an explicit request,
+never a fallback) and :func:`set_remat` (each encoder and decoder block
+under ``torch.utils.checkpoint`` when autograd records it: its activations
+are recomputed in the backward, kernels included).
 """
 
 from __future__ import annotations
@@ -38,12 +45,53 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from torch.utils.checkpoint import checkpoint
+
 from ..ops import gelu, head_scale, layer_norm, linear, round_up
-from ..ops.conv_stem import fused_conv_stem
+from ..ops.conv_stem import _plain_stem, fused_conv_stem
 from ..ops.decode_attn import LANE, int8_cross_attention, quantize_kv
-from ..ops.encoder_block import fused_block_applicable, fused_encoder_block
-from ..ops.flash import flash_attention, flash_attention_packed, packed_applicable
+from ..ops.encoder_block import (
+    _plain_attn_ln, _plain_finish, fused_block_applicable, fused_encoder_block,
+)
+from ..ops.flash import (
+    _plain_attention, _plain_attention_packed, flash_attention, flash_attention_packed,
+    packed_applicable,
+)
 from .dims import ModelDimensions
+
+# None: the encoder's kernels wherever a tensor lies on the card (the
+# default); False: their plain versions on the card as well (kernels off,
+# as the JAX package's ``set_flash_attention(False)``); True: as None (a
+# CPU tensor has no kernel).
+_USE_FLASH: Optional[bool] = None
+# Recompute each transformer block in the backward (JAX's ``set_remat``).
+_USE_REMAT = False
+
+
+def set_flash_attention(enabled: Optional[bool]) -> None:
+    """The encoder's kernels (the stem K2/K3, the fused block K4 + K5/K6,
+    the attention kernels K7/K8): None or True on the card, False plain."""
+    global _USE_FLASH
+    _USE_FLASH = enabled
+
+
+def _kernels_on() -> bool:
+    return _USE_FLASH is not False
+
+
+def set_remat(enabled: bool) -> None:
+    """Rematerialize each encoder and decoder block in the backward
+    (``torch.utils.checkpoint``, non-reentrant): less device memory, one
+    more forward of every block."""
+    global _USE_REMAT
+    _USE_REMAT = bool(enabled)
+
+
+def _maybe_remat(fn, *args):
+    """``fn(*args)``, checkpointed where remat is on and autograd records."""
+    if _USE_REMAT and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def sinusoids(length: int, channels: int, max_timescale: float = 10000) -> np.ndarray:
@@ -93,9 +141,9 @@ class AudioEncoder(nn.Module):
         super().__init__()
         self.conv1 = nn.Conv1d(n_mels, n_state, kernel_size=3, padding=1)
         self.conv2 = nn.Conv1d(n_state, n_state, kernel_size=3, stride=2, padding=1)
-        self.register_buffer(
-            "positional_embedding", torch.from_numpy(sinusoids(n_ctx, n_state))
-        )
+        # A parameter (the reference registers a buffer): the JAX package
+        # keeps the table among its parameters, so its token trainer updates it.
+        self.positional_embedding = nn.Parameter(torch.from_numpy(sinusoids(n_ctx, n_state)))
         self.blocks = nn.ModuleList(
             ResidualAttentionBlock(n_state, n_head) for _ in range(n_layer)
         )
@@ -241,11 +289,14 @@ def attention(q, k, v, n_head: int, mask=None, t_real: Optional[int] = None):
     their plain versions."""
     if mask is None and q.shape[1] >= 512:
         tr = t_real if t_real is not None else k.shape[1]
+        on = _kernels_on()
         if packed_applicable(n_head, q.shape[-1]):
             scale = head_scale(q.shape[-1] // n_head, q.dtype)
-            return flash_attention_packed(q * scale, k * scale, v, n_head, tr)
-        return _merge_heads(flash_attention(scaled_heads(q, n_head), scaled_heads(k, n_head),
-                                            _split_heads(v, n_head), tr))
+            packed = flash_attention_packed if on else _plain_attention_packed
+            return packed(q * scale, k * scale, v, n_head, min(tr, k.shape[1]))
+        attend = flash_attention if on else _plain_attention
+        return _merge_heads(attend(scaled_heads(q, n_head), scaled_heads(k, n_head),
+                                   _split_heads(v, n_head), min(tr, k.shape[1])))
     if t_real is not None and t_real != k.shape[1]:
         keep = torch.arange(k.shape[1], device=k.device) < t_real
         pad = torch.zeros(k.shape[1], device=k.device).masked_fill(~keep, float("-inf"))
@@ -292,7 +343,8 @@ def encoder_apply(encoder: AudioEncoder, mel, dims: ModelDimensions,
     # convolutions otherwise (large-v3).  The port has no plain stem on the
     # card's path, so every size runs the same stem kernel, which takes any
     # D and n_mels and emits the trunk input already padded to Tp.
-    x = fused_conv_stem(encoder, mel, round_up(T, 128), compute_dtype)
+    stem = fused_conv_stem if _kernels_on() else _plain_stem
+    x = stem(encoder, mel, round_up(T, 128), compute_dtype)
     return transformer_trunk(encoder, x, dims, t_real=T)
 
 
@@ -324,13 +376,21 @@ def transformer_trunk(encoder: AudioEncoder, x, dims: ModelDimensions,
     fused = _trunk_uses_fused_blocks(dims, Tp)
     if x.shape[1] != Tp:
         x = F.pad(x, (0, 0, 0, Tp - x.shape[1]))
+    block = (_unfused_block if not fused else fused_encoder_block if _kernels_on()
+             else _plain_fused_block)
     for bp in encoder.blocks:
-        if fused:
-            x = fused_encoder_block(x, bp, n_head, T)
-        else:
-            x = x + _self_attn(bp.attn, layer_norm(x, bp.attn_ln), n_head, t_real=T)
-            x = x + _mlp(bp.mlp, layer_norm(x, bp.mlp_ln))
+        x = _maybe_remat(block, x, bp, n_head, T)
     return layer_norm(x[:, :T], encoder.ln_post)
+
+
+def _unfused_block(x, bp, n_head: int, t_real: int):
+    x = x + _self_attn(bp.attn, layer_norm(x, bp.attn_ln), n_head, t_real=t_real)
+    return x + _mlp(bp.mlp, layer_norm(x, bp.mlp_ln))
+
+
+def _plain_fused_block(x, bp, n_head: int, t_real: int):
+    """The fused block's plain versions (kernels off)."""
+    return _plain_finish(x, _plain_attn_ln(x, bp.attn_ln, bp.attn, n_head, t_real), bp)
 
 
 # ---------------------------------------------------------------------------
@@ -354,14 +414,19 @@ def decoder_apply(decoder: TextDecoder, tokens, xa, dims: ModelDimensions,
     xa = xa.to(compute_dtype)
     causal = _causal_mask(T, x.device)
     for bp in decoder.blocks:
-        x = x + _self_attn(bp.attn, layer_norm(x, bp.attn_ln), n_head, causal)
-        q = linear(layer_norm(x, bp.cross_attn_ln), bp.cross_attn.query)
-        k = linear(xa, bp.cross_attn.key)
-        v = linear(xa, bp.cross_attn.value)
-        x = x + linear(attention(q, k, v, n_head), bp.cross_attn.out)
-        x = x + _mlp(bp.mlp, layer_norm(x, bp.mlp_ln))
+        x = _maybe_remat(_decoder_block, x, bp, xa, n_head, causal)
     x = layer_norm(x, decoder.ln)
     return (x @ decoder.token_embedding.weight.to(x.dtype).t()).float()
+
+
+def _decoder_block(x, bp, xa, n_head: int, causal):
+    """One teacher-forced decoder block."""
+    x = x + _self_attn(bp.attn, layer_norm(x, bp.attn_ln), n_head, causal)
+    q = linear(layer_norm(x, bp.cross_attn_ln), bp.cross_attn.query)
+    k = linear(xa, bp.cross_attn.key)
+    v = linear(xa, bp.cross_attn.value)
+    x = x + linear(attention(q, k, v, n_head), bp.cross_attn.out)
+    return x + _mlp(bp.mlp, layer_norm(x, bp.mlp_ln))
 
 
 def decoder_apply_with_cross_qk(decoder: TextDecoder, tokens, xa, dims: ModelDimensions,

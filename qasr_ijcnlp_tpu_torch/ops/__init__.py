@@ -16,6 +16,14 @@ launches in a plain module-level int.
   ``quantize_kv``, behind ``DecodingOptions(kv_int8=True)``
 * :mod:`.decoder_step` — the opt-in fused decoder-layer step (K10), one
   launch per layer per token; ``set_fused_decoder_step(True)`` turns it on
+
+The encoder's kernels (K2-K8) have gradients: where grad mode is on and an
+input requires grad, the wrapper calls its ``torch.autograd.Function``,
+whose forward is the kernel and whose backward is the VJP of the plain
+version recomputed from the saved inputs (:func:`plain_vjp`).  That is the
+JAX package's rule: none of its Pallas kernels has a backward, and each
+custom VJP differentiates the XLA form.  Inference never takes the
+Function, so its launches are as before.
 """
 
 import torch
@@ -70,3 +78,27 @@ def linear(x, lin):
 def gelu(x):
     """Exact-erf GELU computed in fp32, result in x.dtype."""
     return F.gelu(x.float()).to(x.dtype)
+
+
+def wants_grad(*tensors) -> bool:
+    """Whether autograd must record a kernel call: grad mode on and an
+    input that requires grad."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                           for t in tensors)
+
+
+def plain_vjp(ctx, plain, grad):
+    """The backward of a kernel's ``autograd.Function``: the VJP of
+    ``plain(*saved)`` at the inputs it saved, recomputed under grad mode.
+    Returns one gradient per saved tensor (None where the input needs
+    none), in the order they were saved, first among ``forward``'s
+    arguments."""
+    saved = ctx.saved_tensors
+    needs = ctx.needs_input_grad[:len(saved)]
+    with torch.enable_grad():
+        xs = [t.detach().requires_grad_(n) for t, n in zip(saved, needs)]
+        out = plain(*xs)
+        wrt = [x for x in xs if x.requires_grad]
+        grads = iter(torch.autograd.grad(out, wrt, grad, allow_unused=True,
+                                         materialize_grads=True))
+    return tuple(next(grads) if n else None for n in needs)

@@ -22,11 +22,13 @@ was a layout trick for whole-array shifts and has no counterpart.
 
 from __future__ import annotations
 
+from types import SimpleNamespace as _NS
+
 import torch
 import torch.nn.functional as F
 
 from .. import _kernels
-from . import gelu, round_up
+from . import gelu, plain_vjp, round_up, wants_grad
 from .encoder_block import GEMM_TILE, _check_aligned, _kept, _slabs, gemm_operand
 from .melfront import N_MELS
 
@@ -69,6 +71,12 @@ def _tap_major(w, c_pad: int):
     return w.permute(0, 2, 1).reshape(w.shape[0], -1)
 
 
+def _stem_weights(encoder):
+    """The stem's weights in the order its Function takes them."""
+    c1, c2 = encoder.conv1, encoder.conv2
+    return (c1.weight, c1.bias, c2.weight, c2.bias, encoder.positional_embedding)
+
+
 def stem_pack(encoder, dtype):
     """The stem's weights in ``dtype``, packed once per module and dtype:
     conv1 and conv2 as tap-major GEMM operands (``gemm_operand``: f32 as
@@ -86,7 +94,7 @@ def stem_pack(encoder, dtype):
             "pos": encoder.positional_embedding.to(dtype).contiguous(),
             "c_pad": c_pad,
         }
-    return _kept(encoder, encoder.conv1.weight, dtype, build)
+    return _kept(encoder, _stem_weights(encoder), dtype, build)
 
 
 def fused_conv_stem(encoder, mel, t_pad: int, compute_dtype=torch.float32):
@@ -94,10 +102,19 @@ def fused_conv_stem(encoder, mel, t_pad: int, compute_dtype=torch.float32):
     plus position embeddings, rows >= T_mel // 2 zeroed).
 
     ``encoder`` holds ``conv1``/``conv2`` (nn.Conv1d, k=3) and
-    ``positional_embedding`` (the port's AudioEncoder)."""
+    ``positional_embedding`` (the port's AudioEncoder).  Where autograd
+    must record the call, it goes through :class:`ConvStemFunction`."""
     dt = compute_dtype
     if not mel.is_cuda:
         return _plain_stem(encoder, mel, t_pad, dt)
+    weights = _stem_weights(encoder)
+    if wants_grad(mel, *weights):
+        return ConvStemFunction.apply(mel, *weights, encoder, t_pad, dt)
+    return _launch_stem(encoder, mel, t_pad, dt)
+
+
+def _launch_stem(encoder, mel, t_pad: int, dt):
+    """K2/K3 on the card."""
     global launches
     if mel.dim() != 3 or mel.shape[-1] % 2 or dt not in _kernels.DTYPE_CODES:
         raise ValueError(f"fused_conv_stem: expected (B, C, even T) mel and a "
@@ -129,3 +146,24 @@ def fused_conv_stem(encoder, mel, t_pad: int, compute_dtype=torch.float32):
     )
     launches += 1
     return out
+
+
+class ConvStemFunction(torch.autograd.Function):
+    """K2/K3 with a gradient: the forward is the kernel, the backward the
+    VJP of ``_plain_stem`` recomputed from the saved mel and weights (the
+    JAX package's ``qasr_ijcnlp_tpu/ops/conv_stem.py`` ``_stem_bwd``
+    differentiates its XLA convolutions the same way)."""
+
+    @staticmethod
+    def forward(ctx, mel, w1, b1, w2, b2, pos, encoder, t_pad, dtype):
+        ctx.save_for_backward(mel, w1, b1, w2, b2, pos)
+        ctx.t_pad, ctx.dtype = t_pad, dtype
+        return _launch_stem(encoder, mel, t_pad, dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        def plain(mel, w1, b1, w2, b2, pos):
+            enc = _NS(conv1=_NS(weight=w1, bias=b1), conv2=_NS(weight=w2, bias=b2),
+                      positional_embedding=pos)
+            return _plain_stem(enc, mel, ctx.t_pad, ctx.dtype)
+        return (*plain_vjp(ctx, plain, grad), None, None, None)

@@ -36,12 +36,13 @@ D^2 values a layer, 100 MB at medium in f32.  LN and softmax stay fp32.
 
 from __future__ import annotations
 
+from types import SimpleNamespace as _NS
 from typing import Optional
 
 import torch
 
 from .. import _kernels
-from . import gelu, head_scale, kernel_head_width, layer_norm, linear
+from . import gelu, head_scale, kernel_head_width, layer_norm, linear, plain_vjp, wants_grad
 
 attn_launches = 0
 finish_launches = 0
@@ -135,17 +136,39 @@ def gemm_operand(w, dtype):
     return torch.stack([hi, tf32(w - hi)])
 
 
-def _kept(module, owner, dtype, build):
-    """``build()``'s pack for ``module`` in ``dtype``, made at first use and
-    kept on the module; made anew once ``owner`` (its first weight) lies in
-    another storage or dtype: a deep copy, a reloaded or a recast module."""
-    tag = (owner.data_ptr(), owner.dtype)
+def _version(t) -> int:
+    """``t``'s in-place version counter (0 for an inference tensor, which
+    keeps none and cannot be changed outside inference mode)."""
+    return 0 if t.is_inference() else t._version
+
+
+def _kept(module, owners, dtype, build):
+    """``build()``'s pack for ``module`` in ``dtype``, made at first use (with
+    no autograd record) and kept on the module; made anew once any of
+    ``owners``, the tensors it packs, lies in another storage or dtype (a
+    deep copy, a reloaded or a recast module) or was changed in place (an
+    optimizer step)."""
+    tag = tuple((t.data_ptr(), t.dtype, _version(t)) for t in owners)
     kept = module.__dict__.get("_encoder_packs")
     if kept is None or kept[0] != tag:
         kept = module.__dict__["_encoder_packs"] = (tag, {})
     if dtype not in kept[1]:
-        kept[1][dtype] = build()
+        with torch.no_grad():
+            kept[1][dtype] = build()
     return kept[1][dtype]
+
+
+def _attention_weights(ln, attn):
+    """K4's weights in the order its Function takes them."""
+    return (ln.weight, ln.bias, attn.query.weight, attn.query.bias, attn.key.weight,
+            attn.value.weight, attn.value.bias)
+
+
+def _finish_weights(block):
+    """K5/K6's weights in the order its Function takes them."""
+    wo, fc, proj, ln = block.attn.out, block.mlp[0], block.mlp[2], block.mlp_ln
+    return (wo.weight, wo.bias, ln.weight, ln.bias, fc.weight, fc.bias, proj.weight,
+            proj.bias)
 
 
 def attention_pack(ln, attn, dtype):
@@ -160,7 +183,7 @@ def attention_pack(ln, attn, dtype):
             "bqkv": torch.cat([q.bias, torch.zeros_like(q.bias), v.bias]).to(dtype),
             "g": ln.weight.float().contiguous(), "b": ln.bias.float().contiguous(),
         }
-    return _kept(attn, attn.query.weight, dtype, build)
+    return _kept(attn, _attention_weights(ln, attn), dtype, build)
 
 
 def finish_pack(block, dtype):
@@ -176,7 +199,7 @@ def finish_pack(block, dtype):
             "wp": gemm_operand(proj.weight, dtype), "bp": proj.bias.to(dtype).contiguous(),
             "g": ln.weight.float().contiguous(), "b": ln.bias.float().contiguous(),
         }
-    return _kept(block, block.attn.out.weight, dtype, build)
+    return _kept(block, _finish_weights(block), dtype, build)
 
 
 def _slabs(dtype) -> int:
@@ -189,9 +212,19 @@ def fused_attention_ln(x, ln, attn, n_head: int, t_real: int):
     before the output projection: (B, Tp, D) -> (B, Tp, D).
 
     ``ln`` is the block's ``attn_ln`` (nn.LayerNorm) and ``attn`` its
-    attention module (``query``/``key``/``value`` nn.Linear)."""
+    attention module (``query``/``key``/``value`` nn.Linear).  Where
+    autograd must record the call, it goes through
+    :class:`AttentionLNFunction`."""
     if not x.is_cuda:
         return _plain_attn_ln(x, ln, attn, n_head, t_real)
+    weights = _attention_weights(ln, attn)
+    if wants_grad(x, *weights):
+        return AttentionLNFunction.apply(x, *weights, ln, attn, n_head, t_real)
+    return _launch_attention(x, ln, attn, n_head, t_real)
+
+
+def _launch_attention(x, ln, attn, n_head: int, t_real: int):
+    """K4 on the card."""
     global attn_launches
     _check_block_input("fused_attention_ln", x, n_head, t_real)
     B, Tp, D = x.shape
@@ -213,11 +246,41 @@ def fused_attention_ln(x, ln, attn, n_head: int, t_real: int):
     return out
 
 
+class AttentionLNFunction(torch.autograd.Function):
+    """K4 with a gradient: the forward is the kernel, the backward the VJP
+    of ``_plain_attn_ln`` recomputed from the saved input and weights (the
+    JAX package's custom VJP, ``qasr_ijcnlp_tpu/ops/encoder_block.py``
+    ``_attn_ln_bwd``, differentiates its XLA form the same way)."""
+
+    @staticmethod
+    def forward(ctx, x, g, b, wq, bq, wk, wv, bv, ln, attn, n_head, t_real):
+        ctx.save_for_backward(x, g, b, wq, bq, wk, wv, bv)
+        ctx.n_head, ctx.t_real = n_head, t_real
+        return _launch_attention(x, ln, attn, n_head, t_real)
+
+    @staticmethod
+    def backward(ctx, grad):
+        def plain(x, g, b, wq, bq, wk, wv, bv):
+            attn = _NS(query=_NS(weight=wq, bias=bq), key=_NS(weight=wk, bias=None),
+                       value=_NS(weight=wv, bias=bv))
+            return _plain_attn_ln(x, _NS(weight=g, bias=b), attn, ctx.n_head, ctx.t_real)
+        return (*plain_vjp(ctx, plain, grad), None, None, None, None)
+
+
 def fused_block_finish(x, attn_out, block):
     """x + attn_out Wo + bo, then LN + fc + exact GELU + proj + residual:
-    (B, Tp, D) -> (B, Tp, D)."""
+    (B, Tp, D) -> (B, Tp, D).  Where autograd must record the call, it
+    goes through :class:`BlockFinishFunction`."""
     if not x.is_cuda:
         return _plain_finish(x, attn_out, block)
+    weights = _finish_weights(block)
+    if wants_grad(x, attn_out, *weights):
+        return BlockFinishFunction.apply(x, attn_out, *weights, block)
+    return _launch_finish(x, attn_out, block)
+
+
+def _launch_finish(x, attn_out, block):
+    """K5/K6 on the card."""
     global finish_launches
     dt = x.dtype
     if x.dim() != 3 or dt not in _kernels.DTYPE_CODES or attn_out.shape != x.shape:
@@ -250,6 +313,26 @@ def fused_block_finish(x, attn_out, block):
     )
     finish_launches += 1
     return out
+
+
+class BlockFinishFunction(torch.autograd.Function):
+    """K5/K6 with a gradient: the forward is the kernel, the backward the
+    VJP of ``_plain_finish`` recomputed from the saved inputs and weights
+    (the rule of the JAX package's ``_fused_bwd``, which differentiates the
+    whole XLA block)."""
+
+    @staticmethod
+    def forward(ctx, x, attn_out, wo, bo, g, b, wf, bf, wp, bp, block):
+        ctx.save_for_backward(x, attn_out, wo, bo, g, b, wf, bf, wp, bp)
+        return _launch_finish(x, attn_out, block)
+
+    @staticmethod
+    def backward(ctx, grad):
+        def plain(x, attn_out, wo, bo, g, b, wf, bf, wp, bp):
+            block = _NS(attn=_NS(out=_NS(weight=wo, bias=bo)), mlp_ln=_NS(weight=g, bias=b),
+                        mlp=[_NS(weight=wf, bias=bf), None, _NS(weight=wp, bias=bp)])
+            return _plain_finish(x, attn_out, block)
+        return (*plain_vjp(ctx, plain, grad), None)
 
 
 EPILOGUES = ("qkv", "out_proj", "fc", "proj")

@@ -39,7 +39,7 @@ from typing import Optional
 import torch
 
 from .. import _kernels
-from . import MAX_HEAD_WIDTH, kernel_head_width
+from . import MAX_HEAD_WIDTH, kernel_head_width, plain_vjp, wants_grad
 
 launches = 0      # K8
 launches_4d = 0   # K7
@@ -65,10 +65,18 @@ def _plain_attention_packed(q, k, v, n_head: int, t_real: int):
 
 def flash_attention_packed(q, k, v, n_head: int, t_real: int):
     """q (B, Tq, D), k and v (B, Tk, D), pre-scaled -> (B, Tq, D) in q's
-    dtype.  Keys at positions >= ``t_real`` get no weight."""
+    dtype.  Keys at positions >= ``t_real`` get no weight.  Where autograd
+    must record the call, it goes through :class:`PackedAttentionFunction`."""
     t_real = min(t_real, k.shape[1])
     if not q.is_cuda:
         return _plain_attention_packed(q, k, v, n_head, t_real)
+    if wants_grad(q, k, v):
+        return PackedAttentionFunction.apply(q, k, v, n_head, t_real)
+    return _launch_packed(q, k, v, n_head, t_real)
+
+
+def _launch_packed(q, k, v, n_head: int, t_real: int):
+    """K8 on the card."""
     global launches
     dt = q.dtype
     if q.dim() != 3 or dt not in _kernels.DTYPE_CODES:
@@ -109,10 +117,18 @@ def flash_attention(q, k, v, t_real: Optional[int] = None):
     in q's dtype.  Keys at positions >= ``t_real`` (default Tk) get no
     weight.  On the card the operands may be any strided views with unit
     column stride; the output is a (B, H, Tq, dh) view of a (B, Tq, H, dh)
-    tensor, so ``_merge_heads`` of it copies nothing."""
+    tensor, so ``_merge_heads`` of it copies nothing.  Where autograd must
+    record the call, it goes through :class:`FlashAttentionFunction`."""
     t_real = k.shape[2] if t_real is None else min(t_real, k.shape[2])
     if not q.is_cuda:
         return _plain_attention(q, k, v, t_real)
+    if wants_grad(q, k, v):
+        return FlashAttentionFunction.apply(q, k, v, t_real)
+    return _launch_4d(q, k, v, t_real)
+
+
+def _launch_4d(q, k, v, t_real: int):
+    """K7 on the card."""
     global launches_4d
     dt = q.dtype
     if q.dim() != 4 or dt not in _kernels.DTYPE_CODES:
@@ -137,3 +153,38 @@ def flash_attention(q, k, v, t_real: Optional[int] = None):
     )
     launches_4d += 1
     return out
+
+
+class PackedAttentionFunction(torch.autograd.Function):
+    """K8 with a gradient: the forward is the kernel, the backward the VJP
+    of ``_plain_attention_packed`` recomputed from the saved q, k and v
+    (the JAX package's ``qasr_ijcnlp_tpu/ops/flash.py`` ``_flash_packed_bwd``
+    differentiates its XLA form the same way)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, n_head, t_real):
+        ctx.save_for_backward(q, k, v)
+        ctx.n_head, ctx.t_real = n_head, t_real
+        return _launch_packed(q, k, v, n_head, t_real)
+
+    @staticmethod
+    def backward(ctx, grad):
+        plain = lambda q, k, v: _plain_attention_packed(q, k, v, ctx.n_head, ctx.t_real)
+        return (*plain_vjp(ctx, plain, grad), None, None)
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """K7 with a gradient: the forward is the kernel, the backward the VJP
+    of ``_plain_attention`` recomputed from the saved q, k and v (the JAX
+    package's ``_flash_bwd`` rule)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, t_real):
+        ctx.save_for_backward(q, k, v)
+        ctx.t_real = t_real
+        return _launch_4d(q, k, v, t_real)
+
+    @staticmethod
+    def backward(ctx, grad):
+        plain = lambda q, k, v: _plain_attention(q, k, v, ctx.t_real)
+        return (*plain_vjp(ctx, plain, grad), None)

@@ -64,9 +64,12 @@ def pauli_z_diagonal(n_qubits: int) -> np.ndarray:
 @functools.lru_cache(maxsize=None)
 def _tables(n_qubits: int, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
     """The permutation (int64) and the Z table (f32) on ``device``, moved
-    there once per qubit count."""
-    sigma = torch.from_numpy(cnot_chain_permutation(n_qubits)).to(device)
-    z = torch.from_numpy(pauli_z_diagonal(n_qubits)).to(device)
+    there once per qubit count; normal tensors even when first asked for
+    under ``inference_mode``, so that a later training step may save them
+    for its backward."""
+    with torch.inference_mode(False):
+        sigma = torch.from_numpy(cnot_chain_permutation(n_qubits)).to(device)
+        z = torch.from_numpy(pauli_z_diagonal(n_qubits)).to(device)
     return sigma, z
 
 

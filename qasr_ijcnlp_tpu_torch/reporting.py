@@ -1,10 +1,10 @@
-"""Reporting: prediction analysis, metric-distribution plots, result JSONs.
+"""Reporting: prediction analysis, metric plots, result JSONs, headers.
 
-Port of ``qasr_ijcnlp_tpu/reporting.py``'s evaluation helpers:
-``analyze_predictions``, ``plot_cer_distribution``,
-``plot_metrics_distribution``, ``save_results_json`` and
-``print_model_info``.  Matplotlib runs on its Agg backend; where it is not
-installed the plots are skipped (None).
+Port of ``qasr_ijcnlp_tpu/reporting.py``: ``analyze_predictions``,
+``plot_cer_distribution``, ``plot_metrics_distribution``,
+``plot_training_results``, ``save_results_json``, ``print_model_info`` and
+``print_training_header``.  Matplotlib runs on its Agg backend; where it is
+not installed the plots are skipped (None).
 """
 
 from __future__ import annotations
@@ -90,6 +90,31 @@ def plot_metrics_distribution(per_sample: Dict[str, List[float]],
     return save_path
 
 
+def plot_training_results(history_epochs: List[dict],
+                          save_path: str = "training_results.png"):
+    """One panel per logged metric over the epochs of a
+    ``TrainingHistory``."""
+    keys = [k for k in history_epochs[0] if k not in ("epoch", "time_s")] \
+        if history_epochs else []
+    plt = _plt() if keys else None
+    if plt is None:
+        return None  # nothing to plot, or no matplotlib
+    cols = min(len(keys), 3)
+    rows = (len(keys) + cols - 1) // cols
+    fig, axes = plt.subplots(rows, cols, figsize=(5 * cols, 4 * rows), squeeze=False)
+    xs = [e.get("epoch", i) for i, e in enumerate(history_epochs)]
+    for i, key in enumerate(keys):
+        ax = axes[i // cols][i % cols]
+        ax.plot(xs, [e.get(key) for e in history_epochs], marker="o")
+        ax.set_xlabel("epoch")
+        ax.set_title(key)
+        ax.grid(alpha=0.3)
+    fig.tight_layout()
+    fig.savefig(save_path, dpi=120)
+    plt.close(fig)
+    return save_path
+
+
 def save_results_json(path: str, results: dict) -> str:
     """A timestamped result JSON."""
     results = {**results, "timestamp": datetime.now().isoformat()}
@@ -104,3 +129,18 @@ def print_model_info(name: str, n_params: int, n_trainable: int, log=print):
     log(f"  total parameters:     {n_params:,}")
     log(f"  trainable parameters: {n_trainable:,}"
         f" ({100.0 * n_trainable / max(n_params, 1):.2f}%)")
+
+
+def print_training_header(task: str, epochs: int, lr: float, batch_size: int, log=print):
+    log("=" * 60)
+    log(f"Training: {task}")
+    log(f"  epochs={epochs}  lr={lr}  batch_size={batch_size}  backend={_backend_name()}")
+    log("=" * 60)
+
+
+def _backend_name() -> str:
+    import torch
+
+    if torch.cuda.is_available():
+        return f"cuda x{torch.cuda.device_count()}"
+    return "cpu x1"

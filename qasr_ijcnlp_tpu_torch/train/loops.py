@@ -1,17 +1,35 @@
-"""Evaluation loops of the character-ASR and classification tasks.
+"""Epoch-driven trainers and evaluation loops of the three task families.
 
-The evaluation half of ``qasr_ijcnlp_tpu/train/loops.py``: the encoder
-function of a model (:func:`encoder_fn_for`, through the quantum-vs-
-classical dispatch), the two tasks' losses and their evaluation passes.
-``params`` is ``{"encoder": encoder module, "head": head module}`` (the
-JAX package's tree, as modules); batches go to the encoder's device.  One
-encoder pass per batch serves the loss and the predictions.  The trainers
-are not ported yet and raise.
+Port of ``qasr_ijcnlp_tpu/train/loops.py``:
+
+* char-level ASR (quantum or classical encoder + MLP/LSTM char head):
+  :func:`train_char_asr`, AdamW + cosine, the freeze mask, best-CER/WER
+  checkpoints, ``resume_from``; validated by :func:`evaluate_char_asr`
+  (real greedy decoding for the LSTM head);
+* classification: :func:`train_classifier`, best-accuracy/loss/WER
+  checkpoints; :func:`evaluate_classifier`;
+* token-level Whisper ASR: :func:`train_token_asr`, AdamW + warmup-cosine,
+  ``grad_accum``, full-state checkpoints every ``save_state_every`` epochs
+  and ``resume_state``, teacher-forced validation WER.
+
+``params`` is ``{"encoder": encoder module, "head": head module}`` (the JAX
+package's tree, as modules) for the first two and the ``Whisper`` module
+for the third; batches go to the parameters' device, through
+``prefetch_to_device``.  The trainers set ``requires_grad`` from the mask
+for the run and restore the modules' flags afterwards; they update the
+modules in place and return them.  Best-metric checkpoints are written in
+the JAX package's layout (its ``load_pytree`` reads them).  Training runs
+with autograd on (never under ``inference_mode``); the evaluation
+functions run under ``inference_mode``.  Each epoch's statistics come from
+one host transfer.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+import contextlib
+import os
+import time
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -19,14 +37,16 @@ import torch.nn.functional as F
 
 from .. import metrics as qmetrics
 from ..data import CharVocabulary, END, PAD, START
-from ..data.loader import DataLoader, pad_batch_to
+from ..data.loader import DataLoader, pad_batch_to, prefetch_to_device
 from ..models import asr as asr_model
 from ..models import classifier as clf_model
+from ..models import whisper as cmodel
+from ..models.convert import from_jax_encoder, from_jax_head, to_jax_encoder, to_jax_head
+from ..models.convert import to_jax_params
 from ..models.whisper import dispatch_encoder_apply
+from .checkpoint import BestTracker, TrainingHistory
 from .loss import masked_cross_entropy
-
-_TRAINING = ("training is not ported yet (ROADMAP queue 1, item 5: training and "
-             "evaluation); only the evaluation loops run")
+from .step import as_module, init_state, make_optimizer, make_train_step
 
 
 def encoder_fn_for(model_obj) -> Callable:
@@ -143,13 +163,235 @@ def evaluate_classifier(params, encoder_apply: Callable, loader: DataLoader
     }
 
 
-def train_char_asr(*args, **kwargs):
-    raise NotImplementedError(_TRAINING)
+def _epoch_stats(step_metrics) -> Dict[str, float]:
+    """The epoch's mean loss over its finite batches and its count of
+    batches the non-finite guard skipped, from one host transfer."""
+    if not step_metrics:
+        return {"train_loss": 0.0, "skipped": 0}
+    host = torch.stack([torch.stack([m["loss"].double(), m["skipped"].double()])
+                        for m in step_metrics]).cpu().numpy()
+    losses = host[:, 0]
+    finite = losses[np.isfinite(losses)]
+    return {"train_loss": float(finite.mean()) if finite.size else 0.0,
+            "skipped": int(host[:, 1].sum())}
 
 
-def train_classifier(*args, **kwargs):
-    raise NotImplementedError(_TRAINING)
+@contextlib.contextmanager
+def _trainable(module, mask):
+    """``requires_grad`` set from ``mask`` (a set of names; None: all) for
+    the block, the module's own flags restored after it."""
+    before = [(p, p.requires_grad) for p in module.parameters()]
+    try:
+        for n, p in module.named_parameters():
+            p.requires_grad_(mask is None or n in mask)
+        yield
+    finally:
+        for p, flag in before:
+            p.requires_grad_(flag)
 
 
-def train_token_asr(*args, **kwargs):
-    raise NotImplementedError(_TRAINING)
+def _batches(loader: DataLoader, fills, device):
+    """The loader's batches padded to its batch size (``pad_batch_to``) and
+    moved to ``device`` ahead of use; ids as int64."""
+    padded = (pad_batch_to(b, loader.batch_size, fills)[0] for b in loader)
+    for batch in prefetch_to_device(padded, device=device):
+        yield tuple(x if x.is_floating_point() else x.long() for x in batch)
+
+
+def _log_entry(log, epoch, entry):
+    log(f"epoch {epoch}: " + "  ".join(
+        f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}" for k, v in entry.items()))
+
+
+def _jax_tree(params):
+    """{"encoder", "head"} modules -> the JAX package's tree (numpy)."""
+    return {"encoder": to_jax_encoder(params["encoder"]), "head": to_jax_head(params["head"])}
+
+
+def train_char_asr(params, encoder_apply: Callable, train_loader: DataLoader,
+                   val_loader: Optional[DataLoader], vocab: CharVocabulary, *,
+                   head_kind: str = "lstm", epochs: int = 10, learning_rate: float = 1e-4,
+                   weight_decay: float = 0.01, trainable_mask=None,
+                   checkpoint_dir: str = "checkpoints/char_asr",
+                   history_path: Optional[str] = None, resume_from: Optional[str] = None,
+                   real_decode: bool = False, log: Callable = print) -> Dict:
+    """AdamW + cosine, clip 1.0, dual best-CER/WER checkpoints.
+    ``resume_from`` loads a checkpoint's encoder and head (the JAX layout)
+    into the modules before training."""
+    from .checkpoint import load_pytree
+    from .schedule import cosine
+
+    module = as_module(params)
+    if resume_from:
+        tree = load_pytree(resume_from)
+        with torch.no_grad():
+            module["encoder"].load_state_dict(from_jax_encoder(tree["encoder"], None, ""))
+            module["head"].load_state_dict(from_jax_head(tree["head"]))
+        log(f"resumed params from {resume_from}")
+    dev = next(module.parameters()).device
+    steps_per_epoch = max(len(train_loader), 1)
+    tx = make_optimizer(cosine(learning_rate, epochs * steps_per_epoch),
+                        weight_decay=weight_decay, trainable_mask=trainable_mask)
+    step = make_train_step(char_asr_loss_fn(encoder_apply, head_kind), tx)
+    tracker = BestTracker(checkpoint_dir, {"cer": "min", "wer": "min"})
+    if resume_from:
+        tracker.seed_from_disk()
+    history = TrainingHistory(history_path)
+    history.config = {"head": head_kind, "epochs": epochs, "lr": learning_rate,
+                      "num_chars": vocab.num_chars}
+    with _trainable(module, tx.trainable_mask):
+        state = init_state(module, tx)
+        for epoch in range(epochs):
+            t0 = time.time()
+            step_metrics = []
+            for mel, char_ids in _batches(train_loader, (None, PAD), dev):
+                state, m = step(state, mel, char_ids)
+                step_metrics.append(m)
+            entry = {"epoch": epoch, **_epoch_stats(step_metrics), "time_s": time.time() - t0}
+            if val_loader is not None:
+                val = evaluate_char_asr(module, encoder_apply, head_kind, val_loader, vocab,
+                                        real_decode=real_decode)
+                entry.update({f"val_{k}": v for k, v in val.items()})
+                tracker.update({"cer": val["cer"], "wer": val["wer"]},
+                               lambda: _jax_tree(module),
+                               {"epoch": epoch, "char_vocab": vocab.to_json()})
+            history.log(**entry)
+            _log_entry(log, epoch, entry)
+    return {"params": params, "history": history, "tracker": tracker}
+
+
+def train_classifier(params, encoder_apply: Callable, train_loader: DataLoader,
+                     val_loader: Optional[DataLoader], *, epochs: int = 10,
+                     learning_rate: float = 1e-4, weight_decay: float = 0.01,
+                     trainable_mask=None, checkpoint_dir: str = "checkpoints/classifier",
+                     history_path: Optional[str] = None, log: Callable = print) -> Dict:
+    """AdamW + cosine; triple best-accuracy/loss/WER checkpoints."""
+    from .schedule import cosine
+
+    module = as_module(params)
+    dev = next(module.parameters()).device
+    steps_per_epoch = max(len(train_loader), 1)
+    tx = make_optimizer(cosine(learning_rate, epochs * steps_per_epoch),
+                        weight_decay=weight_decay, trainable_mask=trainable_mask)
+    step = make_train_step(classifier_loss_fn(encoder_apply), tx)
+    tracker = BestTracker(checkpoint_dir, {"accuracy": "max", "loss": "min", "wer": "min"})
+    history = TrainingHistory(history_path)
+    history.config = {"epochs": epochs, "lr": learning_rate}
+    with _trainable(module, tx.trainable_mask):
+        state = init_state(module, tx)
+        for epoch in range(epochs):
+            t0 = time.time()
+            step_metrics = []
+            for mel, labels in _batches(train_loader, (None, -1), dev):
+                state, m = step(state, mel, labels)
+                step_metrics.append(m)
+            entry = {"epoch": epoch, **_epoch_stats(step_metrics), "time_s": time.time() - t0}
+            if val_loader is not None:
+                val = evaluate_classifier(module, encoder_apply, val_loader)
+                entry.update({f"val_{k}": v for k, v in val.items()})
+                tracker.update(val, lambda: _jax_tree(module), {"epoch": epoch})
+            history.log(**entry)
+            _log_entry(log, epoch, entry)
+    return {"params": params, "history": history, "tracker": tracker}
+
+
+@torch.inference_mode()
+def _token_validation(module, dims, tokenizer, loader: DataLoader, compute_dtype):
+    """Teacher-forced validation: the loss and the argmax WER/CER of one
+    forward a batch (the JAX package runs the same forward twice, for the
+    loss and for the argmax)."""
+    from .loss import shifted_token_loss
+
+    dev = next(module.parameters()).device
+    dt = getattr(torch, compute_dtype) if isinstance(compute_dtype, str) else compute_dtype
+    preds, refs, vlosses = [], [], []
+    for batch in loader:
+        (mel, tokens), real = pad_batch_to(batch, loader.batch_size, (None, -100))
+        mel_d = torch.from_numpy(np.ascontiguousarray(mel)).to(dev)
+        tok_d = torch.from_numpy(np.ascontiguousarray(tokens)).long().to(dev)
+        logits = cmodel.forward(module, mel_d, tok_d.clamp_min(0), dims, dt)
+        vlosses.append(float(shifted_token_loss(logits, tok_d)))
+        out = logits.argmax(-1).cpu().numpy()
+        tok_np = np.asarray(tokens)
+        for b in range(real):
+            valid = tok_np[b] != -100
+            ref_ids = [t for t in tok_np[b][valid].tolist() if t < tokenizer.eot]
+            hyp_ids = [t for t in out[b][:-1][valid[1:]].tolist() if t < tokenizer.eot]
+            refs.append(tokenizer.decode(ref_ids))
+            preds.append(tokenizer.decode(hyp_ids))
+    return {"val_loss": float(np.mean(vlosses)) if vlosses else 0.0,
+            "val_wer": qmetrics.calculate_wer(preds, refs),
+            "val_cer": qmetrics.calculate_cer(preds, refs)}
+
+
+def train_token_asr(params, dims, tokenizer, train_loader: DataLoader,
+                    val_loader: Optional[DataLoader], *, epochs: int = 10,
+                    learning_rate: float = 1e-4, warmup_steps: int = 500,
+                    weight_decay: float = 0.01, checkpoint_dir: str = "checkpoints/token_asr",
+                    history_path: Optional[str] = None, compute_dtype: str = "float32",
+                    mesh=None, fsdp: bool = False, grad_accum: int = 1,
+                    save_state_every: int = 0, resume_state: Optional[str] = None,
+                    log: Callable = print) -> Dict:
+    """Token-level training of a ``Whisper`` module: AdamW(0.9, 0.98, 1e-6)
+    + linear-warmup-cosine, best-WER checkpoint (the JAX layout).
+
+    ``grad_accum`` > 1 takes one optimizer step over that many
+    micro-batches (the batch size must divide by it; exactly the
+    full-batch step).  ``save_state_every`` > 0 writes the full train
+    state every N epochs (``state_epoch_N``) and beside each new best WER
+    (``best_wer_state``); ``resume_state`` restores such a state and
+    continues at the epoch its step count reaches.  ``mesh`` and ``fsdp``
+    wait for ROADMAP queue 1, item 7."""
+    from .checkpoint import restore_train_state, save_train_state
+    from .schedule import warmup_cosine
+    from .step import make_accum_train_step, whisper_loss_fn, whisper_sum_loss_fn
+
+    if mesh is not None or fsdp:
+        raise NotImplementedError("sharded training is not ported yet (ROADMAP queue 1, "
+                                  "item 7: parallelism)")
+    module = params
+    dev = next(module.parameters()).device
+    steps_per_epoch = max(len(train_loader), 1)
+    tx = make_optimizer(warmup_cosine(learning_rate, warmup_steps, epochs * steps_per_epoch),
+                        weight_decay=weight_decay)
+    if grad_accum > 1:
+        step = make_accum_train_step(whisper_sum_loss_fn(dims, compute_dtype), tx, grad_accum)
+    else:
+        step = make_train_step(whisper_loss_fn(dims, compute_dtype), tx)
+    tracker = BestTracker(checkpoint_dir, {"wer": "min"})
+    history = TrainingHistory(history_path)
+    history.config = {"epochs": epochs, "lr": learning_rate, "warmup": warmup_steps}
+    with _trainable(module, None):
+        state = init_state(module, tx)
+        start_epoch = 0
+        if resume_state:
+            state = restore_train_state(resume_state, state)
+            # the step counts loader batches: step // steps_per_epoch epochs are done
+            start_epoch = min(int(state.step) // steps_per_epoch, epochs)
+            for ldr in (train_loader, val_loader):
+                if hasattr(ldr, "epoch"):
+                    ldr.epoch = start_epoch
+            tracker.seed_from_disk()
+            log(f"resumed full train state from {resume_state} "
+                f"(step {int(state.step)}, continuing at epoch {start_epoch})")
+        for epoch in range(start_epoch, epochs):
+            t0 = time.time()
+            step_metrics = []
+            for mel, tokens in _batches(train_loader, (None, -100), dev):
+                state, m = step(state, mel, tokens)
+                step_metrics.append(m)
+            entry = {"epoch": epoch, **_epoch_stats(step_metrics), "time_s": time.time() - t0}
+            if val_loader is not None:
+                entry.update(_token_validation(module, dims, tokenizer, val_loader,
+                                               compute_dtype))
+                improved = tracker.update({"wer": entry["val_wer"]},
+                                          lambda: to_jax_params(module, dims), {"epoch": epoch})
+                if improved.get("wer") and save_state_every:
+                    save_train_state(os.path.join(checkpoint_dir, "best_wer_state"), state,
+                                     {"epoch": epoch, "val_wer": entry["val_wer"]})
+            if save_state_every and (epoch + 1) % save_state_every == 0:
+                save_train_state(os.path.join(checkpoint_dir, f"state_epoch_{epoch}"), state,
+                                 {"epoch": epoch})
+            history.log(**entry)
+            _log_entry(log, epoch, entry)
+    return {"params": params, "history": history, "tracker": tracker, "state": state}

@@ -286,10 +286,26 @@ def test_evaluate_classifier_matches_jax(trees, clf_jax_results, quantum_stem):
     assert closs.item() == 0.0
 
 
-def test_train_loops_raise_naming_the_roadmap():
-    for fn in (loops.train_char_asr, loops.train_classifier, loops.train_token_asr):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn()
+def test_parallel_flags_raise_naming_the_roadmap(in_tmp):
+    """The mesh, data-parallel and FSDP options wait for ROADMAP queue 1,
+    item 7 (parallelism) and say so, before any work."""
+    from qasr_ijcnlp_tpu_torch.cli import evaluate_pretrained_whisper, train_classical_whisper_asr
+    from qasr_ijcnlp_tpu_torch.train import checkpoint as tck, step as tstep
+
+    calls = [
+        lambda: evaluate_pretrained_whisper.main(["--data_parallel", "--device", "cpu"]),
+        lambda: train_classical_whisper_asr.main(["--model_parallel", "2", "--device", "cpu"]),
+        lambda: train_classical_whisper_asr.main(["--fsdp", "--device", "cpu"]),
+        lambda: loops.train_token_asr(None, LF_DIMS, None, [], None, mesh=object()),
+        lambda: loops.train_token_asr(None, LF_DIMS, None, [], None, fsdp=True),
+        lambda: tstep.whisper_loss_fn(LF_DIMS, mesh=object()),
+        lambda: tstep.shard_state(None, None),
+        lambda: tstep.make_sharded_train_step(None, None, None),
+        lambda: tck.restore_train_state("x", None, mesh=object()),
+    ]
+    for call in calls:
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 7"):
+            call()
 
 
 @pytest.fixture

@@ -13,7 +13,9 @@ the int8 attention's output is fp32 whatever q's dtype, so it is held to
 bf16 twice the plain bf16 version's own distance from the plain version in
 f32 on the same bf16-valued inputs; mel atol 2e-4 (tests/test_ops.py).  The
 rounding probes (chip_smoke.py ``k4_probe``, ``k8_probe``) must come out
-exact.
+exact.  The gradient tests hold each kernel's autograd Function (the
+kernel forward, the plain version's VJP backward) against autograd through
+the plain version: GRAD_TOL of each input's largest gradient.
 """
 
 import concurrent.futures
@@ -1031,3 +1033,137 @@ def test_data_views_and_prefetch_on_card(cuda_dev):
     (m, i), = list(prefetch_to_device(iter(loader), device=cuda_dev))
     assert m.device.type == "cuda" and i.device.type == "cuda"
     np.testing.assert_allclose(m[0].cpu().numpy(), ref, atol=2e-4, rtol=1e-4)
+
+
+# -- gradients: each kernel's autograd Function against the plain version --------------
+
+GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
+
+
+def _grad_check(counter, wrapper, plain, inputs, dtype, plain32=None):
+    """``wrapper`` (through its Function: the kernel forward, one launch, the
+    plain version's VJP backward, no launch) against autograd through
+    ``plain`` on the same inputs: the forward as the kernel tests hold it,
+    and the gradient of every input within GRAD_TOL of its largest
+    magnitude (the same plain ops on both sides; the tolerance covers
+    non-deterministic reductions, in bf16 one ulp).  ``plain32``: the plain
+    version in f32 for the bf16 forward's noise (default: ``plain`` on the
+    inputs in f32)."""
+    mod, attr = counter
+    cot = None
+    res = []
+    for fn in (wrapper, plain):
+        xs = [t.detach().clone().requires_grad_(True) for t in inputs]
+        before = getattr(mod, attr)
+        out = fn(*xs)
+        assert getattr(mod, attr) == before + (fn is wrapper)
+        if cot is None:
+            cot = torch.randn(out.shape, generator=torch.Generator(device="cuda").manual_seed(9),
+                              device="cuda").to(out.dtype)
+        grads = torch.autograd.grad(out, xs, cot)
+        assert getattr(mod, attr) == before + (fn is wrapper)  # no launch in the backward
+        res.append((out.detach(), grads))
+    (k, gk), (p, gp) = res
+    with torch.no_grad():
+        _close(k, p, plain32 or (lambda: plain(*(t.float() for t in inputs))))
+    for i, (a, b) in enumerate(zip(gk, gp)):
+        assert a.dtype == b.dtype and torch.isfinite(a).all(), i
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= GRAD_TOL[dtype] * float(b.float().abs().max()), (i, err)
+
+
+def _ns(**kw):
+    from types import SimpleNamespace
+
+    return SimpleNamespace(**kw)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("D,C0", [(384, 80), (1024, 80)], ids=["K2_tiny", "K3_medium"])
+def test_conv_stem_gradients(cuda_dev, dtype, D, C0):
+    enc = _stem_encoder(cuda_dev, D, C0)
+    mel = torch.randn(2, C0, 3000, generator=torch.Generator(device="cuda").manual_seed(3),
+                      device="cuda")
+    ins = [mel, *conv_stem._stem_weights(enc)]
+    wrapper = lambda mel, w1, b1, w2, b2, pos: conv_stem.fused_conv_stem(
+        _ns(conv1=_ns(weight=w1, bias=b1), conv2=_ns(weight=w2, bias=b2),
+            positional_embedding=pos), mel, 1536, dtype)
+    plain = lambda mel, w1, b1, w2, b2, pos: conv_stem._plain_stem(
+        _ns(conv1=_ns(weight=w1, bias=b1), conv2=_ns(weight=w2, bias=b2),
+            positional_embedding=pos), mel, 1536, dtype)
+    _grad_check((conv_stem, "launches"), wrapper, plain, ins, dtype,
+                lambda: conv_stem._plain_stem(enc, mel, 1536, torch.float32))
+
+
+@pytest.mark.parametrize("peak", [1.0, 8.0], ids=["random", "peaked"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("D,H", [(384, 6), (1024, 16)], ids=["tiny", "medium"])
+def test_fused_block_gradients(cuda_dev, dtype, D, H, peak):
+    """K4 and the finish (K5 at tiny, K6 at medium) at one block, Tp 1536,
+    t_real 1500; ``peaked``: the query weight scaled 8x, which sharpens
+    the softmax."""
+    torch.manual_seed(D)
+    blk = ResidualAttentionBlock(D, H).to(cuda_dev)
+    with torch.no_grad():
+        blk.attn.query.weight.mul_(peak)
+    g = torch.Generator(device="cuda").manual_seed(D)
+    x, a = (torch.randn(2, 1536, D, generator=g, device="cuda").to(dtype) for _ in range(2))
+
+    def attn_ns(g_, b_, wq, bq, wk, wv, bv):
+        return (_ns(weight=g_, bias=b_), _ns(query=_ns(weight=wq, bias=bq),
+                                              key=_ns(weight=wk, bias=None),
+                                              value=_ns(weight=wv, bias=bv)))
+
+    _grad_check((encoder_block, "attn_launches"),
+                lambda x, *w: encoder_block.fused_attention_ln(x, *attn_ns(*w), H, 1500),
+                lambda x, *w: encoder_block._plain_attn_ln(x, *attn_ns(*w), H, 1500),
+                [x, *encoder_block._attention_weights(blk.attn_ln, blk.attn)], dtype)
+
+    def block_ns(wo, bo, g_, b_, wf, bf, wp, bp):
+        return _ns(attn=_ns(out=_ns(weight=wo, bias=bo)), mlp_ln=_ns(weight=g_, bias=b_),
+                   mlp=[_ns(weight=wf, bias=bf), None, _ns(weight=wp, bias=bp)])
+
+    _grad_check((encoder_block, "finish_launches"),
+                lambda x, a, *w: encoder_block.fused_block_finish(x, a, block_ns(*w)),
+                lambda x, a, *w: encoder_block._plain_finish(x, a, block_ns(*w)),
+                [x, a, *encoder_block._finish_weights(blk)], dtype)
+
+
+@pytest.mark.parametrize("peak", [1.0, 8.0], ids=["random", "peaked"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_gradients(cuda_dev, dtype, peak):
+    """K7 at small-h96 (8 heads of 96 as strided views of (2, 1536, 768)) and
+    K8 at large-v3 ((2, 1536, 1280), 20 heads), t_real 1500; ``peaked``: q
+    scaled 8x."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = (_heads_of_rows(2, 1536, 8, 96, g, dtype, s) for s in (0.35 * peak, 0.35, 1.0))
+    _grad_check((flash, "launches_4d"), lambda q, k, v: flash.flash_attention(q, k, v, 1500),
+                lambda q, k, v: flash._plain_attention(q, k, v, 1500), [q, k, v], dtype)
+    q, k, v = (torch.randn(2, 1536, 1280, generator=g, device="cuda").mul(s).to(dtype)
+               for s in (0.35 * peak, 0.35, 1.0))
+    _grad_check((flash, "launches"),
+                lambda q, k, v: flash.flash_attention_packed(q, k, v, 20, 1500),
+                lambda q, k, v: flash._plain_attention_packed(q, k, v, 20, 1500), [q, k, v],
+                dtype)
+
+
+def test_packs_follow_in_place_updates_on_card(cuda_dev):
+    """An optimizer step writes the weights in place: the next kernel call
+    repacks and equals the plain version on the new weights."""
+    torch.manual_seed(0)
+    blk = ResidualAttentionBlock(384, 6).to(cuda_dev).requires_grad_(False)
+    enc = _stem_encoder(cuda_dev, 384, 80)
+    x = torch.randn(2, 1536, 384, generator=torch.Generator(device="cuda").manual_seed(1),
+                    device="cuda")
+    mel = torch.randn(2, 80, 3000, generator=torch.Generator(device="cuda").manual_seed(2),
+                      device="cuda")
+    for step in range(2):
+        a = encoder_block.fused_attention_ln(x, blk.attn_ln, blk.attn, 6, 1500)
+        f = encoder_block.fused_block_finish(x, a, blk)
+        s = conv_stem.fused_conv_stem(enc, mel, 1536)
+        _close(a, encoder_block._plain_attn_ln(x, blk.attn_ln, blk.attn, 6, 1500), None)
+        _close(f, encoder_block._plain_finish(x, a, blk), None)
+        _close(s, conv_stem._plain_stem(enc, mel, 1536, torch.float32), None)
+        with torch.no_grad():
+            for p in list(blk.parameters()) + list(enc.parameters()):
+                p.add_(0.01 * torch.randn_like(p))
