@@ -11,6 +11,8 @@
     python3 chip_smoke.py --services        # the decode services alone (engine, speculative, HTTP)
     python3 chip_smoke.py --quantum         # the source paper's model alone (quantum, char ASR)
     python3 chip_smoke.py --train           # training and the classical evaluation CLIs alone
+    python3 chip_smoke.py --export          # deployment artifacts alone (tiny, large-v3)
+    python3 chip_smoke.py --distill         # distillation, the from-scratch step, the new CLIs
 
 Drives the port's request path (qasr_ijcnlp_tpu_torch) at the full width of
 three Whisper sizes and of two head geometries at small's width, with random
@@ -170,7 +172,29 @@ and the opt-in fused step) and its grouped decodes (beam search, best-of):
    ``set_fused_mel(False)``), in turns, median of 3; (e) the two classical
    evaluation CLIs at tiny (16 items at B=16; ``transcribe`` on 4, no
    failure sentinel);
-13. prints the long-form, service, quantum and training stages as JSON lines, the whole script's
+13. deployment artifacts (``--export``): large-v3 at B=8, f32,
+   from 30-s PCM, exported with its kernels (K1 at 128 bins, the stem and
+   K8 as ``qasr::`` ops) and called without saving, token-exact against the
+   live decode with the live path's launches; tiny at B=8 (64 tokens): a
+   kernel-free fp artifact (against the live decode with the kernels off),
+   a kernels fp and a kernels int8 artifact (against the live decode, and
+   the live decode of the dequantized weights), each saved and loaded, with
+   export, save and load seconds, file sizes, call time beside the live
+   decode's (CUDA events) and the kernels artifact's device time and
+   launches (``torch.profiler``); prompt encoding with the native BPE core
+   and in pure Python.  The exporting processes (``--export-child``,
+   ``--export-large``, the export CLI) trace on the host while this process
+   runs the earlier paths (the full run starts them just after the build);
+   large-v3's does its device work only when handed the card;
+14. distillation (``--distill``): ``distill_draft`` with a
+   medium teacher and a tiny draft (B=8, 48 tokens, 6 steps, counted),
+   each step's KL against the same step on the kernels-off plain path,
+   ms a step, the agreement before and after, and the draft under medium's
+   speculative decode, token-exact; one step of the from-scratch model (8
+   qubits, nothing frozen) card against CPU; the three new CLIs
+   (``distill_draft``, ``train_whisper_from_scratch``, ``export_decode``,
+   whose artifact is called over 16 items) with ``--device cuda``;
+15. prints the long-form, service, quantum, training, export and distillation stages as JSON lines, the whole script's
    seconds, the per-kernel JSON line (every ported kernel with its
    launches, times, error and bound), the card line, then ``{"ok": true,
    "device": ...}`` as the last line.
@@ -3515,6 +3539,634 @@ def train_run(port, dev, smi):
     log(smi)
 
 
+# -- deployment artifacts, distillation, the from-scratch model --------------------------
+
+# Artifacts: B, and the requests of the three tiny artifacts (kernel-free
+# fp, kernels fp, kernels int8) and of large-v3's (kernels, not saved), all
+# from 30-s PCM in f32.
+EXPORT_B = 8
+# Stages, sizes and times of the export and distillation phases.
+EXPORT_STAGES = {}
+# Distillation: a medium teacher and a tiny draft at full width and depth,
+# B=8, labels of 48 tokens, DISTILL_STEPS steps over two batches (a third
+# held out), lr 1e-3.  The card's run against the same steps on the
+# kernels-off plain path on the card from equal weights and labels: the
+# first step's loss within 1e-4 relative (the training phases' one-step rule), later
+# steps within DISTILL_DRIFT (their weights differ by the earlier updates'
+# rounding, up to UPDATE_TOL of an update each step).
+DISTILL_STEPS, DISTILL_LEN, DISTILL_DRIFT = 6, 48, 1e-3
+
+
+def launch_profile(fn):
+    """(device ms, CUDA kernel launches) of one warm call of ``fn``, from
+    ``torch.profiler``'s CUDA events; (None, None) where the trace holds no
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us = n = 0
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+        if e.device_type == torch.autograd.DeviceType.CUDA and t:
+            us += t
+            n += e.count
+    return (us / 1000, n) if n else (None, None)
+
+
+def event_ms(fn, repeats=3):
+    """CUDA-event ms of one warm call of ``fn`` (mean of ``repeats``) and
+    its last result."""
+    out = fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(repeats):
+        out = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / repeats, out
+
+
+def artifact_tokens(export, out, meta):
+    return [list(t) for t in export.decode_artifact_tokens(out[0], out[1], meta)]
+
+
+def check_artifact(export, call, meta, x, label, st, want, smi, repeats=3, profile=False):
+    """Call an artifact on ``x`` with every counter set to 0 just before,
+    hold its tokens to ``want`` (the live decode's) and time it (CUDA
+    events; with ``profile``, its device time and kernel launches too).
+    Returns the launches; fills ``st``."""
+    cs = zero_counters()
+    out = call(x)
+    launches = read_counters(cs)
+    got = artifact_tokens(export, out, meta)
+    if got != want:
+        bad = next(i for i, (g, w) in enumerate(zip(got, want)) if g != w)
+        raise AssertionError(f"{label}: request {bad}'s tokens differ from the live "
+                             f"decode's:\n{got[bad]}\n{want[bad]}")
+    st["call_ms"], _ = event_ms(lambda: call(x), repeats)
+    if profile:
+        st["device_ms"], st["kernel_launches"] = launch_profile(lambda: call(x))
+    log(f"{label}: exported in {st['export_s']:.1f} s"
+        + (f", {st['file_mb']:.1f} MB file (save {st['save_s']:.1f} s, load "
+           f"{st['load_s']:.1f} s)" if "file_mb" in st else " (not saved)")
+        + f", {x.shape[0]} requests token-exact against the live decode, call "
+        f"{st['call_ms']:.1f} ms"
+        + (f" (device {st['device_ms']} ms in {st['kernel_launches']} kernel launches)"
+           if profile else "") + f" ({smi})")
+    return launches
+
+
+# The tiny artifacts: kind -> (with_kernels, quantize).
+TINY_EXPORTS = {"kernel-free": (False, None), "kernels": (True, None), "int8": (True, "int8")}
+# The exporting processes (``--export-child``, ``--export-large``, the
+# export CLI): name -> (Popen, its log), and their directory.  The traces
+# are host work of a minute (tiny) to three (large-v3), so the full run
+# starts every exporting process at once, just after the build, and they
+# trace while this process runs the earlier paths; each leaves its device
+# work (large-v3's live decode and calls) until this process reaches the
+# export phase and hands it the card (``go``).
+BACKGROUND = {}
+
+
+def start_background(names):
+    """Start the exporting processes in ``names`` that are not running yet
+    (each with one torch thread)."""
+    import os
+    import tempfile
+
+    if "dir" not in BACKGROUND:
+        BACKGROUND["dir"] = tempfile.mkdtemp(prefix="qasr_export_")
+    work = BACKGROUND["dir"]
+    root = os.path.dirname(os.path.abspath(__file__))
+    me = [sys.executable, os.path.abspath(__file__)]
+    argv = {kind: me + ["--export-child", kind, work] for kind in TINY_EXPORTS}
+    argv["large"] = me + ["--export-large", work]
+    argv["cli"] = [sys.executable, "-m", "qasr_ijcnlp_tpu_torch.cli.export_decode", "--model",
+                   "tiny", "--batch", str(TRAIN_BATCH), "--sample_len", "16", "--quantize",
+                   "int8", "--with_kernels", "--device", "cuda",
+                   "--out", os.path.join(work, "cli.qasrt")]
+    env = {**os.environ, "PYTHONPATH": root, "OMP_NUM_THREADS": "1"}
+    for name in names:
+        if name not in BACKGROUND:
+            log_path = os.path.join(work, name + ".log")
+            BACKGROUND[name] = (subprocess.Popen(argv[name], cwd=work, env=env,
+                                                 stdout=open(log_path, "w"),
+                                                 stderr=subprocess.STDOUT), log_path)
+
+
+def wait_background(name, label):
+    """Wait for exporting process ``name``; raise with its log's tail if it
+    failed."""
+    proc, log_path = BACKGROUND[name]
+    if proc.wait() != 0:
+        with open(log_path) as f:
+            log(f.read()[-4000:])
+        raise AssertionError(f"{label}: the exporting process failed")
+
+
+def stop_background():
+    """Stop every exporting process still running and remove their
+    directory."""
+    import shutil
+
+    for name, value in list(BACKGROUND.items()):
+        if name != "dir" and value[0].poll() is None:
+            value[0].kill()
+            value[0].wait()
+    if "dir" in BACKGROUND:
+        shutil.rmtree(BACKGROUND["dir"], ignore_errors=True)
+    BACKGROUND.clear()
+
+
+def tiny_export_model(port, dev):
+    """Tiny at full width and depth, random weights from SEED + 60."""
+    from qasr_ijcnlp_tpu_torch.models.dims import tiny_dims
+    from qasr_ijcnlp_tpu_torch.models.whisper import init_params
+
+    dims = tiny_dims()
+    return port.WhisperModel.from_state_dict(
+        init_params(torch.Generator().manual_seed(SEED + 60), dims), dims, dev,
+        name="tiny (random)")
+
+
+def export_child(kind, out_dir):
+    """``python3 chip_smoke.py --export-child KIND DIR``: export tiny's
+    artifact KIND (f32, from audio, B=EXPORT_B) into DIR/KIND.qasrt and its
+    export and save seconds into DIR/KIND.json."""
+    import os
+
+    import qasr_ijcnlp_tpu_torch as port
+    from qasr_ijcnlp_tpu_torch import export
+
+    torch.set_num_threads(1)
+    with_kernels, quantize = TINY_EXPORTS[kind]
+    model = tiny_export_model(port, torch.device("cuda", 0))
+    t0 = time.perf_counter()
+    ep, meta = export.export_greedy_decode(model, options(port, fp16=False), batch=EXPORT_B,
+                                           from_audio=True, device="cuda", quantize=quantize,
+                                           with_kernels=with_kernels)
+    t1 = time.perf_counter()
+    path = os.path.join(out_dir, kind + ".qasrt")
+    export.save_artifact(path, ep, meta)
+    st = {"export_s": t1 - t0, "save_s": time.perf_counter() - t1,
+          "file_mb": os.path.getsize(path) / 1e6, "with_kernels": with_kernels,
+          "quantize": quantize}
+    with open(path + ".json", "w") as f:
+        json.dump(st, f)
+
+
+def export_large_child(out_dir):
+    """``python3 chip_smoke.py --export-large DIR``: large-v3 at full width
+    and depth (random weights from SEED + 62), B=EXPORT_B, f32, from 30-s
+    PCM, exported with its kernels; then, once DIR/go exists (the card is
+    this process's), the live decode and the program's call (not saved)
+    with every counter set to 0 just before each, the tokens held equal,
+    the launches to each other and to large-v3's expectation, the results
+    into DIR/large.json."""
+    import os
+
+    import qasr_ijcnlp_tpu_torch as port
+    from qasr_ijcnlp_tpu_torch import export
+    from qasr_ijcnlp_tpu_torch.models.dims import dims_for
+    from qasr_ijcnlp_tpu_torch.models.whisper import init_params
+
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    large = dims_for("large-v3")
+    gpu = port.WhisperModel.from_state_dict(
+        init_params(torch.Generator().manual_seed(SEED + 62), large), large, dev,
+        name="large-v3 (random)")
+    t0 = time.perf_counter()
+    ep, meta = export.export_greedy_decode(gpu, options(port, fp16=False), batch=EXPORT_B,
+                                           device="cuda", with_kernels=True)
+    st = {"export_s": time.perf_counter() - t0, "with_kernels": True, "quantize": None}
+    program = ep.module()
+    del ep
+    while not os.path.exists(os.path.join(out_dir, "go")):
+        time.sleep(0.5)
+    pcm = synthetic_pcm(EXPORT_B, SEED + 63)
+    cs = zero_counters()
+    want, live_ms = live_tokens(port, gpu, pcm, repeats=1)
+    live = {k: v // 2 for k, v in read_counters(cs).items()}  # a warm-up, a timed call
+
+    def call(x):
+        with torch.no_grad():
+            return program(x)
+
+    label = "large-v3 export kernels"
+    launches = check_artifact(export, call, meta, torch.from_numpy(pcm).to(dev), label, st,
+                              want, "", repeats=1)
+    if launches != live:
+        raise AssertionError(f"{label}: launches {launches} differ from the live decode's "
+                             f"{live}")
+    expect_launches(label, launches, {**large_expect(large), "mel": 1, "stem": 1})
+    with open(os.path.join(out_dir, "large.json"), "w") as f:
+        json.dump({"stages": st, "live_ms": live_ms, "live": live, "launches": launches}, f)
+
+
+def live_tokens(port, model, pcm, kernels=True, repeats=3):
+    """The live f32 decode's tokens (and its CUDA-event ms, PCM to results,
+    mean of ``repeats`` after a warm-up) with the kernels on, or with
+    ``set_flash_attention(False)`` + ``set_fused_mel(False)``."""
+    from qasr_ijcnlp_tpu_torch import audio
+    from qasr_ijcnlp_tpu_torch.models import whisper
+
+    if not kernels:
+        whisper.set_flash_attention(False)
+        audio.set_fused_mel(False)
+    try:
+        ms, res = event_ms(lambda: run_requests(port, model, pcm, fp16=False), repeats)
+    finally:
+        whisper.set_flash_attention(None)
+        audio.set_fused_mel(None)
+    return [list(r.tokens) for r in res], ms
+
+
+def export_phases(port, dev, smi):
+    """(a) large-v3 at B=8 with kernels (K1 at 128 bins, the stem, K8 inside
+    the program), exported, then called without saving, by a process of
+    its own (``--export-large``); (b) tiny at full width and depth, B=8, 64
+    tokens, from 30-s PCM: a kernel-free fp artifact (against the live
+    decode with the kernels off), a kernels fp artifact (against the live
+    decode; its launches equal the live path's encoder launches) and a
+    kernels int8 artifact (against the live decode of the dequantized
+    weights), each exported and saved by a process of its own and loaded
+    and called here; (c) prompt encoding with the native BPE core and in
+    pure Python.  The exporting processes are started here unless the full
+    run started them already."""
+    import os
+
+    from qasr_ijcnlp_tpu_torch import export
+    from qasr_ijcnlp_tpu_torch.models.quantize import dequantize_params, quantize_params
+
+    t_phase = time.perf_counter()
+    start_background(["large", *TINY_EXPORTS])
+    work = BACKGROUND["dir"]
+    paths = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    with open(os.path.join(work, "go"), "w"):
+        pass
+    label = "large-v3 export kernels"
+    wait_background("large", label)
+    with open(os.path.join(work, "large.json")) as f:
+        large = json.load(f)
+    st = EXPORT_STAGES[label] = large["stages"]
+    EXPORT_STAGES["large-v3 live decode"] = {"ms": large["live_ms"]}
+    paths["large-v3 live decode"], paths[label] = large["live"], large["launches"]
+    log(f"{label}: exported in {st['export_s']:.1f} s (its own process, not saved), "
+        f"{EXPORT_B} requests token-exact against the live decode, launches equal the live "
+        f"path's {large['launches']}; live decode {large['live_ms']:.1f} ms, the artifact's "
+        f"call {st['call_ms']:.1f} ms ({smi})")
+
+    gpu = tiny_export_model(port, dev)
+    dims = gpu.dims
+    pcm = synthetic_pcm(EXPORT_B, SEED + 61)
+    x = torch.from_numpy(pcm).to(dev)
+    want_plain, plain_ms = live_tokens(port, gpu, pcm, kernels=False)
+    cs = zero_counters()
+    want, live_ms = live_tokens(port, gpu, pcm)
+    live = {k: v // 4 for k, v in read_counters(cs).items()}  # a warm-up, 3 timed calls
+    paths["tiny live decode"] = live
+    dev_ms, n_launch = launch_profile(lambda: run_requests(port, gpu, pcm, fp16=False))
+    EXPORT_STAGES["tiny live decode"] = {"ms": live_ms, "plain_ms": plain_ms,
+                                         "device_ms": dev_ms, "kernel_launches": n_launch}
+    log(f"tiny live decode B={EXPORT_B} f32: {live_ms:.1f} ms with the kernels (device "
+        f"{dev_ms} ms in {n_launch} kernel launches), {plain_ms:.1f} ms without ({smi})")
+    deq = port.WhisperModel.from_state_dict(
+        dequantize_params(quantize_params(gpu.module, dims)), dims, dev)
+    want_q, _ = live_tokens(port, deq, pcm)
+    del deq
+    wants = {"kernel-free": want_plain, "kernels": want, "int8": want_q}
+    for kind in TINY_EXPORTS:
+        label = f"tiny export {kind}"
+        wait_background(kind, label)
+        path = os.path.join(work, kind + ".qasrt")
+        with open(path + ".json") as f:
+            st = EXPORT_STAGES[label] = json.load(f)
+        t0 = time.perf_counter()
+        call, meta = export.load_artifact(path)
+        st["load_s"] = time.perf_counter() - t0
+        launches = check_artifact(export, call, meta, x, label, st, wants[kind], smi,
+                                  profile=kind == "kernels")
+        del call
+        if kind == "kernel-free":
+            expect_launches(label, launches, {})
+            continue
+        paths[label] = launches
+        if launches != live:
+            raise AssertionError(f"{label}: launches {launches} differ from the live "
+                                 f"decode's {live}")
+        expect_launches(label, launches, {**FUSED_EXPECT, **encoder_expect(dims, 1),
+                                          "mel": 1})
+    del gpu
+    fp_mb = EXPORT_STAGES["tiny export kernels"]["file_mb"]
+    q_mb = EXPORT_STAGES["tiny export int8"]["file_mb"]
+    if not q_mb < 0.5 * fp_mb:
+        raise AssertionError(f"int8 artifact {q_mb:.1f} MB is not under half the fp "
+                             f"artifact's {fp_mb:.1f} MB")
+    gc.collect()
+    torch.cuda.empty_cache()
+    EXPORT_STAGES["bpe"] = bpe_timing()
+    EXPORT_STAGES["export seconds"] = time.perf_counter() - t_phase
+    log(f"export phases seconds: {EXPORT_STAGES['export seconds']:.1f}")
+    return paths
+
+
+def bpe_timing(repeats=5):
+    """Prompt encoding on the host: the native BPE core against the
+    pure-Python merge, ids equal, the piece cache cleared before each pass
+    (best of ``repeats``): 200 prompts of 60 seeded random words each (most
+    pieces new: the merge's cost), and the 200 synthetic LibriSpeech
+    transcripts (few distinct words)."""
+    from qasr_ijcnlp_tpu_torch.data import load_librispeech
+    from qasr_ijcnlp_tpu_torch.tokenizer import bpe
+
+    rng = np.random.default_rng(SEED + 64)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    words = [" ".join("".join(rng.choice(letters, rng.integers(3, 11))) for _ in range(60))
+             for _ in range(200)]
+    base = load_librispeech("train.100", 200, verbose=False)
+    corpora = {"random words": words,
+               "transcripts": [base[i][1] for i in range(len(base))]}
+    enc = bpe.get_encoding("multilingual")
+    py = bpe.Encoding(enc.name, enc.pat_str, enc.ranks, enc.special_tokens)
+    py._native = None
+    out = {}
+    for corpus, texts in corpora.items():
+        row, ids = {}, {}
+        for name, e in (("native", enc), ("python", py)):
+            best = math.inf
+            for _ in range(repeats):
+                e._cache = {}
+                t0 = time.perf_counter()
+                ids[name] = [e.encode(" " + t) for t in texts]
+                best = min(best, time.perf_counter() - t0)
+            row[name + "_ms"] = best * 1e3
+        if ids["native"] != ids["python"]:
+            raise AssertionError(f"native BPE ids differ from the pure-Python merge's ({corpus})")
+        row["ids"] = sum(map(len, ids["native"]))
+        out[corpus] = row
+        log(f"prompt encoding, {len(texts)} {corpus} ({row['ids']} ids, cold piece cache, best "
+            f"of {repeats}): native {row['native_ms']:.1f} ms, pure Python "
+            f"{row['python_ms']:.1f} ms (host)")
+    return out
+
+
+def distill_phase(port, dev, smi):
+    """(a) ``distill_draft`` with a medium teacher and a tiny draft (B=8, 48
+    tokens, DISTILL_STEPS steps, counted), the same steps on the kernels-off
+    plain path from equal weights and labels, the agreement before and
+    after, and the distilled draft under medium's speculative decode,
+    token-exact against medium's greedy decode."""
+    from qasr_ijcnlp_tpu_torch import audio
+    from qasr_ijcnlp_tpu_torch.decode import DecodingTask
+    from qasr_ijcnlp_tpu_torch.models import whisper
+    from qasr_ijcnlp_tpu_torch.models.dims import dims_for, tiny_dims
+    from qasr_ijcnlp_tpu_torch.models.whisper import init_params
+    from qasr_ijcnlp_tpu_torch.train import distill, step as tstep
+
+    t_dims, s_dims = dims_for("medium"), tiny_dims()
+    teacher = port.WhisperModel.from_state_dict(
+        init_params(torch.Generator().manual_seed(SEED + 70), t_dims), t_dims, dev,
+        name="medium (random)")
+    s_sd = init_params(torch.Generator().manual_seed(SEED + 71), s_dims)
+    student = port.WhisperModel.from_state_dict(s_sd, s_dims, dev, name="tiny draft")
+    plain = port.WhisperModel.from_state_dict({k: v.clone() for k, v in s_sd.items()},
+                                              s_dims, dev, name="tiny draft (plain)")
+    mels = port.log_mel_spectrogram(synthetic_pcm(3 * EXPORT_B, SEED + 72), device=dev)
+    batches = [mels[i * EXPORT_B:(i + 1) * EXPORT_B] for i in range(3)]
+    held = batches.pop()
+    label = distill.make_teacher_labeler(teacher, DISTILL_LEN)
+    held_tokens = label(held)
+    before = distill.agreement_rate(teacher, student, held, held_tokens)
+    marks = []
+
+    def on_log(step, loss):
+        marks.append((time.perf_counter(), loss))
+
+    cs = zero_counters()
+    t0 = time.perf_counter()
+    _, history = distill.distill_draft(teacher, student, batches, steps=DISTILL_STEPS,
+                                       sample_len=DISTILL_LEN, log_every=1, on_log=on_log)
+    seconds = time.perf_counter() - t0
+    launches = read_counters(cs)
+    # two label decodes (teacher encoder once each), then per step the
+    # teacher's and the student's encoder forward
+    L_t, L_s = t_dims.n_audio_layer, s_dims.n_audio_layer
+    n = DISTILL_STEPS
+    expect_launches("distill_draft (medium teacher, tiny draft, B=8, f32)", launches,
+                    {**FUSED_EXPECT, "mel": 0, "stem": 2 + 2 * n, "attn": 2 * L_t + n * (L_t + L_s),
+                     "finish": 2 * L_t + n * (L_t + L_s)})
+    step_ms = [(b[0] - a[0]) * 1e3 for a, b in zip(marks[1:], marks[2:])]  # labels made
+    after = distill.agreement_rate(teacher, student, held, held_tokens)
+
+    # the same steps with the kernels off, from equal weights and labels
+    labels = [torch.from_numpy(label(b)).to(dev) for b in batches]
+    loss_fn = distill.distill_loss_fn(t_dims, s_dims)
+    tx = tstep.make_optimizer(1e-3, weight_decay=1e-4, clip_norm=None)
+    plain.module.requires_grad_(True)
+    whisper.set_flash_attention(False)
+    audio.set_fused_mel(False)
+    try:
+        state = tstep.init_state(plain.module, tx)
+        step_fn = tstep.make_train_step(loss_fn, tx)
+        plain_losses = []
+        for i in range(n):
+            state, met = step_fn(state, teacher.module, batches[i % 2], labels[i % 2])
+            plain_losses.append(float(met["loss"]))
+    finally:
+        whisper.set_flash_attention(None)
+        audio.set_fused_mel(None)
+        plain.module.requires_grad_(False)
+    for i, ((_, card), ref) in enumerate(zip(history, plain_losses)):
+        tol = 1e-4 if i == 0 else DISTILL_DRIFT
+        if abs(card - ref) > tol * abs(ref):
+            raise AssertionError(f"distill step {i + 1}: loss {card} vs the kernels-off "
+                                 f"path's {ref} (rel tol {tol:g})")
+    base = port.decode(teacher, held, options(port, False))
+    task = DecodingTask(teacher, options(port, False, extra={"draft": port.Draft(student, 4)}))
+    with torch.inference_mode():
+        spec = task.run(held)
+    for i, (b, s) in enumerate(zip(base, spec)):
+        if list(b.tokens) != list(s.tokens):
+            raise AssertionError(f"speculative decode with the distilled draft: request {i} "
+                                 f"differs from medium's greedy decode")
+    EXPORT_STAGES["distill"] = {
+        "seconds": seconds, "history": history, "plain_losses": plain_losses,
+        "step_ms": step_ms, "agreement_before": before, "agreement_after": after,
+        "spec_rounds": task.last_spec_rounds}
+    log(f"distill_draft (medium -> tiny, B={EXPORT_B}, {DISTILL_LEN} tokens, {n} steps): "
+        f"{seconds:.1f} s, {np.median(step_ms):.1f} ms a step (median of {len(step_ms)}), KL "
+        f"{[round(l, 5) for _, l in history]} (kernels off: "
+        f"{[round(l, 5) for l in plain_losses]}), held-out agreement {before:.3f} -> "
+        f"{after:.3f}; medium's speculative decode with the draft token-exact "
+        f"({task.last_spec_rounds} verify rounds for {EXPORT_B} x "
+        f"{BENCH_OPTIONS['sample_len']} tokens) ({smi})")
+    del teacher, student, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"distill_draft": launches}
+
+
+def from_scratch_step_phase(port, dev, smi):
+    """(b) one step of the from-scratch model (8-qubit quantum stem, tiny
+    trunk, LSTM head, nothing frozen) on the card and on the CPU plain path
+    from equal weights and batch (``grad_step_check``)."""
+    from torch import nn
+
+    from qasr_ijcnlp_tpu_torch.data import CharASRView, CharVocabulary, dataset_texts
+    from qasr_ijcnlp_tpu_torch.data import load_librispeech
+    from qasr_ijcnlp_tpu_torch.models import asr
+    from qasr_ijcnlp_tpu_torch.models.dims import tiny_dims
+    from qasr_ijcnlp_tpu_torch.models.quantum import QuantumWhisperModel, init_quantum_params
+    from qasr_ijcnlp_tpu_torch.train import loops
+
+    dims = tiny_dims()
+    base = load_librispeech("train.100", TRAIN_BATCH, verbose=False)
+    vocab = CharVocabulary.build(dataset_texts(base))
+    view = CharASRView(base, vocab, CHAR_MAX_LEN, device=dev)
+    batch = [np.stack(f) for f in zip(*(view[i] for i in range(TRAIN_BATCH)))]
+    gen = torch.Generator().manual_seed(SEED + 80)
+    sd = init_quantum_params(gen, dims, 8)
+    gpu = QuantumWhisperModel.from_state_dict(sd, dims, dev)
+    cpu = QuantumWhisperModel.from_state_dict({k: v.clone() for k, v in sd.items()}, dims,
+                                              "cpu")
+    head = asr.init_lstm_decoder(gen, dims.n_audio_state, vocab.num_chars, CHAR_HIDDEN,
+                                 CHAR_LAYERS)
+    card = nn.ModuleDict({"encoder": gpu.module.encoder, "head": copy.deepcopy(head).to(dev)})
+    host = nn.ModuleDict({"encoder": cpu.module.encoder, "head": head})
+    launches = grad_step_check(
+        "from-scratch step (8 qubits, tiny trunk, LSTM head, nothing frozen, B=8, f32)",
+        card, host, loops.char_asr_loss_fn(loops.encoder_fn_for(gpu), "lstm"), None, batch,
+        quantum_encoder_expect(dims, 1, 0), smi)
+    return {"from-scratch step": launches}
+
+
+def new_cli_phase(port, dev, smi):
+    """(c) the three new CLIs with ``--device cuda`` from a temporary
+    directory (removed after), over 16 synthetic items: the distillation
+    CLI (tiny teacher and draft, 2 steps) and the from-scratch trainer (one
+    epoch at B=8) in this process, and the export CLI (tiny, kernels, int8,
+    B=8) in a process of its own (started with the other exporting
+    processes, or by ``distill_phases``), whose artifact is called here over
+    two batches of 8."""
+    import os
+    import shutil
+    import tempfile
+
+    from qasr_ijcnlp_tpu_torch import export
+    from qasr_ijcnlp_tpu_torch.cli import distill_draft as dcli
+    from qasr_ijcnlp_tpu_torch.cli import train_whisper_from_scratch as fcli
+    from qasr_ijcnlp_tpu_torch.models.dims import tiny_dims
+
+    L = tiny_dims().n_audio_layer
+    n_val = TRAIN_ITEMS // 4
+    steps = TRAIN_ITEMS // TRAIN_BATCH
+    zero = {k: 0 for k in FUSED_EXPECT}
+    start_background(["cli"])
+    artifact = os.path.join(BACKGROUND["dir"], "cli.qasrt")
+    work = tempfile.mkdtemp(prefix="qasr_new_cli_")
+    here = os.getcwd()
+    os.chdir(work)
+    paths = {}
+    try:
+        label = "cli distill_draft"
+        t0 = time.perf_counter()
+        cs = zero_counters()
+        res = dcli.main(["--model", "tiny", "--draft", "tiny", "--steps", "2", "--batch_size",
+                         str(TRAIN_BATCH), "--max_samples", str(TRAIN_ITEMS), "--sample_len",
+                         "16", "--device", "cuda", "--out", "draft.pt"])
+        paths[label] = read_counters(cs)
+        # K1 once for the 16 clips; the held batch's labels, the agreement
+        # twice (teacher + draft), one training batch's labels and 2 steps
+        n_enc = 1 + 2 * 2 + 1 + 2 * 2
+        expect_launches(label, paths[label], {**zero, "mel": 1, "stem": n_enc,
+                                              "attn": n_enc * L, "finish": n_enc * L})
+        if not os.path.exists("draft.pt") or not all(math.isfinite(v) for _, v in
+                                                      res["history"]):
+            raise AssertionError(f"{label}: {res}")
+        EXPORT_STAGES[label] = {"seconds": time.perf_counter() - t0, **res}
+        log(f"{label}: {EXPORT_STAGES[label]['seconds']:.1f} s, agreement "
+            f"{res['before']:.3f} -> {res['after']:.3f} ({smi})")
+
+        label = "cli train_whisper_from_scratch"
+        t0 = time.perf_counter()
+        cs = zero_counters()
+        out = fcli.main(["--epochs", "1", "--batch_size", str(TRAIN_BATCH), "--max_samples",
+                         str(TRAIN_ITEMS), "--device", "cuda", "--checkpoint_dir", "ck"])
+        paths[label] = read_counters(cs)
+        expect_launches(label, paths[label], {**zero, "mel": TRAIN_ITEMS + n_val,
+                                              "attn": L * (steps + 1),
+                                              "finish": L * (steps + 1)})
+        epochs = _history_ok("whisper_from_scratch_training_history.json", label, range(1))
+        missing = [c for c in ("best_cer", "best_wer") if not os.path.exists(f"ck/{c}.pkl")]
+        if missing:
+            raise AssertionError(f"{label}: no checkpoint {missing}")
+        EXPORT_STAGES[label] = {"seconds": time.perf_counter() - t0, "epochs": epochs}
+        log(f"{label}: {EXPORT_STAGES[label]['seconds']:.1f} s, train_loss "
+            f"{epochs[0]['train_loss']:.4f}, best {out['tracker'].best} ({smi})")
+
+        label = "cli export_decode"
+        wait_background("cli", label)
+        call, meta = export.load_artifact(artifact)
+        pcm = synthetic_pcm(TRAIN_ITEMS, SEED + 90)
+        cs = zero_counters()
+        for i in range(0, TRAIN_ITEMS, TRAIN_BATCH):
+            out = call(pcm[i:i + TRAIN_BATCH])
+            if len(artifact_tokens(export, out, meta)) != TRAIN_BATCH:
+                raise AssertionError(f"{label}: bad artifact output")
+        paths[label] = read_counters(cs)
+        expect_launches(label, paths[label],
+                        {**zero, "mel": 2, "stem": 2, "attn": 2 * L, "finish": 2 * L})
+        EXPORT_STAGES[label] = {"file_mb": os.path.getsize(artifact) / 1e6}
+        log(f"{label} (a process of its own): {EXPORT_STAGES[label]['file_mb']:.1f} MB, the "
+            f"artifact called over {TRAIN_ITEMS} requests ({smi})")
+    finally:
+        os.chdir(here)
+        shutil.rmtree(work, ignore_errors=True)
+    return paths
+
+
+def distill_phases(port, dev, smi):
+    """Phases (a)-(c) of ``--distill``; the export CLI's process starts
+    first (unless the full run started it)."""
+    t0 = time.perf_counter()
+    start_background(["cli"])
+    paths = distill_phase(port, dev, smi)
+    paths.update(from_scratch_step_phase(port, dev, smi))
+    gc.collect()
+    paths.update(new_cli_phase(port, dev, smi))
+    gc.collect()
+    torch.cuda.empty_cache()
+    EXPORT_STAGES["distill seconds"] = time.perf_counter() - t0
+    log(f"distillation phases seconds: {EXPORT_STAGES['distill seconds']:.1f}")
+    return paths
+
+
+def export_run(port, dev, smi):
+    """``python3 chip_smoke.py --export``: the artifact phases alone."""
+    paths = export_phases(port, dev, smi)
+    log(json.dumps({"export_stages": EXPORT_STAGES, "export_launches": paths}, default=str))
+    log(smi)
+
+
+def distill_run(port, dev, smi):
+    """``python3 chip_smoke.py --distill``: the distillation, from-scratch
+    and new-CLI phases alone."""
+    paths = distill_phases(port, dev, smi)
+    log(json.dumps({"distill_stages": EXPORT_STAGES, "distill_launches": paths},
+                   default=str))
+    log(smi)
+
+
 def kernel_table(kres, by_path):
     """The per-kernel JSON entries: each row's f32 (and bf16) measurements
     and its launches on its path's counted batch and on every path."""
@@ -3837,6 +4489,12 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: torch.cuda.is_available() is False; this "
                          "check runs only on an NVIDIA GPU")
+    if sys.argv[1:2] == ["--export-child"] and len(sys.argv) == 4:
+        export_child(*sys.argv[2:])  # an exporting process, see BACKGROUND
+        return
+    if sys.argv[1:2] == ["--export-large"] and len(sys.argv) == 3:
+        export_large_child(sys.argv[2])
+        return
     import qasr_ijcnlp_tpu_torch as port
     from qasr_ijcnlp_tpu_torch.models.dims import dims_for, tiny_dims
 
@@ -3853,7 +4511,8 @@ def main():
         return
     modes = {"--stem": stem_run, "--attn": attn_run, "--diag": diag_run,
              "--longform": longform_run, "--services": services_run,
-             "--quantum": quantum_run, "--train": train_run}
+             "--quantum": quantum_run, "--train": train_run, "--export": export_run,
+             "--distill": distill_run}
     if len(sys.argv) == 2 and sys.argv[1] in modes:
         modes[sys.argv[1]](port, dev, smi)
         log(f"total seconds: {time.perf_counter() - t_start:.1f}")
@@ -3861,15 +4520,19 @@ def main():
         return
     if sys.argv[1:]:
         print(f"usage: python3 chip_smoke.py [--stem | --attn | --diag | --longform | "
-              f"--services | --quantum | --train | --k9 | --k10 [--stages]]; got "
+              f"--services | --quantum | --train | --export | --distill | --k9 | --k10 "
+              f"[--stages]]; got "
               f"{sys.argv[1:]}",
               file=sys.stderr)
         raise SystemExit(2)
 
+    start_background(["large", *TINY_EXPORTS, "cli"])  # they trace meanwhile
     kres, by_path = tiny_path(port, tiny_dims(), dev, smi)
     by_path.update(tiny_services(port, dev, smi))
     by_path.update(quantum_phases(port, dev, smi))
     by_path.update(train_phases(port, dev, smi))
+    by_path.update(export_phases(port, dev, smi))
+    by_path.update(distill_phases(port, dev, smi))
     # == medium and large-v3, full width and depth ==================================
     medium, large = dims_for("medium"), dims_for("large-v3")
     mres, mpaths = family_path(port, "medium", medium, dev, smi, FUSED_EXPECT,
@@ -3897,6 +4560,7 @@ def main():
     log(json.dumps({"service_stages": SERVICE_STAGES}))
     log(json.dumps({"quantum_stages": QUANTUM_STAGES}))
     log(json.dumps({"train_stages": TRAIN_STAGES}, default=str))
+    log(json.dumps({"export_distill_stages": EXPORT_STAGES}, default=str))
     log(f"total seconds: {time.perf_counter() - t_start:.1f}")
     log(json.dumps({"kernels": kernels}))
     log(smi)
@@ -3910,4 +4574,7 @@ def ok_line():
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        stop_background()

@@ -1,13 +1,14 @@
-"""ctypes binding of the native audio decoders and edit distance
-(``native/*.cpp``).
+"""ctypes binding of the native audio decoders, edit distance and BPE
+merge core (``native/*.cpp``).
 
-The port keeps its own copies of the JAX package's WAV, FLAC, resampling
-and Levenshtein sources (``tests/test_torch_io.py`` and
+The port keeps its own copies of the JAX package's WAV, FLAC, resampling,
+Levenshtein and BPE sources (``tests/test_torch_io.py`` and
 ``tests/test_torch_packaging.py`` hold them equal byte for byte, but for
 the reference's paths in comments) and builds them with the system ``g++``
-at first use into ``native/build/libqasr_torch_audio_<hash>.so`` (keyed by
+at first use into ``native/build/libqasr_torch_native_<hash>.so`` (keyed by
 the sources' hash).  A ``None`` handle (no ``g++``) sends the caller to the
-stdlib WAV decoder or the numpy edit distance, host paths.
+stdlib WAV decoder, the numpy edit distance or the pure-Python BPE merge,
+host paths.
 """
 
 from __future__ import annotations
@@ -16,7 +17,8 @@ import ctypes
 import hashlib
 import os
 import subprocess
-from typing import Optional
+import threading
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -24,11 +26,12 @@ _NATIVE_DIR = os.path.join(os.path.dirname(__file__), "native")
 _BUILD_DIR = os.path.join(_NATIVE_DIR, "build")
 SOURCES = ("wavio.cpp", "flac.cpp", "resample.cpp")  # the audio decoders
 EDITDIST = "editdist.cpp"  # the Levenshtein core of ``metrics``
+BPE = "bpe.cpp"  # the tokenizer's merge core
 
 
 def sources():
     """The native sources the library is built from (package data)."""
-    return [os.path.join(_NATIVE_DIR, s) for s in (*SOURCES, EDITDIST)]
+    return [os.path.join(_NATIVE_DIR, s) for s in (*SOURCES, EDITDIST, BPE)]
 
 
 def _build() -> Optional[str]:
@@ -36,7 +39,7 @@ def _build() -> Optional[str]:
     for src in sources():
         with open(src, "rb") as f:
             h.update(f.read())
-    so_path = os.path.join(_BUILD_DIR, f"libqasr_torch_audio_{h.hexdigest()[:16]}.so")
+    so_path = os.path.join(_BUILD_DIR, f"libqasr_torch_native_{h.hexdigest()[:16]}.so")
     if os.path.exists(so_path):
         return so_path
     os.makedirs(_BUILD_DIR, exist_ok=True)
@@ -66,6 +69,12 @@ def _lib() -> Optional[ctypes.CDLL]:
             i32p = ctypes.POINTER(ctypes.c_int32)
             _LIB.qasr_levenshtein.restype = ctypes.c_int32
             _LIB.qasr_levenshtein.argtypes = [i32p, ctypes.c_int32, i32p, ctypes.c_int32]
+            _LIB.qasr_bpe_create.restype = ctypes.c_void_p
+            _LIB.qasr_bpe_create.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_int64),
+                                             i32p, ctypes.c_int64]
+            _LIB.qasr_bpe_merge.restype = ctypes.c_int32
+            _LIB.qasr_bpe_merge.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int32,
+                                            i32p, ctypes.c_int32]
     return _LIB
 
 
@@ -113,3 +122,60 @@ def native_levenshtein(a_ids, b_ids) -> Optional[int]:
     i32p = ctypes.POINTER(ctypes.c_int32)
     return int(lib.qasr_levenshtein(a.ctypes.data_as(i32p), len(a), b.ctypes.data_as(i32p),
                                     len(b)))
+
+
+class _BPEHandle:
+    """Native BPE state per rank table (the JAX package's ``_BPEHandle``).
+
+    A table's entry holds a strong reference to its ranks dict beside the
+    native handle: keyed by ``id(ranks)`` alone, a collected dict's id
+    could be reused by another table and serve stale merges.  The output
+    buffer is thread-local, so concurrent encodes never share it."""
+
+    CAPACITY = 4096
+
+    def __init__(self):
+        self._tables: Dict[int, tuple] = {}  # id -> (ranks, handle)
+        self._tls = threading.local()
+
+    def _out_buf(self):
+        buf = getattr(self._tls, "out", None)
+        if buf is None:
+            buf = self._tls.out = (ctypes.c_int32 * self.CAPACITY)()
+        return buf
+
+    def _table_for(self, ranks: Dict[bytes, int]) -> ctypes.c_void_p:
+        entry = self._tables.get(id(ranks))
+        if entry is not None and entry[0] is ranks:
+            return entry[1]
+        items = list(ranks.items())
+        offsets = (ctypes.c_int64 * (len(items) + 1))()
+        pos = 0
+        for i, (k, _) in enumerate(items):
+            offsets[i] = pos
+            pos += len(k)
+        offsets[len(items)] = pos
+        vals = (ctypes.c_int32 * len(items))(*[v for _, v in items])
+        handle = ctypes.c_void_p(_lib().qasr_bpe_create(b"".join(k for k, _ in items),
+                                                        offsets, vals, len(items)))
+        self._tables[id(ranks)] = (ranks, handle)
+        return handle
+
+    def merge(self, piece: bytes, ranks: Dict[bytes, int]) -> List[int]:
+        """The ids of one pre-tokenized piece; the pure-Python merge where
+        the output buffer overflows or a byte is not in the table."""
+        out = self._out_buf()
+        n = _lib().qasr_bpe_merge(self._table_for(ranks), piece, len(piece), out,
+                                  self.CAPACITY)
+        if n < 0:
+            from .tokenizer.bpe import _bpe_merge
+
+            return _bpe_merge(piece, ranks)
+        return list(out[:n])
+
+
+def bpe_handle() -> _BPEHandle:
+    """A native BPE handle; RuntimeError without the library (no g++)."""
+    if _lib() is None:
+        raise RuntimeError("native library unavailable (g++ build failed)")
+    return _BPEHandle()

@@ -99,8 +99,11 @@ def apply_filters(
     last_tok: torch.Tensor,  # (B,) last written token
     prev_tok: torch.Tensor,  # (B,) second-to-last written token
     max_ts: torch.Tensor,  # (B,) running max timestamp token (0 if none)
+    masks: Optional[_Masks] = None,
 ) -> torch.Tensor:
-    m = _masks(cfg, logits.device)
+    """``masks``: ``_masks(cfg, device)`` made by the caller (a traced loop
+    body, which may not build them)."""
+    m = masks if masks is not None else _masks(cfg, logits.device)
     at_begin = cur_len == cfg.sample_begin
     if isinstance(at_begin, torch.Tensor):
         def fill_at_begin(x, vocab_mask):  # per row

@@ -23,6 +23,12 @@ single-token step by one fused kernel launch per decoder layer (K10) where
 ``fused_cache_applicable`` admits the cache; the prompt pass stays on the
 unfused ``decoder_step``.  That gate refuses a grouped cache, so beam and
 best-of decode never run K10.
+
+:func:`greedy_decode_program` is the JAX package's ``_greedy_decode_jit``
+(``sample=False, encode=True``) as one traceable function, for
+``torch.export`` (``export.py``): the encoder, the prompt pass and a
+device-side ``while_loop`` whose body takes ``unroll`` tokens, with no host
+read.  It never takes the fused step, as JAX's export never does.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+from torch._higher_order_ops import while_loop
 
 from ..models import whisper as model
 from ..models.dims import ModelDimensions
@@ -37,7 +44,7 @@ from ..ops import round_up
 from ..ops.decoder_step import (
     fused_cache_applicable, fused_decoder_step, fused_step_enabled, to_fused_cache,
 )
-from .filters import FilterConfig, _log_softmax, apply_filters
+from .filters import FilterConfig, _log_softmax, _masks, apply_filters
 
 
 class LoopConfig(NamedTuple):
@@ -160,6 +167,95 @@ def greedy_decode(
 
     reach = min(cfg.sample_begin + cfg.sample_len + 1, n_ctx + 1)
     return buf[:, :reach], cur_len, sum_logprobs, no_speech_probs
+
+
+def _encode_audio(encoder, mel, cfg: LoopConfig):
+    """The encoder inside the greedy program (JAX ``_encode_audio``): the
+    quantum or classical variant by the encoder's own stem."""
+    return model.dispatch_encoder_apply(encoder, mel, cfg.dims, cfg.compute_dtype)
+
+
+def greedy_decode_program(
+    encoder,
+    decoder,
+    cfg: LoopConfig,
+    mel: torch.Tensor,  # (B, n_mels, 2 n_audio_ctx)
+    initial_tokens: torch.Tensor,  # (B, sample_begin) int64
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Greedy decode of ``mel`` in one traceable function: returns
+    (tokens_buf (B, reach), cur_len (0-d), sum_logprobs (B,),
+    no_speech_probs (B,)), meaning what JAX's ``_greedy_decode_jit`` returns.
+
+    The loop is ``torch._higher_order_ops.while_loop`` with JAX's exit:
+    steps left, some row unfinished, context left.  Its body takes
+    ``cfg.unroll`` tokens; a token past ``sample_len`` or the context inside
+    a body commits nothing, and ``cur_len`` advances by ``unroll`` a body,
+    so the final ``cur_len`` is JAX's.  Positions are the 0-d tensor
+    ``cur_len``, through ``decoder_step``'s per-row path.  The body may not
+    write its carried inputs in place, so it works on a copy of the self
+    cache (ctx rows a layer) and writes the buffer with ``torch.where``,
+    which, as JAX's scatter, drops a write past the last column."""
+    B = initial_tokens.shape[0]
+    n_ctx = cfg.dims.n_text_ctx
+    eot = cfg.eot
+    dev = mel.device
+    L = cfg.dims.n_text_layer
+
+    audio_features = _encode_audio(encoder, mel, cfg)
+    cache, logits, no_speech_probs = _prompt_pass(decoder, cfg, audio_features, initial_tokens)
+    cross = {k: cache[k] for k in ("cross_k", "cross_v")}
+    masks = _masks(cfg.filters, dev)
+    W = n_ctx + 1
+    cols = torch.arange(W, device=dev)
+    buf = torch.full((B, W), eot, dtype=torch.long, device=dev)
+    buf[:, : cfg.sample_begin] = initial_tokens
+    state = (
+        torch.zeros((), dtype=torch.long, device=dev),  # i
+        torch.full((), cfg.sample_begin, dtype=torch.long, device=dev),  # cur_len
+        buf,
+        torch.zeros(B, device=dev),  # sum_logprobs
+        torch.zeros(B, dtype=torch.bool, device=dev),  # finished
+        logits.clone(memory_format=torch.contiguous_format),  # fresh strides at B = 1 too
+        torch.full((B,), -1, dtype=torch.long, device=dev),  # last
+        torch.full((B,), -1, dtype=torch.long, device=dev),  # prev
+        torch.zeros(B, dtype=torch.long, device=dev),  # max_ts
+        *cache["self_k"], *cache["self_v"],
+    )
+
+    def cond(i, cur_len, buf, sum_lp, finished, *rest):
+        return (i < cfg.sample_len) & ~finished.all() & (cur_len <= n_ctx)
+
+    def body(i, cur_len, buf, sum_lp, finished, logits, last, prev, max_ts, *kv):
+        kv = [t.clone() for t in kv]
+        cache_j = {**cross, "self_k": kv[:L], "self_v": kv[L:], "idx": 0}
+        for j in range(cfg.unroll):
+            active = ((i + j) < cfg.sample_len) & (cur_len <= n_ctx)
+            rows = cur_len.expand(B)
+            filtered = apply_filters(cfg.filters, logits, rows, last, prev, max_ts, masks)
+            next_tok = filtered.argmax(-1)
+            f32 = filtered.float()
+            m32 = f32.amax(-1)
+            lse = m32 + torch.log(torch.exp(f32 - m32[:, None]).sum(-1))
+            cur_lp = f32.gather(1, next_tok[:, None])[:, 0] - lse
+            commit = ~finished & active
+            sum_lp = sum_lp + cur_lp * commit
+            next_tok = torch.where(commit, next_tok, torch.full_like(next_tok, eot))
+            buf = torch.where(cols[None, :] == cur_len, next_tok[:, None], buf)
+            finished = finished | (next_tok == eot)
+            prev, last = last, next_tok
+            max_ts = torch.where(next_tok >= cfg.timestamp_begin,
+                                 torch.maximum(max_ts, next_tok), max_ts)
+            step_logits, cache_j = model.decoder_step(
+                decoder, next_tok[:, None], cache_j, cfg.dims, cfg.compute_dtype,
+                offsets=rows)
+            logits = step_logits[:, 0].clone(memory_format=torch.contiguous_format)
+            cur_len = cur_len + 1
+        return (i + cfg.unroll, cur_len, buf, sum_lp, finished, logits, last, prev, max_ts,
+                *cache_j["self_k"], *cache_j["self_v"])
+
+    _, cur_len, buf, sum_lp, *_ = while_loop(cond, body, state)
+    reach = min(cfg.sample_begin + cfg.sample_len + 1, n_ctx + 1)
+    return buf[:, :reach], cur_len, sum_lp, no_speech_probs
 
 
 # ---------------------------------------------------------------------------

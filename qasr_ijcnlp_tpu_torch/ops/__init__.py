@@ -24,7 +24,15 @@ version recomputed from the saved inputs (:func:`plain_vjp`).  That is the
 JAX package's rule: none of its Pallas kernels has a backward, and each
 custom VJP differentiates the XLA form.  Inference never takes the
 Function, so its launches are as before.
+
+The encoder-path kernels (K1-K8) are also ``torch.library`` custom ops in
+the ``qasr`` namespace (:mod:`.library`), so that ``torch.export`` records
+them as nodes of a program (``export.py``, ``with_kernels=True``).  The
+wrappers call the ops only while :func:`recording_ops` is on; otherwise
+they launch as before.
 """
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
@@ -33,6 +41,27 @@ import torch.nn.functional as F
 # and K8, csrc/decode_attn.cu for K9; K4 takes the fused-block gate's heads
 # of 64 and 128 on the same core).
 MAX_HEAD_WIDTH = 256
+
+_RECORD_OPS = False
+
+
+@contextlib.contextmanager
+def record_ops():
+    """While on, the encoder-path wrappers call their ``qasr::`` custom ops
+    (:mod:`.library`) instead of launching: ``torch.export`` traces them
+    as opaque nodes whose bodies launch the kernels at run time."""
+    global _RECORD_OPS
+    from . import library  # noqa: F401  (registers the ops)
+
+    prev, _RECORD_OPS = _RECORD_OPS, True
+    try:
+        yield
+    finally:
+        _RECORD_OPS = prev
+
+
+def recording_ops() -> bool:
+    return _RECORD_OPS
 
 
 def round_up(x: int, m: int) -> int:

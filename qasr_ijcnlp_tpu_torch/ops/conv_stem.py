@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _kernels
-from . import gelu, plain_vjp, round_up, wants_grad
+from . import gelu, plain_vjp, recording_ops, round_up, wants_grad
 from .encoder_block import GEMM_TILE, _check_aligned, _kept, _slabs, gemm_operand
 from .melfront import N_MELS
 
@@ -105,9 +105,11 @@ def fused_conv_stem(encoder, mel, t_pad: int, compute_dtype=torch.float32):
     ``positional_embedding`` (the port's AudioEncoder).  Where autograd
     must record the call, it goes through :class:`ConvStemFunction`."""
     dt = compute_dtype
+    weights = _stem_weights(encoder)
+    if recording_ops():
+        return torch.ops.qasr.conv_stem(mel, *weights, t_pad, dt)
     if not mel.is_cuda:
         return _plain_stem(encoder, mel, t_pad, dt)
-    weights = _stem_weights(encoder)
     if wants_grad(mel, *weights):
         return ConvStemFunction.apply(mel, *weights, encoder, t_pad, dt)
     return _launch_stem(encoder, mel, t_pad, dt)

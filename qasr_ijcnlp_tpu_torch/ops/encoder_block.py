@@ -42,7 +42,9 @@ from typing import Optional
 import torch
 
 from .. import _kernels
-from . import gelu, head_scale, kernel_head_width, layer_norm, linear, plain_vjp, wants_grad
+from . import (
+    gelu, head_scale, kernel_head_width, layer_norm, linear, plain_vjp, recording_ops, wants_grad,
+)
 
 attn_launches = 0
 finish_launches = 0
@@ -215,9 +217,11 @@ def fused_attention_ln(x, ln, attn, n_head: int, t_real: int):
     attention module (``query``/``key``/``value`` nn.Linear).  Where
     autograd must record the call, it goes through
     :class:`AttentionLNFunction`."""
+    weights = _attention_weights(ln, attn)
+    if recording_ops():
+        return torch.ops.qasr.attention_ln(x, *weights, n_head, t_real)
     if not x.is_cuda:
         return _plain_attn_ln(x, ln, attn, n_head, t_real)
-    weights = _attention_weights(ln, attn)
     if wants_grad(x, *weights):
         return AttentionLNFunction.apply(x, *weights, ln, attn, n_head, t_real)
     return _launch_attention(x, ln, attn, n_head, t_real)
@@ -271,9 +275,11 @@ def fused_block_finish(x, attn_out, block):
     """x + attn_out Wo + bo, then LN + fc + exact GELU + proj + residual:
     (B, Tp, D) -> (B, Tp, D).  Where autograd must record the call, it
     goes through :class:`BlockFinishFunction`."""
+    weights = _finish_weights(block)
+    if recording_ops():
+        return torch.ops.qasr.block_finish(x, attn_out, *weights)
     if not x.is_cuda:
         return _plain_finish(x, attn_out, block)
-    weights = _finish_weights(block)
     if wants_grad(x, attn_out, *weights):
         return BlockFinishFunction.apply(x, attn_out, *weights, block)
     return _launch_finish(x, attn_out, block)

@@ -39,7 +39,7 @@ from typing import Optional
 import torch
 
 from .. import _kernels
-from . import MAX_HEAD_WIDTH, kernel_head_width, plain_vjp, wants_grad
+from . import MAX_HEAD_WIDTH, kernel_head_width, plain_vjp, recording_ops, wants_grad
 
 launches = 0      # K8
 launches_4d = 0   # K7
@@ -68,6 +68,8 @@ def flash_attention_packed(q, k, v, n_head: int, t_real: int):
     dtype.  Keys at positions >= ``t_real`` get no weight.  Where autograd
     must record the call, it goes through :class:`PackedAttentionFunction`."""
     t_real = min(t_real, k.shape[1])
+    if recording_ops():
+        return torch.ops.qasr.flash_attention_packed(q, k, v, n_head, t_real)
     if not q.is_cuda:
         return _plain_attention_packed(q, k, v, n_head, t_real)
     if wants_grad(q, k, v):
@@ -120,6 +122,8 @@ def flash_attention(q, k, v, t_real: Optional[int] = None):
     tensor, so ``_merge_heads`` of it copies nothing.  Where autograd must
     record the call, it goes through :class:`FlashAttentionFunction`."""
     t_real = k.shape[2] if t_real is None else min(t_real, k.shape[2])
+    if recording_ops():
+        return torch.ops.qasr.flash_attention(q, k, v, t_real)
     if not q.is_cuda:
         return _plain_attention(q, k, v, t_real)
     if wants_grad(q, k, v):

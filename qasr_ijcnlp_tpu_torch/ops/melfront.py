@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _kernels
+from . import recording_ops
 from ..audio import HOP_LENGTH, N_FFT, mel_filters
 from .encoder_block import gemm_operand
 
@@ -101,8 +102,15 @@ def _plain_log10_mel(audio, n_mels: int):
 def log10_mel(audio, n_mels: int = 80):
     """Reflect-padded waveform (B, L) float32 -> (B, n_mels, frames - 1)
     log10 mel power, before the clamp and scaling."""
+    if recording_ops():
+        return torch.ops.qasr.log10_mel(audio, n_mels)
     if not audio.is_cuda:
         return _plain_log10_mel(audio, n_mels)
+    return _launch_log_mel(audio, n_mels)
+
+
+def _launch_log_mel(audio, n_mels: int):
+    """K1 on the card."""
     global launches
     if audio.dim() != 2 or audio.dtype != torch.float32 or \
             audio.shape[-1] < N_FFT + HOP_LENGTH:

@@ -1,9 +1,12 @@
 """Byte-pair encoding engine over tiktoken-format rank files.
 
-Port of ``qasr_ijcnlp_tpu/tokenizer/bpe.py`` (pure-Python merges; the C++
-merge core of the JAX package is not carried over).  The rank tables are the
-port's own copies in ``tokenizer/assets``, byte-identical to the JAX
-package's (a test holds them so).
+Port of ``qasr_ijcnlp_tpu/tokenizer/bpe.py``: the greedy lowest-rank pair
+merge runs in the C++ core ``native/bpe.cpp`` (the port's copy of the JAX
+package's, built by :mod:`.._native`), and in pure Python where that
+library is missing (no ``g++``) or a piece overflows its output buffer; both
+give the same ids.  The rank tables are the port's own copies in
+``tokenizer/assets``, byte-identical to the JAX package's (a test holds
+them so).
 
 ``regex`` (for the GPT-2 split pattern) is imported inside
 :meth:`Encoding.encode`: decoding token ids to text needs no split pattern,
@@ -52,6 +55,24 @@ def _bpe_merge(piece: bytes, ranks: Dict[bytes, int]) -> List[int]:
     return [ranks[p] for p in parts]
 
 
+class _NativeBPE:
+    """The process's native BPE handle (``_native.bpe_handle``), or None
+    where the library does not build."""
+
+    _instance = "unset"
+
+    @classmethod
+    def get(cls):
+        if cls._instance == "unset":
+            try:
+                from .. import _native
+
+                cls._instance = _native.bpe_handle()
+            except Exception:
+                cls._instance = None
+        return cls._instance
+
+
 class Encoding:
     """tiktoken-compatible encoding: regex split + rank-table BPE + specials."""
 
@@ -75,6 +96,7 @@ class Encoding:
             self._decoder[rank] = text.encode("utf-8")
         self.n_vocab = len(mergeable_ranks) + len(special_tokens)
         self.eot_token = special_tokens.get("<|endoftext|>")
+        self._native = _NativeBPE.get()
         # Per-encoding memo for word pieces; Whisper text is highly repetitive.
         self._cache: Dict[bytes, List[int]] = {}
 
@@ -85,11 +107,15 @@ class Encoding:
             self._pat = regex.compile(self.pat_str)
         ids: List[int] = []
         cache = self._cache
+        native = self._native
         for match in self._pat.finditer(text):
             piece = match.group().encode("utf-8")
             out = cache.get(piece)
             if out is None:
-                out = _bpe_merge(piece, self.ranks)
+                if native is not None:
+                    out = native.merge(piece, self.ranks)
+                else:
+                    out = _bpe_merge(piece, self.ranks)
                 if len(cache) < 1 << 16:
                     cache[piece] = out
             ids.extend(out)

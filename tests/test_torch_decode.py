@@ -178,6 +178,16 @@ def test_port_runs_without_jax():
                           torch.tensor([[50258, 50359, 440, 50257]]))
         assert int(state.step) == 1 and int(met["skipped"]) == 0
         assert torch.isfinite(met["loss"]) and not torch.equal(w0, m.module.decoder.ln.bias)
+        from qasr_ijcnlp_tpu_torch import export, profiling  # noqa: F401
+        from qasr_ijcnlp_tpu_torch.cli import (  # noqa: F401
+            distill_draft, export_decode, train_whisper_from_scratch)
+        from qasr_ijcnlp_tpu_torch.models import quantize
+        from qasr_ijcnlp_tpu_torch.ops import library  # noqa: F401
+        from qasr_ijcnlp_tpu_torch.tokenizer import bpe
+        from qasr_ijcnlp_tpu_torch.train import distill  # noqa: F401
+        assert bpe.get_encoding("gpt2")._native is not None
+        q = quantize.quantize_params(m.module, lf)
+        assert q["decoder.token_embedding.weight"]["q"].dtype == torch.int8
         bad = [k for k in sys.modules
                if k.split(".")[0] in ("jax", "optax", "orbax", "qasr_ijcnlp_tpu")
                and sys.modules[k] is not None]

@@ -1167,3 +1167,115 @@ def test_packs_follow_in_place_updates_on_card(cuda_dev):
         with torch.no_grad():
             for p in list(blk.parameters()) + list(enc.parameters()):
                 p.add_(0.01 * torch.randn_like(p))
+
+
+# -- the kernels as qasr:: custom ops (export.py with_kernels=True) ----------------------
+
+def _op_cases(cuda_dev, dtype):
+    """(name, op call, wrapper call) on one weight set each: K1, the stem,
+    K4, K5, K7 at small-h96's heads (8 of 96) and K8."""
+    from qasr_ijcnlp_tpu_torch.ops import library
+
+    g = torch.Generator(device="cpu").manual_seed(11)
+    r = lambda *s, scale=1.0: (torch.randn(*s, generator=g) * scale).to(cuda_dev)
+    blk = ResidualAttentionBlock(384, 6).to(cuda_dev).requires_grad_(False)
+    x = r(2, 1536, 384).to(dtype)
+    attn_out = r(2, 1536, 384, scale=0.1).to(dtype)
+    audio = r(2, 16000 * 30 + 400, scale=0.1)
+    enc = tmodel.Whisper(tiny_dims()).encoder.to(cuda_dev).requires_grad_(False)
+    mel = r(2, 80, 3000)
+    q, k, v = (r(2, 8, 1536, 96, scale=0.3).to(dtype) for _ in range(3))
+    qp, kp, vp = (r(2, 1536, 1280, scale=0.3).to(dtype) for _ in range(3))
+    aw, fw = encoder_block._attention_weights(blk.attn_ln, blk.attn), \
+        encoder_block._finish_weights(blk)
+    sw = conv_stem._stem_weights(enc)
+    return [
+        ("log10_mel", lambda: library.log10_mel(audio, 80), lambda: melfront.log10_mel(audio, 80)),
+        ("conv_stem", lambda: library.conv_stem_op(mel, *sw, 1536, dtype),
+         lambda: conv_stem.fused_conv_stem(enc, mel, 1536, dtype)),
+        ("attention_ln", lambda: library.attention_ln(x, *aw, 6, 1500),
+         lambda: encoder_block.fused_attention_ln(x, blk.attn_ln, blk.attn, 6, 1500)),
+        ("block_finish", lambda: library.block_finish(x, attn_out, *fw),
+         lambda: encoder_block.fused_block_finish(x, attn_out, blk)),
+        ("flash_attention", lambda: library.flash_attention(q, k, v, 1500),
+         lambda: flash.flash_attention(q, k, v, 1500)),
+        ("flash_attention_packed", lambda: library.flash_attention_packed(qp, kp, vp, 20, 1500),
+         lambda: flash.flash_attention_packed(qp, kp, vp, 20, 1500)),
+    ]
+
+
+# op name -> the launch counter its body bumps (module, attribute)
+OP_COUNTERS = {
+    "log10_mel": (melfront, "launches"),
+    "conv_stem": (conv_stem, "launches"),
+    "attention_ln": (encoder_block, "attn_launches"),
+    "block_finish": (encoder_block, "finish_launches"),
+    "flash_attention": (flash, "launches_4d"),
+    "flash_attention_packed": (flash, "launches"),
+}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_custom_ops_equal_their_wrappers(cuda_dev, dtype):
+    """Each op launches its wrapper's kernel once and returns its bits."""
+    for name, op, wrapper in _op_cases(cuda_dev, dtype):
+        if name == "log10_mel" and dtype != torch.float32:
+            continue  # K1 is f32 only
+        mod, attr = OP_COUNTERS[name]
+        before = getattr(mod, attr)
+        got = op()
+        assert getattr(mod, attr) == before + 1, name
+        want = wrapper()
+        assert got.shape == want.shape and got.dtype == want.dtype, name
+        assert got.stride() == want.stride(), name
+        assert torch.equal(got, want), name
+
+
+def test_op_pack_follows_an_in_place_weight_update(cuda_dev):
+    """The op builds its weight pack at every call: after an in-place update
+    of the weights it computes with the new values (the wrapper's cached
+    pack is rebuilt on the version change, so both agree again)."""
+    from qasr_ijcnlp_tpu_torch.ops import library
+
+    blk = ResidualAttentionBlock(384, 6).to(cuda_dev).requires_grad_(False)
+    x = torch.randn(2, 1536, 384, generator=torch.Generator().manual_seed(3)).to(cuda_dev)
+    aw = encoder_block._attention_weights(blk.attn_ln, blk.attn)
+    first = library.attention_ln(x, *aw, 6, 1500)
+    with torch.no_grad():
+        blk.attn.query.weight.mul_(1.5)
+        blk.attn_ln.bias.add_(0.25)
+    second = library.attention_ln(x, *aw, 6, 1500)
+    assert not torch.equal(first, second)
+    assert torch.equal(second, encoder_block.fused_attention_ln(x, blk.attn_ln, blk.attn, 6,
+                                                                1500))
+    plain = encoder_block._plain_attn_ln(x, blk.attn_ln, blk.attn, 6, 1500)
+    assert float((second - plain).abs().max()) <= 1e-4
+
+
+def test_kernels_artifact_token_exact_on_card(cuda_dev, tmp_path):
+    """A kernels artifact (tiny, B=4, from audio, f32), saved and loaded:
+    the live decode's tokens, and the live path's encoder launches."""
+    from chip_smoke import read_counters, synthetic_pcm, zero_counters
+
+    from qasr_ijcnlp_tpu_torch import export, log_mel_spectrogram
+    from qasr_ijcnlp_tpu_torch.decode import DecodingOptions, decode
+
+    dims = tiny_dims()
+    m = WhisperModel.from_state_dict(init_params(torch.Generator().manual_seed(5), dims), dims,
+                                     cuda_dev)
+    opts = DecodingOptions(fp16=False, language="en", without_timestamps=True, sample_len=24)
+    pcm = synthetic_pcm(4, 9)
+    ep, meta = export.export_greedy_decode(m, opts, batch=4, device="cuda", with_kernels=True)
+    path = str(tmp_path / "tiny.qasrt")
+    export.save_artifact(path, ep, meta)
+    call, meta = export.load_artifact(path)
+    assert meta["with_kernels"] and meta["device"] == "cuda"
+    cs = zero_counters()
+    out = call(pcm)
+    got = read_counters(cs)
+    cs = zero_counters()
+    want = decode(m, log_mel_spectrogram(pcm, device=cuda_dev), opts)
+    live = read_counters(cs)
+    assert got == live and got["attn"] == dims.n_audio_layer and got["mel"] == 1
+    assert [list(t) for t in export.decode_artifact_tokens(out[0], out[1], meta)] == \
+        [list(r.tokens) for r in want]

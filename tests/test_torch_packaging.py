@@ -1,13 +1,15 @@
 """Every file the port opens by path under its package ships with it.
 
 The port reads its tokenizer's rank tables (``tokenizer/bpe.py``),
-compiles its CUDA sources (``_kernels.py``) and its native audio decoders
-and edit distance (``_native.py``) from files beside its modules, and its
+compiles its CUDA sources (``_kernels.py``) and its native audio decoders,
+edit distance and BPE merge core (``_native.py``) from files beside its
+modules, and its
 English normalizer reads ``metrics/english_spelling.json``, so each must
 match a ``[tool.setuptools.package-data]`` glob of ``pyproject.toml``, or an
 installed port has no tokenizer, no kernels, no file decoders or no
-normalizer.  The port's copies of the edit distance and the spelling table
-are the JAX package's, byte for byte (but for a comment's path).
+normalizer.  The port's copies of the edit distance, the BPE core and the
+spelling table are the JAX package's, byte for byte (but for a comment's
+path).
 """
 
 import fnmatch
@@ -50,11 +52,11 @@ def shipped(path, data):
 
 def test_every_opened_file_is_listed():
     """Both rank tables, every kernel source with the headers it includes,
-    and the native audio sources."""
+    and the native sources."""
     names = {os.path.basename(p) for p in OPENED}
     assert {"gpt2.tiktoken", "multilingual.tiktoken", "flash.cu", "attention_tc.cuh",
             "common.cuh", "gemm_tc.cuh", "hopper.cuh", "wavio.cpp", "flac.cpp",
-            "resample.cpp", "editdist.cpp", "english_spelling.json"} <= names
+            "resample.cpp", "editdist.cpp", "bpe.cpp", "english_spelling.json"} <= names
 
 
 @pytest.mark.parametrize("path", OPENED, ids=lambda p: os.path.relpath(p, PACKAGE))
@@ -63,13 +65,13 @@ def test_opened_file_is_package_data(path):
     assert shipped(path, package_data()), f"{path} matches no package-data glob"
 
 
-@pytest.mark.parametrize("rel", [("native", "editdist.cpp"),
+@pytest.mark.parametrize("rel", [("native", "editdist.cpp"), ("native", "bpe.cpp"),
                                  ("metrics", "english_spelling.json")],
                          ids=lambda r: r[1])
 def test_copies_equal_the_jax_package(rel):
-    """The edit distance cites the reference's utils.py by its own name, not
-    by where a checkout of it lay; otherwise both files are the JAX
-    package's."""
+    """The edit distance and the BPE core cite the reference's files by
+    their own names, not by where a checkout of it lay; otherwise the
+    files are the JAX package's."""
     with open(os.path.join(ROOT, "qasr_ijcnlp_tpu", *rel), "rb") as f:
         want = re.sub(rb"/[\w/]*/reference/", b"reference ", f.read())
     with open(os.path.join(PACKAGE, *rel), "rb") as f:

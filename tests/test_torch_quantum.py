@@ -63,7 +63,7 @@ def models(qparams):
 
 # -- the simulator ---------------------------------------------------------------------
 
-@pytest.mark.parametrize("n_qubits", [2, 3, 4, 6])
+@pytest.mark.parametrize("n_qubits", [2, 3, 4, 6, 8])
 def test_expvals_match_jax_and_oracle(rng, n_qubits):
     w = rng.standard_normal((n_qubits, 3)).astype(np.float32)
     x = rng.standard_normal((5, n_qubits)).astype(np.float32)
