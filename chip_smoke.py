@@ -13,6 +13,7 @@
     python3 chip_smoke.py --train           # training and the classical evaluation CLIs alone
     python3 chip_smoke.py --export          # deployment artifacts alone (tiny, large-v3)
     python3 chip_smoke.py --distill         # distillation, the from-scratch step, the new CLIs
+    python3 chip_smoke.py --parallel        # K4 head-sharded and the sharded paths, ranks on cuda:0
 
 Drives the port's request path (qasr_ijcnlp_tpu_torch) at the full width of
 three Whisper sizes and of two head geometries at small's width, with random
@@ -194,8 +195,23 @@ and the opt-in fused step) and its grouped decodes (beam search, best-of):
    qubits, nothing frozen) card against CPU; the three new CLIs
    (``distill_draft``, ``train_whisper_from_scratch``, ``export_decode``,
    whose artifact is called over 16 items) with ``--device cuda``;
-15. prints the long-form, service, quantum, training, export and distillation stages as JSON lines, the whole script's
-   seconds, the per-kernel JSON line (every ported kernel with its
+15. parallelism (``--parallel``): K4 head-sharded alone at the Dl of each
+   tensor-parallel case (512, 640, 384, 256), f32 and bf16, against its
+   plain version, and its tp shards side by side against the full-width
+   launch bit for bit; then four rank processes on cuda:0 over gloo (started
+   just after the build, handed the card here): the medium, large-v3 and
+   small-h128 encoders (full width and depth, B=8) head-sharded over (1, 2)
+   ranks and medium over (1, 4), against the single-rank kernel encoder,
+   with exact launches per rank (the stem once, K4 once a layer, K5/K6 and
+   K8 never); tiny's trunk sequence-parallel over (1, 4) and pipelined over
+   (1, 2) and a tiny MoE trunk expert-parallel over (1, 2), each against its
+   single-rank form; tiny greedy decode of 16 requests data-parallel over 2
+   ranks with the fused step on (K10 never), token-exact against the
+   single-rank decode; the data-parallel engine (8 slots over 2 ranks, 12
+   requests) token-exact per request against the single-rank engine.  The
+   ranks share one card: their times are not scaling figures;
+16. prints the long-form, service, quantum, training, export, distillation and
+   parallel stages as JSON lines, the whole script's seconds, the per-kernel JSON line (every ported kernel with its
    launches, times, error and bound), the card line, then ``{"ok": true,
    "device": ...}`` as the last line.
 
@@ -3666,7 +3682,7 @@ def wait_background(name, label):
     if proc.wait() != 0:
         with open(log_path) as f:
             log(f.read()[-4000:])
-        raise AssertionError(f"{label}: the exporting process failed")
+        raise AssertionError(f"{label}: the background process failed")
 
 
 def stop_background():
@@ -3675,11 +3691,12 @@ def stop_background():
     import shutil
 
     for name, value in list(BACKGROUND.items()):
-        if name != "dir" and value[0].poll() is None:
+        if name not in ("dir", "par_dir") and value[0].poll() is None:
             value[0].kill()
             value[0].wait()
-    if "dir" in BACKGROUND:
-        shutil.rmtree(BACKGROUND["dir"], ignore_errors=True)
+    for name in ("dir", "par_dir"):
+        if name in BACKGROUND:
+            shutil.rmtree(BACKGROUND[name], ignore_errors=True)
     BACKGROUND.clear()
 
 
@@ -4167,6 +4184,402 @@ def distill_run(port, dev, smi):
     log(smi)
 
 
+# -- parallelism: K4 head-sharded, the sharded trunks, data-parallel decode -------------
+#
+# The card host has one H100, so the ranks share it: PARALLEL_WORLD
+# processes on cuda:0 joined by gloo (NCCL refuses two ranks on one device;
+# gloo takes all_reduce of CUDA tensors, which is every collective the port
+# uses).  They measure that the sharded paths compute what one rank computes,
+# with the head-sharded kernel inside them; their times are of ranks
+# time-sharing one card, not of scaling.  The rank processes start just
+# after the build (``--parallel-rank R DIR``: imports, the process group)
+# and wait for DIR/go before any device work, which this process writes
+# once the earlier paths are done, so no earlier timing shares the card.
+
+PARALLEL_WORLD = 4
+PARALLEL_STAGES = {}
+# (label, dims name, heads override, tp): the TP encoders the ranks drive
+# (the first tp ranks), full width and depth, B_KERNEL rows; and the K4
+# head-sharded rows timed alone in this process at each one's Dl.
+TP_CASES = (("medium tp2", "medium", None, 2), ("large-v3 tp2", "large-v3", None, 2),
+            ("small-h128 tp2", "small", 6, 2), ("medium tp4", "medium", None, 4))
+MOE_EXPERTS = 4
+
+
+def tp_dims(name, heads):
+    from qasr_ijcnlp_tpu_torch.models.dims import dims_for
+
+    dims = dims_for(name)
+    return dims if heads is None else replace(dims, n_audio_head=heads, n_text_head=heads)
+
+
+def head_shard(attn, tp, m):
+    """Rank m of tp's Q/K/V columns of ``attn`` (``parallel.shard_params``'
+    cut), as the module the kernel's wrapper reads."""
+    n = attn.query.weight.shape[0] // tp
+    cut = lambda lin: SimpleNamespace(
+        weight=lin.weight[m * n:(m + 1) * n].contiguous(),
+        bias=None if lin.bias is None else lin.bias[m * n:(m + 1) * n].clone())
+    return SimpleNamespace(query=cut(attn.query), key=cut(attn.key), value=cut(attn.value))
+
+
+def sharded_attn_work(B, Tp, D, Dl, H, t_real, s):
+    """K4 on a head shard: the (D, 3 Dl) projection of every row and the
+    attention of its H heads among the t_real real rows; x (B, Tp, D) read,
+    (B, Tp, Dl) written, the (3 Dl, D) weights and biases read."""
+    flops = 2 * B * Tp * D * 3 * Dl + 4 * B * H * t_real * t_real * (Dl // H)
+    return flops, s * (B * Tp * D + B * Tp * Dl + 3 * D * Dl + 3 * Dl) + 8 * D
+
+
+def k4_sharded_phase(dev):
+    """K4 head-sharded alone at each TP case's Dl (rank 0's columns of a
+    default-init block), f32 and bf16, against its plain version, and the
+    tp shards side by side against the full-width launch bit for bit."""
+    from qasr_ijcnlp_tpu_torch.models.whisper import ResidualAttentionBlock
+    from qasr_ijcnlp_tpu_torch.ops import encoder_block
+
+    res = {}
+    with torch.inference_mode():
+        for label, name, heads, tp in TP_CASES:
+            dims = tp_dims(name, heads)
+            T, Tp, D, H, _, _ = geometry(dims)
+            nh, Dl = H // tp, D // tp
+            kid = f"K4_dl{Dl}"
+            torch.manual_seed(SEED + 80 + Dl)
+            blk = ResidualAttentionBlock(D, H).to(dev).requires_grad_(False)
+            x32 = rows(np.random.default_rng(SEED + 81), B_KERNEL, Tp, D, T, dev)
+            shards = [head_shard(blk.attn, tp, m) for m in range(tp)]
+            for dt, key in dtypes():
+                x = x32.to(dt)
+                a = shards[0]
+                res.setdefault(kid, {})[key] = compare(
+                    f"{kid} attention head-sharded ({label}: {nh} of {H} heads)", key,
+                    lambda: encoder_block.fused_attention_ln(x, blk.attn_ln, a, nh, T),
+                    lambda: encoder_block._plain_attn_ln(x, blk.attn_ln, a, nh, T),
+                    sharded_attn_work(B_KERNEL, Tp, D, Dl, nh, T, elem_size(key)),
+                    peak=tc_peak(key),
+                    plain32_fn=lambda: encoder_block._plain_attn_ln(x.float(), blk.attn_ln,
+                                                                    a, nh, T))
+                full = encoder_block.fused_attention_ln(x, blk.attn_ln, blk.attn, H, T)
+                cat = torch.cat([encoder_block.fused_attention_ln(x, blk.attn_ln, s, nh, T)
+                                 for s in shards], -1)
+                if not torch.equal(cat, full):
+                    raise AssertionError(f"{kid} {key}: the {tp} head shards side by side "
+                                         "differ from the full-width launch")
+                log(f"{kid} {key}: {tp} shards side by side == the full-width launch, "
+                    "bit for bit")
+            del blk, x32, shards
+            torch.cuda.empty_cache()
+    return res
+
+
+def start_parallel():
+    """Start the rank processes (they wait for DIR/go before device work)."""
+    import os
+    import tempfile
+
+    if "par_dir" in BACKGROUND:
+        return
+    work = BACKGROUND["par_dir"] = tempfile.mkdtemp(prefix="qasr_parallel_")
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": root, "OMP_NUM_THREADS": "1"}
+    for r in range(PARALLEL_WORLD):
+        log_path = os.path.join(work, f"rank{r}.log")
+        BACKGROUND[f"rank{r}"] = (subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--parallel-rank", str(r), work],
+            cwd=root, env=env, stdout=open(log_path, "w"), stderr=subprocess.STDOUT),
+            log_path)
+
+
+def parallel_phases(port, dev, smi):
+    """K4 head-sharded alone, then the ranks' phases (hands them the card and
+    waits); checks their results and returns (kernel rows, launches by
+    path: each TP case's per-rank counts)."""
+    import os
+
+    t0 = time.perf_counter()
+    kres = k4_sharded_phase(dev)
+    start_parallel()
+    work = BACKGROUND["par_dir"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    open(os.path.join(work, "go"), "w").close()
+    outs = []
+    for r in range(PARALLEL_WORLD):
+        wait_background(f"rank{r}", f"parallel rank {r}")
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            outs.append(json.load(f))
+        with open(BACKGROUND[f"rank{r}"][1]) as f:
+            for line in f.read().splitlines()[-60:]:
+                log(f"  rank {r}: {line}")
+    by_path = {}
+    for label, _, _, tp in TP_CASES:
+        runs = [o["tp"][label] for o in outs[:tp]]
+        if len({o["digest"] for o in runs}) != 1:
+            raise AssertionError(f"{label}: the model ranks' outputs differ")
+        by_path[f"{label} per rank"] = runs[0]["launches"]
+    if outs[0]["dp"]["tokens_digest"] != outs[1]["dp"]["tokens_digest"]:
+        raise AssertionError("data-parallel decode: the ranks returned different lists")
+    PARALLEL_STAGES.update({"ranks": outs, "seconds": time.perf_counter() - t0})
+    log(json.dumps({"parallel": {k: v for k, v in outs[0].items()}}, default=str))
+    log(f"parallel phases: {time.perf_counter() - t0:.1f} s ({smi})")
+    return kres, by_path
+
+
+def parallel_rank(rank, work):
+    """``python3 chip_smoke.py --parallel-rank R DIR``: one rank of the
+    parallel phases.  Waits for DIR/go, joins the gloo group through a file
+    store in DIR, runs every case in order and writes DIR/rankR.json."""
+    import os
+
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import qasr_ijcnlp_tpu_torch as port
+
+    go = os.path.join(work, "go")
+    t0 = time.perf_counter()
+    while not os.path.exists(go):
+        if time.perf_counter() - t0 > 1100:
+            raise SystemExit("parallel rank: no go")
+        time.sleep(0.2)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method="file://" + os.path.join(work, "store"),
+                            rank=rank, world_size=PARALLEL_WORLD)
+    log(f"rank {rank}: gloo group of {PARALLEL_WORLD} on {torch.cuda.get_device_name(0)}, "
+        "every rank on cuda:0")
+    out = {"rank": rank, "tp": {}}
+    try:
+        with torch.inference_mode():
+            for label, name, heads, tp in TP_CASES:
+                out["tp"][label] = tp_rank_case(label, tp_dims(name, heads), tp, rank, dev)
+            out["trunks"] = trunk_rank_cases(rank, dev)
+        out["dp"] = dp_rank_case(port, rank, dev)
+        out["engine"] = engine_rank_case(port, rank, dev)
+        with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f, default=str)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def rank_mesh(n, model_parallel):
+    """A mesh over ranks [0, n) (every rank builds it; ranks >= n stay out)."""
+    from qasr_ijcnlp_tpu_torch import parallel
+
+    return parallel.make_mesh(model_parallel=model_parallel, group=list(range(n)))
+
+
+def default_encoder(dims, dev, seed, moe=None):
+    """A full-depth encoder with PyTorch's default init from ``seed``, built
+    on the card: the same weights on every rank."""
+    from qasr_ijcnlp_tpu_torch.models.moe import MoEAudioEncoder
+    from qasr_ijcnlp_tpu_torch.models.whisper import AudioEncoder
+
+    torch.manual_seed(seed)
+    with torch.device(dev):
+        enc = (AudioEncoder(dims.n_mels, dims.n_audio_ctx, dims.n_audio_state,
+                            dims.n_audio_head, dims.n_audio_layer) if moe is None
+               else MoEAudioEncoder(dims, moe))
+    return enc.to(dev).requires_grad_(False)  # the position table is made on the host
+
+
+def tp_rank_case(label, dims, tp, rank, dev):
+    """The encoder (stem K2/K3 whole, the trunk head-sharded) over a (1, tp)
+    mesh of ranks [0, tp), B_KERNEL rows, f32 (counted: the stem once, K4
+    once a layer, K5/K6 and K8 never) and bf16, against the single-rank
+    kernel encoder on rank 0; each rank's time."""
+    from qasr_ijcnlp_tpu_torch import parallel
+    from qasr_ijcnlp_tpu_torch.models.whisper import encoder_apply
+
+    mesh = rank_mesh(tp, tp)
+    if not mesh.member:
+        return None
+    T, Tp, D, H, C0, Tm = geometry(dims)
+    L = dims.n_audio_layer
+    enc = default_encoder(dims, dev, SEED + 90)
+    mel = randn(np.random.default_rng(SEED + 91), (B_KERNEL, C0, Tm), dev)
+    ref, ref_ms = {}, {}
+    if rank == 0:
+        for dt, key in dtypes():
+            ref[key] = encoder_apply(enc, mel, dims, dt).float()
+            ref_ms[key] = cuda_ms(lambda: encoder_apply(enc, mel, dims, dt), iters=1, warmup=1)
+    parallel.shard_params(enc, mesh)
+    torch.cuda.empty_cache()
+    cs = zero_counters()
+    got = {"f32": encoder_apply(enc, mel, dims, torch.float32, mesh=mesh)}
+    launches = read_counters(cs)
+    expect_launches(f"{label} rank {rank}", launches, {"stem": 1, "attn": L})
+    got["bf16"] = encoder_apply(enc, mel, dims, torch.bfloat16, mesh=mesh)
+    res = {"launches": launches, "digest": digest_of(got["f32"]), "ms": {}, "single_ms": ref_ms,
+           "heads_per_rank": H // tp, "dl": D // tp}
+    for dt, key in dtypes():  # one timed call: each dtype ran once above
+        res["ms"][key] = cuda_ms(lambda: encoder_apply(enc, mel, dims, dt, mesh=mesh),
+                                 iters=1, warmup=0)
+    if rank == 0:
+        err32 = float((got["f32"].float() - ref["f32"]).abs().max())
+        noise = float((ref["bf16"] - ref["f32"]).abs().max())
+        err16 = float((got["bf16"].float() - ref["f32"]).abs().max())
+        if not (err32 <= TOL["trunk_f32"] and err16 <= NOISE_FACTOR * noise):
+            raise AssertionError(f"{label}: TP vs single rank f32 {err32:.3e} (tol "
+                                 f"{TOL['trunk_f32']}), bf16 {err16:.3e} (tol {NOISE_FACTOR:g} "
+                                 f"x {noise:.3e})")
+        res.update(max_abs_err=err32, bf16_err_vs_f32=err16, bf16_single_vs_f32=noise)
+    log(f"{label} rank {rank}: launches {json.dumps(launches)}; per-rank ms "
+        f"{json.dumps(res['ms'])}, single rank {json.dumps(ref_ms)}"
+        + (f"; max_abs_err vs single rank f32 {res['max_abs_err']:.3e}" if rank == 0 else ""))
+    del enc, got, ref
+    torch.cuda.empty_cache()
+    return res
+
+
+def trunk_rank_cases(rank, dev):
+    """tiny's trunk: sequence-parallel over (1, 4), pipelined over (1, 2);
+    a tiny MoE trunk (4 experts, capacity ample so no token drops on either
+    side) expert-parallel over (1, 2): each output against its single-rank
+    form on the card (f32)."""
+    from qasr_ijcnlp_tpu_torch.models import moe as moe_mod
+    from qasr_ijcnlp_tpu_torch.models.dims import tiny_dims
+    from qasr_ijcnlp_tpu_torch.models.whisper import transformer_trunk
+    from qasr_ijcnlp_tpu_torch.parallel import sharded
+
+    dims = tiny_dims()
+    T, Tp, D, _, _, _ = geometry(dims)
+    enc = default_encoder(dims, dev, SEED + 92)
+    x = rows(np.random.default_rng(SEED + 93), 4, Tp, D, T, dev)
+    single = transformer_trunk(enc, x, dims, t_real=T)
+    res = {}
+    for label, n, fn in (("sp (1,4)", 4, lambda m: sharded.sp_trunk(enc, x, dims, T, m)),
+                         ("pp (1,2)", 2, lambda m: sharded.pp_trunk(enc, x, dims, T, m))):
+        mesh = rank_mesh(n, n)
+        if mesh.member:
+            got = fn(mesh)
+            err = float((got.float() - single.float()).abs().max())
+            if not err <= TOL["trunk_f32"]:
+                raise AssertionError(f"{label}: {err:.3e} from the single-rank trunk")
+            res[label] = {"max_abs_err": err, "ms": cuda_ms(lambda: fn(mesh), iters=1,
+                                                            warmup=0)}
+    cfg = moe_mod.MoEConfig(MOE_EXPERTS, capacity_factor=float(MOE_EXPERTS))
+    menc = default_encoder(dims, dev, SEED + 94, moe=cfg)
+    xm = x[:2, :T].contiguous()
+    mesh = rank_mesh(2, 2)
+    if mesh.member:
+        want, waux = moe_mod.moe_trunk(menc, xm, dims, cfg)
+        got, aux = sharded.ep_trunk(menc, xm, dims, cfg, T, mesh)
+        err = float((got - want).abs().max())
+        # aux is the mean of each rank's load-balance loss on its own tokens
+        # (the JAX trunk's), not the dense trunk's: only finite is checked
+        if not (err <= TOL["trunk_f32"] and math.isfinite(float(aux))):
+            raise AssertionError(f"ep (1,2): {err:.3e} from the single-rank MoE trunk, aux "
+                                 f"{float(aux)}")
+        res["ep (1,2)"] = {"max_abs_err": err, "aux": float(aux), "single_aux": float(waux)}
+    log(f"trunks rank {rank}: {json.dumps(res)}")
+    return res
+
+
+def dp_rank_case(port, rank, dev, n=16):
+    """tiny greedy decode of ``n`` requests over a (2, 1) mesh of ranks 0 and
+    1 with the fused step switched on: per rank one stem call and K4/K5 once
+    a layer on its n / 2 rows, K10 never; every rank's list equal to the
+    single-rank card decode's (f32), in order."""
+    from qasr_ijcnlp_tpu_torch.models.dims import tiny_dims
+    from qasr_ijcnlp_tpu_torch.models.whisper import init_params
+    from qasr_ijcnlp_tpu_torch.ops import decoder_step
+
+    mesh = rank_mesh(2, 1)
+    if not mesh.member:
+        return None
+    dims = tiny_dims()
+    sd = init_params(torch.Generator().manual_seed(SEED), dims)
+    pcm = synthetic_pcm(n, SEED + 7)
+    mel = port.log_mel_spectrogram(pcm, n_mels=dims.n_mels, device=dev)
+    want = None
+    if rank == 0:
+        single = port.WhisperModel.from_state_dict(sd, dims, dev)
+        want = [r.tokens for r in port.decode(single, mel, options(port, False))]
+        del single
+    model = port.WhisperModel.from_state_dict(sd, dims, dev).shard(mesh)
+    decoder_step.set_fused_decoder_step(True)
+    try:
+        cs = zero_counters()
+        t0 = time.perf_counter()
+        got = port.decode(model, mel, options(port, False))
+        launches = read_counters(cs)
+        ms = (time.perf_counter() - t0) * 1000
+    finally:
+        decoder_step.set_fused_decoder_step(None)
+    L = dims.n_audio_layer
+    expect_launches(f"dp decode rank {rank}", launches, {"stem": 1, "attn": L, "finish": L})
+    tokens = [r.tokens for r in got]
+    if want is not None and tokens != want:
+        bad = [i for i, (a, b) in enumerate(zip(tokens, want)) if a != b]
+        raise AssertionError(f"dp decode: requests {bad} differ from the single-rank decode")
+    log(f"dp decode rank {rank}: {n} requests over 2 ranks, {ms:.1f} ms, launches "
+        f"{json.dumps(launches)}, tokens equal to the single-rank decode")
+    return {"launches": launches, "ms": ms, "tokens_digest": [hash(tuple(t)) for t in tokens]}
+
+
+def engine_rank_case(port, rank, dev, n=12):
+    """The data-parallel engine pool: 8 slots over ranks 0 and 1, ``n``
+    requests submitted on rank 0, each result's tokens equal to the
+    single-rank engine's (f32)."""
+    from qasr_ijcnlp_tpu_torch.decode.engine import DecodeEngine
+    from qasr_ijcnlp_tpu_torch.models.dims import tiny_dims
+    from qasr_ijcnlp_tpu_torch.models.whisper import init_params
+
+    mesh = rank_mesh(2, 1)
+    if not mesh.member:
+        mesh.fork()  # the engine's groups: every rank builds them
+        return None
+    dims = tiny_dims()
+    sd = init_params(torch.Generator().manual_seed(SEED), dims)
+    model = port.WhisperModel.from_state_dict(sd, dims, dev)
+    opts = options(port, False)
+    mels = None
+    want = None
+    if rank == 0:
+        mels = port.log_mel_spectrogram(synthetic_pcm(n, SEED + 8), n_mels=dims.n_mels,
+                                        device=dev).cpu()
+        single = DecodeEngine(model, opts, slots=8)
+        try:
+            want = [single.submit(m)["tokens"] for m in mels]
+        finally:
+            single.close()
+    engine = DecodeEngine(model, opts, slots=8, mesh=mesh)
+    if rank != 0:
+        engine.join(timeout=600)
+        return {"admit_calls": engine.admit_calls, "step_calls": engine.step_calls}
+    results = [None] * n
+    threads = [threading.Thread(target=lambda i=i: results.__setitem__(
+        i, engine.submit(mels[i])["tokens"])) for i in range(n)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    ms = (time.perf_counter() - t0) * 1000
+    engine.close()
+    if results != want:
+        raise AssertionError("engine over 2 ranks: requests "
+                             f"{[i for i in range(n) if results[i] != want[i]]} differ from "
+                             "the single-rank engine")
+    log(f"engine over 2 ranks: {n} requests in {ms:.1f} ms, tokens equal to the single-rank "
+        f"engine's; rank 0 admit_calls {engine.admit_calls} step_calls {engine.step_calls}")
+    return {"ms": ms, "admit_calls": engine.admit_calls, "step_calls": engine.step_calls}
+
+
+def parallel_run(port, dev, smi):
+    """``python3 chip_smoke.py --parallel``: K4 head-sharded alone and the
+    ranks' phases; the kernel rows of K4's head-sharded widths as one JSON
+    line."""
+    kres, by_path = parallel_phases(port, dev, smi)
+    log(json.dumps({"k4_head_sharded": kres, "launches": by_path}))
+    log(smi)
+
+
 def kernel_table(kres, by_path):
     """The per-kernel JSON entries: each row's f32 (and bf16) measurements
     and its launches on its path's counted batch and on every path."""
@@ -4234,6 +4647,14 @@ def kernel_table(kres, by_path):
          tpu + "decode_attn.py:64", "int8", "large-v3 beam int8",
          "q (40, 1, 1280): 5 beam rows per request, codes (8, 20, 1536, 64), t_real 1500"),
     ]
+    for label, name, heads, tp in TP_CASES:
+        dims = tp_dims(name, heads)
+        D, H = dims.n_audio_state, dims.n_audio_head
+        table.append((f"encoder_attention_head_sharded_dl{D // tp}", f"K4_dl{D // tp}",
+                      src + "encoder_block.cu", tpu + "encoder_block.py:148", "attn",
+                      f"{label} per rank",
+                      f"(8, 1536, {D}) -> (8, 1536, {D // tp}): {H // tp} of {H} heads, "
+                      f"t_real 1500 ({label}, launches per rank)"))
     for mode in ("dots", "softmax", "full"):
         table.append((f"attn_parts_{mode}", f"K11_{mode}", src + "attn_parts.cu",
                       "scripts/bench_attn_parts.py:37", "parts", "attn_parts B=512",
@@ -4495,6 +4916,9 @@ def main():
     if sys.argv[1:2] == ["--export-large"] and len(sys.argv) == 3:
         export_large_child(sys.argv[2])
         return
+    if sys.argv[1:2] == ["--parallel-rank"] and len(sys.argv) == 4:
+        parallel_rank(int(sys.argv[2]), sys.argv[3])  # a rank, see PARALLEL_WORLD
+        return
     import qasr_ijcnlp_tpu_torch as port
     from qasr_ijcnlp_tpu_torch.models.dims import dims_for, tiny_dims
 
@@ -4505,6 +4929,8 @@ def main():
 
     smi = device_lines()
     build_kernels()
+    if sys.argv[1:] in ([], ["--parallel"]):
+        start_parallel()  # the ranks import and join meanwhile; device work after "go"
     if sys.argv[1:2] in (["--k9"], ["--k10"]) and sys.argv[2:] in ([], ["--stages"]):
         run = k9_run if sys.argv[1] == "--k9" else k10_run
         run(port, dev, smi, stages=sys.argv[2:] == ["--stages"])
@@ -4512,7 +4938,7 @@ def main():
     modes = {"--stem": stem_run, "--attn": attn_run, "--diag": diag_run,
              "--longform": longform_run, "--services": services_run,
              "--quantum": quantum_run, "--train": train_run, "--export": export_run,
-             "--distill": distill_run}
+             "--distill": distill_run, "--parallel": parallel_run}
     if len(sys.argv) == 2 and sys.argv[1] in modes:
         modes[sys.argv[1]](port, dev, smi)
         log(f"total seconds: {time.perf_counter() - t_start:.1f}")
@@ -4520,8 +4946,8 @@ def main():
         return
     if sys.argv[1:]:
         print(f"usage: python3 chip_smoke.py [--stem | --attn | --diag | --longform | "
-              f"--services | --quantum | --train | --export | --distill | --k9 | --k10 "
-              f"[--stages]]; got "
+              f"--services | --quantum | --train | --export | --distill | --parallel | --k9 "
+              f"| --k10 [--stages]]; got "
               f"{sys.argv[1:]}",
               file=sys.stderr)
         raise SystemExit(2)
@@ -4550,8 +4976,10 @@ def main():
     wres, wpaths = family_path(port, "small-h128", h128, dev, smi, fused_expect(h128),
                                small_h128_kernel_phase, int8=True)
     pres, ppaths = diag_phases(dev)
+    # == parallelism: K4 head-sharded, the ranks on cuda:0 =========================
+    tres, tpaths = parallel_phases(port, dev, smi)
     for res, paths in ((mres, mpaths), (lres, lpaths), (sres, spaths), (wres, wpaths),
-                       (pres, ppaths)):
+                       (pres, ppaths), (tres, tpaths)):
         kres.update(res)
         by_path.update(paths)
 
@@ -4561,6 +4989,7 @@ def main():
     log(json.dumps({"quantum_stages": QUANTUM_STAGES}))
     log(json.dumps({"train_stages": TRAIN_STAGES}, default=str))
     log(json.dumps({"export_distill_stages": EXPORT_STAGES}, default=str))
+    log(json.dumps({"parallel_stages": PARALLEL_STAGES}, default=str))
     log(f"total seconds: {time.perf_counter() - t_start:.1f}")
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -43,7 +43,7 @@ _STRIDES = ctypes.POINTER(ctypes.c_longlong)
 # name -> argtypes of every C entry point (the trailing pointer is the stream).
 _SIGNATURES = {
     "qasr_conv_stem": [_I] + [_P] * 9 + [_I] * 8 + [_P],
-    "qasr_attention": [_I] + [_P] * 5 + [_F] + [_P] * 3 + [_I] * 5 + [_P],
+    "qasr_attention": [_I] + [_P] * 5 + [_F] + [_P] * 3 + [_I] * 6 + [_P],
     "qasr_finish": [_I] + [_P] * 15 + [_I] * 3 + [_P],
     "qasr_block_gemm": [_I, _I] + [_P] * 5 + [_I] * 3 + [_F, _P],
     "qasr_packed_attention": [_I] + [_P] * 4 + [_I] * 6 + [_P],

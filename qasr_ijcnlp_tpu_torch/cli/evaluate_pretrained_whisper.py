@@ -5,11 +5,20 @@ flags: each clip padded or trimmed to 30 s, the log-mel of a whole eval
 batch at once, batched ``decode`` with ``language='en',
 without_timestamps=True``, EnglishTextNormalizer on both sides, corpus WER
 and pure CER, and RTF (seconds of real speech per wall second); on
-``--device`` (the card unless ``cpu`` is asked for).  ``--data_parallel``
-waits for ROADMAP queue 1, item 7 and raises.
+``--device`` (the card unless ``cpu`` is asked for).
+
+``--data_parallel`` runs one process per rank under a launcher: each rank's
+loader takes its stride of the dataset (``DataLoader(process_index=,
+process_count=)`` at the mesh's data rank and extent), an eval batch of
+``--batch_size`` rounded up to the data extent is split over the ranks,
+each rank decodes its rows, and the hypotheses and clip durations are
+gathered, so every rank scores the whole split; rank 0 prints and writes
+the results.
 
     python -m qasr_ijcnlp_tpu_torch.cli.evaluate_pretrained_whisper \\
         --model_size tiny --max_samples 16 [--device cpu]
+    torchrun --nproc_per_node 2 -m qasr_ijcnlp_tpu_torch.cli.evaluate_pretrained_whisper \\
+        --model_size tiny --max_samples 16 --data_parallel
 """
 
 from __future__ import annotations
@@ -21,6 +30,7 @@ import numpy as np
 import torch
 
 from .. import metrics as qmetrics
+from .. import parallel
 from ..audio import log_mel_spectrogram, pad_or_trim
 from ..data import dataset_texts, load_librispeech
 from ..data.loader import DataLoader, pad_batch_to
@@ -39,8 +49,8 @@ def build_parser():
     p.add_argument("--device", type=str, default="auto")
     p.add_argument("--output", type=str, default=None)
     p.add_argument("--data_parallel", action="store_true",
-                   help="Shard the eval batch across devices: not ported yet (ROADMAP "
-                        "queue 1, item 7: parallelism)")
+                   help="one process per rank under torchrun: the eval batch (rounded up "
+                        "to a multiple of the ranks) split over every rank")
     return p
 
 
@@ -69,29 +79,45 @@ class _AudioView:
 @torch.inference_mode()
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.data_parallel:
-        raise NotImplementedError("--data_parallel is not ported yet (ROADMAP queue 1, "
-                                  "item 7: parallelism)")
     device = resolve_device(args.device)
+    mesh, batch_size = None, args.batch_size
+    if args.data_parallel:
+        parallel.initialize_distributed()
+        mesh = parallel.make_mesh(model_parallel=1)
+        device = parallel.rank_device(device)
+        # degrade, never refuse: the global batch rounded up to the ranks
+        batch_size = parallel.round_up_to_mesh(args.batch_size, mesh) // mesh.size
+        if mesh.is_leader:
+            print(f"Data-parallel eval over {mesh.size} ranks (batch {args.batch_size} -> "
+                  f"{batch_size * mesh.size})")
     model = load_model_with_fallback(args.model_size, device=device)
     base = load_librispeech(_SPLIT_MAP.get(args.split, args.split), args.max_samples)
     texts = dataset_texts(base)
     view = _AudioView(base)
-    loader = DataLoader(view, args.batch_size, shuffle=False)
+    n_data = parallel.axis_size(mesh, parallel.DATA_AXIS)
+    loader = DataLoader(view, batch_size, shuffle=False,
+                        process_index=mesh.index(parallel.DATA_AXIS) if mesh else 0,
+                        process_count=n_data)
 
     options = DecodingOptions(language="en", without_timestamps=True)
     hypotheses = [None] * len(base)
     t0 = time.time()
     for batch in loader:
-        (audio, idx), real = pad_batch_to(batch, args.batch_size)
+        (audio, idx), real = pad_batch_to(batch, batch_size)
         mel = log_mel_spectrogram(torch.from_numpy(audio), model.dims.n_mels, device=device)
         results = model.decode(mel, options)
         for b in range(real):
             hypotheses[int(idx[b])] = results[b].text
-    if device != "cpu":
+    if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
+    if mesh is not None:  # every rank's clips, on every rank
+        for part in parallel.gather_objects(hypotheses, mesh, parallel.DATA_AXIS):
+            hypotheses = [h if h is not None else o for h, o in zip(hypotheses, part)]
+        view.durations = np.max(parallel.gather_objects(view.durations, mesh,
+                                                        parallel.DATA_AXIS), axis=0)
     wall = time.time() - t0
     rtf = float(view.durations.sum()) / wall
+    leader = mesh is None or mesh.is_leader
 
     normalizer = qmetrics.EnglishTextNormalizer()
     norm_hyps = [normalizer(h) for h in hypotheses]
@@ -99,6 +125,9 @@ def main(argv=None):
     wer = qmetrics.wer_corpus(norm_refs, norm_hyps)
     cer = qmetrics.calculate_cer_pure(norm_hyps, norm_refs)
 
+    result = {"wer": wer, "cer": cer, "rtf": rtf, "hypotheses": hypotheses}
+    if not leader:
+        return result
     print(f"\nModel: {model.name}  split: {args.split}  n={len(base)}")
     print(f"WER: {wer * 100:.2f} %   CER: {cer * 100:.2f} %")
     print(f"RTF: {rtf:.1f} audio-sec/sec ({wall:.1f}s wall)")
@@ -118,7 +147,7 @@ def main(argv=None):
                     for r, h in list(zip(texts, hypotheses))[:10]],
     })
     print(f"Results saved to {out}")
-    return {"wer": wer, "cer": cer, "rtf": rtf, "hypotheses": hypotheses}
+    return result
 
 
 if __name__ == "__main__":

@@ -30,7 +30,8 @@ from ..tokenizer import get_tokenizer
 from ..train.loops import train_token_asr
 from . import resolve_device
 
-_PARALLEL = "not ported yet (ROADMAP queue 1, item 7: parallelism)"
+_PARALLEL = ("the training half of ROADMAP queue 1, item 7 (parallelism), the next slice "
+             "of the port")
 
 
 def build_parser():

@@ -6,11 +6,15 @@
 // one QKV GEMM (gemm_tc.cuh) against the concatenated (3D, D) weight, and
 // the attention core of attention_tc.cuh (shared with K7 and K8) with the
 // denominator summing the rounded p, K4's rule.  The core reads q, k and v
-// as the three D-wide column segments of each (B, Tp, 3D) qkv row and never
-// writes the (T, T) logits; key tiles past t_real are never loaded.  Heads of
-// 64 and 128, the widths the JAX gate sends here.  Bound on the H100: the
-// QKV product (6 B Tp D^2 FLOP) and the attention (4 B H t_real^2 dh) on the
-// tensor cores, i.e. operations.
+// as the three Dl-wide column segments of each (B, Tp, 3 Dl) qkv row and
+// never writes the (T, T) logits; key tiles past t_real are never loaded.
+// Heads of 64 and 128, the widths the JAX gate sends here.  Dl = n_head dh is
+// the width of the heads the weights hold: D for the whole model, D / tp for
+// a tensor-parallel rank's head shard (the JAX kernel's (D, Dl) weight
+// columns, parallel/sharded.py): the QKV GEMM is then N = 3 Dl over K = D and
+// the output (B, Tp, Dl).  Bound on the H100: the QKV product (6 B Tp D Dl
+// FLOP) and the attention (4 B H t_real^2 dh) on the tensor cores, i.e.
+// operations.
 //
 // qasr_finish replaces `_finish_kernel` (K5, D <= 512) and
 // `_finish_kernel_ftiled` (K6, D > 512): x + attn Wo + bo -> LN -> fc ->
@@ -78,15 +82,15 @@ __global__ void split_kernel(const float* __restrict__ x, float* __restrict__ y,
     store_operand(y, i, n, x[i]);
 }
 
-// QKV epilogue: column n of the fused (3D) output is segment n / D
-// (0 = q, 1 = k, 2 = v), constant over a 128-column tile since D % 128 ==
+// QKV epilogue: column n of the fused (3 Dl) output is segment n / Dl
+// (0 = q, 1 = k, 2 = v), constant over a 128-column tile since Dl % 128 ==
 // 0.  q = (T(acc) + bq) * scale, k = T(acc) * scale, v = T(acc) + bv, each op
 // rounded to T as in the reference.
 template <typename T>
 struct QkvEp {
-  const T* bias;  // (3D,) [bq | 0 | bv]
+  const T* bias;  // (3 Dl,) [bq | 0 | bv]
   T* qkv;
-  int D;
+  int D;  // Dl, the width of one segment
   float scale;  // dh^-0.25 already rounded to T by the caller
   __device__ __forceinline__ void operator()(int m, int n, float a0, float a1) const {
     const int seg = n / D;
@@ -151,15 +155,16 @@ struct ProjEp {
 template <typename T>
 int run_attention(const T* x, const float* g, const float* beta, const T* wqkv,
                   const T* bqkv, float scale, T* h, T* qkv, T* out, int B, int Tp, int D,
-                  int n_head, int t_real, cudaStream_t s) {
-  const int M = B * Tp, dh = D / n_head;
-  if (dh != 64 && dh != 128) return (int)cudaErrorInvalidValue;
+                  int Dl, int n_head, int t_real, cudaStream_t s) {
+  const int M = B * Tp, dh = n_head > 0 ? Dl / n_head : 0;
+  if ((dh != 64 && dh != 128) || dh * n_head != Dl || Dl % GemmCfg<T>::BN || Dl > D)
+    return (int)cudaErrorInvalidValue;
   QASR_TRY(launch_layer_norm<T>(x, g, beta, h, M, D, s));
-  QASR_TRY(launch_wgmma_gemm<T>(h, wqkv, M, 3 * D, D, QkvEp<T>{bqkv, qkv, D, scale}, s));
-  // q, k and v are the three D-wide column segments of each qkv row.
-  const long long row = 3LL * D, batch = (long long)Tp * row;
-  const TcArgs a{TcOperand{qkv, batch, dh, row}, TcOperand{qkv + D, batch, dh, row},
-                 TcOperand{qkv + 2 * D, batch, dh, row}, out, (long long)Tp * D, dh, D,
+  QASR_TRY(launch_wgmma_gemm<T>(h, wqkv, M, 3 * Dl, D, QkvEp<T>{bqkv, qkv, Dl, scale}, s));
+  // q, k and v are the three Dl-wide column segments of each qkv row.
+  const long long row = 3LL * Dl, batch = (long long)Tp * row;
+  const TcArgs a{TcOperand{qkv, batch, dh, row}, TcOperand{qkv + Dl, batch, dh, row},
+                 TcOperand{qkv + 2 * Dl, batch, dh, row}, out, (long long)Tp * Dl, dh, Dl,
                  Tp, t_real, dh, 0};
   if (dh == 64) return (int)launch_attn_tc_width<T, 64, true>(a, B, n_head, s);
   return (int)launch_attn_tc_width<T, 128, true>(a, B, n_head, s);
@@ -184,21 +189,22 @@ int run_finish(const T* x, const T* attn, T* asplit, const T* wo, const T* bo, c
 
 }  // namespace
 
-// x (B, Tp, D); g, b (D,) float32; wqkv (S, 3D, D) and bqkv (3D,) in the
-// compute dtype; scratch h (S, B Tp, D) and qkv (B, Tp, 3D); out (B, Tp, D).
-// S = 2 in f32 (the hi and lo slabs), 1 in bf16.
+// x (B, Tp, D); g, b (D,) float32; wqkv (S, 3 Dl, D) and bqkv (3 Dl,) in the
+// compute dtype; scratch h (S, B Tp, D) and qkv (B, Tp, 3 Dl); out (B, Tp,
+// Dl), Dl = n_head dh (D, or a head shard's width).  S = 2 in f32 (the hi and
+// lo slabs), 1 in bf16.
 extern "C" int qasr_attention(int dtype, const void* x, const void* g, const void* b,
                               const void* wqkv, const void* bqkv, float scale, void* h,
-                              void* qkv, void* out, int B, int Tp, int D, int n_head,
+                              void* qkv, void* out, int B, int Tp, int D, int Dl, int n_head,
                               int t_real, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == kF32)
     return run_attention<float>((const float*)x, (const float*)g, (const float*)b,
                                 (const float*)wqkv, (const float*)bqkv, scale, (float*)h,
-                                (float*)qkv, (float*)out, B, Tp, D, n_head, t_real, s);
+                                (float*)qkv, (float*)out, B, Tp, D, Dl, n_head, t_real, s);
   using bf = __nv_bfloat16;
   return run_attention<bf>((const bf*)x, (const float*)g, (const float*)b, (const bf*)wqkv,
-                           (const bf*)bqkv, scale, (bf*)h, (bf*)qkv, (bf*)out, B, Tp, D,
+                           (const bf*)bqkv, scale, (bf*)h, (bf*)qkv, (bf*)out, B, Tp, D, Dl,
                            n_head, t_real, s);
 }
 

@@ -94,12 +94,14 @@ def _compute_dtype(fp16: bool, device: torch.device) -> torch.dtype:
     return torch.float32
 
 
-def _audio_features(model_obj, mel: torch.Tensor, fp16: bool) -> torch.Tensor:
+def _audio_features(model_obj, mel: torch.Tensor, fp16: bool, mesh=None) -> torch.Tensor:
+    """The encoder's output for ``mel``; ``mesh`` shards its trunk over the
+    mesh's model axis (the rows are the caller's)."""
     dims = model_obj.dims
     if tuple(mel.shape[-2:]) == (dims.n_audio_ctx, dims.n_audio_state):
         return mel  # already encoded
     return model.dispatch_encoder_apply(
-        model_obj.module.encoder, mel, dims, _compute_dtype(fp16, mel.device)
+        model_obj.module.encoder, mel, dims, _compute_dtype(fp16, mel.device), mesh=mesh
     )
 
 
@@ -122,7 +124,9 @@ def detect_language(
     single = mel.dim() == 2
     if single:
         mel = mel[None]
-    xa = _audio_features(model_obj, mel, fp16=True)
+    # With a pinned mesh every rank computes every row (the model axis
+    # shards the encoder); only ``decode`` splits the rows over ``data``.
+    xa = _audio_features(model_obj, mel, fp16=True, mesh=getattr(model_obj, "mesh", None))
 
     x = torch.full((xa.shape[0], 1), tokenizer.sot, dtype=torch.long, device=xa.device)
     logits = model.decoder_apply(model_obj.module.decoder, x, xa, model_obj.dims)[:, 0]
@@ -183,10 +187,21 @@ def rank_group(sliced: List[List[int]], scores: List[float],
 
 class DecodingTask:
     """Host-side planner: resolves options to a loop config, runs the loop,
-    post-processes to DecodingResults."""
+    post-processes to DecodingResults.
 
-    def __init__(self, model_obj, options: DecodingOptions):
+    ``mesh`` (default: the model's, ``WhisperModel.shard``) makes ``run``
+    data-parallel: every rank of the mesh calls it with the same whole
+    batch; the batch is padded to the data extent (``parallel.
+    pad_batch_to_mesh``), each data rank decodes its rows (the encoder's
+    trunk sharded over the model axis), and the per-row results are
+    gathered, so every rank returns the list the unsharded decode of the
+    whole batch gives, in the batch's order (token for token at f32 greedy
+    and beam; sampling draws each rank's rows from its own generator)."""
+
+    def __init__(self, model_obj, options: DecodingOptions, mesh=None):
         self.model = model_obj
+        if mesh is None:
+            mesh = getattr(model_obj, "mesh", None)
         language = options.language or "en"
         self.tokenizer = get_tokenizer(
             model_obj.is_multilingual,
@@ -238,6 +253,7 @@ class DecodingTask:
             no_speech=no_speech if no_speech is not None and no_speech < n_vocab else None,
             compute_dtype=_compute_dtype(options.fp16, model_obj.device),
             kv_int8=options.kv_int8,
+            mesh=mesh,
         )
 
         draft = options.draft
@@ -250,8 +266,10 @@ class DecodingTask:
                     f"draft model (vocab {dd.n_vocab}, {dd.n_mels} mels) is incompatible "
                     f"with the target (vocab {td.n_vocab}, {td.n_mels} mels); draft and "
                     "target must share the tokenizer and mel frontend")
-            # The target's filters and prompt; the draft's cross cache fp.
-            self.draft_cfg = self.loop_cfg._replace(dims=dd, kv_int8=False)
+            # The target's filters and prompt; the draft's cross cache fp and
+            # its own mesh.
+            self.draft_cfg = self.loop_cfg._replace(
+                dims=dd, kv_int8=False, mesh=getattr(draft.model, "mesh", None))
         # Verify rounds of the last speculative run (committed tokens /
         # rounds is the mean accepted slab length).
         self.last_spec_rounds: Optional[int] = None
@@ -334,7 +352,24 @@ class DecodingTask:
             spec_events: Optional[list] = None) -> List[DecodingResult]:
         """Decode ``mel`` (or encoder features).  ``spec_events``: a list
         that a speculative decode on the card fills with each verify round's
-        CUDA events (``speculative.spec_greedy_decode``'s ``events``)."""
+        CUDA events (``speculative.spec_greedy_decode``'s ``events``).
+        Under a mesh with data ranks, data-parallel (see the class)."""
+        from .. import parallel
+
+        mesh = self.loop_cfg.mesh
+        if parallel.axis_size(mesh, parallel.DATA_AXIS) == 1:
+            return self._run(mel, generator, spec_events)
+        padded, real = parallel.pad_batch_to_mesh(mel, mesh)
+        results = self._run(parallel.shard_batch(padded, mesh), generator, spec_events)
+        feats = parallel.all_gather(torch.stack([r.audio_features for r in results]), mesh,
+                                    parallel.DATA_AXIS, 0)
+        parts = parallel.gather_objects([replace(r, audio_features=None) for r in results],
+                                        mesh, parallel.DATA_AXIS)
+        rows = [r for part in parts for r in part][:real]
+        return [replace(r, audio_features=feats[i]) for i, r in enumerate(rows)]
+
+    def _run(self, mel, generator, spec_events) -> List[DecodingResult]:
+        """``run`` on this rank's rows."""
         tokenizer = self.tokenizer
         n_audio = mel.shape[0]
         opts = self.options
@@ -345,7 +380,7 @@ class DecodingTask:
         draft_mel = mel if is_mel and opts.language is not None and \
             opts.task != "lang_id" else None
 
-        audio_features = _audio_features(self.model, mel, opts.fp16)
+        audio_features = _audio_features(self.model, mel, opts.fp16, self.loop_cfg.mesh)
 
         languages = [opts.language] * n_audio
         language_probs = None
@@ -427,7 +462,7 @@ class DecodingTask:
             dm = self.options.draft.model
             dt = self.draft_cfg.compute_dtype
             xa_d = model.dispatch_encoder_apply(dm.module.encoder, draft_mel.to(dm.device),
-                                                dm.dims, dt)
+                                                dm.dims, dt, mesh=self.draft_cfg.mesh)
             buf, _, sum_lp, no_speech, self.last_spec_rounds = spec_greedy_decode(
                 decoder, dm.decoder_for(dt), self.loop_cfg, self.draft_cfg, audio_features,
                 xa_d, init_rep, gamma, cross_decoder, spec_events)

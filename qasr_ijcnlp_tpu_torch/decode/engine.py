@@ -23,6 +23,22 @@ only when a call returns; admission writes whole rows of free slots and
 the greedy steps write each row's self cache in place only at positions
 the row will write again.  So a call that raises leaves the pool whole:
 the worker fails the requests that call served and goes on serving.
+
+With a ``mesh`` (``parallel.Mesh``) the pool is data-parallel: every rank
+of the mesh builds the engine (a collective call), each data rank holds
+``slots / n_data`` rows of the pool, and the mesh's leader (rank 0) takes
+the requests.  The ranks run in lockstep: each iteration the leader
+broadcasts its plan (the requests it admits, each into a free slot of the
+global pool, spread over the data ranks, or the stop), every rank admits
+the requests that fall in its rows and steps its own rows, and the results
+of the rows that finished are gathered to the leader, which answers the
+requests.  Lockstep rather than routing each request to a rank's own
+queue: one broadcast and one gather an iteration keep every rank's
+collectives in one order (a model axis > 1 shards the admission's encoder,
+so the ranks of a model group must admit together), and a request's rows
+never move.  The collectives run on a fork of the mesh's groups of the
+engine's own (``Mesh.fork``), so they never interleave with another
+component's.
 """
 
 from __future__ import annotations
@@ -37,7 +53,7 @@ from typing import Deque, Dict, List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from .. import _kernels
+from .. import _kernels, parallel
 from ..audio import wire_log_mel, wire_pcm16
 from ..models import whisper as model
 from ..ops import round_up
@@ -97,7 +113,8 @@ def _admit_frontend(model_obj, cfg: LoopConfig, payload, init_tokens, scales,
     a fixed language."""
     dims = cfg.dims
     mels = wire_log_mel(payload, scales, dims.n_mels) if audio_frontend else payload
-    xa = model.dispatch_encoder_apply(model_obj.module.encoder, mels, dims, cfg.compute_dtype)
+    xa = model.dispatch_encoder_apply(model_obj.module.encoder, mels, dims, cfg.compute_dtype,
+                                      mesh=cfg.mesh)
     if not detect:
         return xa, init_tokens, torch.full_like(init_tokens[:, 0], -1)
     sot = init_tokens[:, cfg.sot_index:cfg.sot_index + 1]
@@ -318,13 +335,12 @@ class DecodeEngine:
         takes an (n_mels, T) mel.  ``lookup_gamma`` > 0 makes each step a
         prompt-lookup speculative round (up to gamma + 1 tokens per slot per
         forward, token-exact).  ``metrics``: a ``serving.ServerMetrics``-like
-        registry (``inc``/``set``) for the ``engine_*`` counters."""
+        registry (``inc``/``set``) for the ``engine_*`` counters.  ``mesh``:
+        a data-parallel pool over the mesh (see the module); ``slots`` must
+        be a multiple of its data extent, beam pools take none, and a model
+        axis > 1 shards the model (``WhisperModel.shard``)."""
         from . import DecodingOptions, DecodingTask
 
-        if mesh is not None:
-            raise NotImplementedError(
-                "a data-parallel engine pool is not ported yet: ROADMAP.md queue 1, "
-                "'Parallelism'")
         options = options or DecodingOptions(language="en", without_timestamps=True)
         self._detect = False
         if options.language is None:
@@ -342,14 +358,27 @@ class DecodeEngine:
         if self.beam and options.kv_int8:
             raise ValueError("kv_int8 beam pools are unsupported (grouped int8 "
                              "cross-attention)")
+        if self.beam and mesh is not None and mesh.size > 1:
+            raise ValueError("beam engine pools do not shard over a mesh")
+        self.mesh = None
+        n_data = 1
+        if mesh is not None and mesh.size > 1:
+            n_data = mesh.shape[parallel.DATA_AXIS]
+            if slots % n_data:
+                raise ValueError(f"slots ({slots}) must be a multiple of the mesh's data "
+                                 f"axis ({n_data})")
+            if mesh.shape[parallel.MODEL_AXIS] > 1:
+                model_obj.shard(mesh)
+            self.mesh = mesh.fork()
         if model_obj.device.type == "cuda":
             _kernels.library()  # built here, never by two threads at first use
         self.model = model_obj
         self.device = model_obj.device
-        self.task = task = DecodingTask(model_obj, options)
+        self.task = task = DecodingTask(model_obj, options, mesh=self.mesh)
         self.cfg = task.loop_cfg._replace(unroll=unroll)
         self.tokenizer = task.tokenizer
         self.slots = slots
+        self.local_slots = slots // n_data  # this rank's rows of the pool
         self.unroll = unroll
         self.admit_width = min(admit_width, slots)
         self.admit_calls = 0  # admission batches so far
@@ -381,17 +410,19 @@ class DecodeEngine:
         self.state = self._fresh_state()
         self._init = torch.tensor(task.initial_tokens, dtype=torch.long)
         self._occupant: List[Optional[_Request]] = [None] * slots
+        self._busy = [False] * self.local_slots  # mesh pools: this rank's rows in use
         self._queue: List[_Request] = []
         self._lock = threading.Lock()
         self._wake = threading.Event()
         self._stop = threading.Event()
-        self._worker = threading.Thread(target=self._run, daemon=True)
+        self._worker = threading.Thread(
+            target=self._run if self.mesh is None else self._run_mesh, daemon=True)
         self._worker.start()
         atexit.register(self.close)
 
     def _fresh_state(self):
         """An empty pool: every slot free."""
-        dims, dev, slots = self.model.dims, self.device, self.slots
+        dims, dev, slots = self.model.dims, self.device, self.local_slots
         dt = self.cfg.compute_dtype
         H = dims.n_text_head
         Dh = dims.n_text_state // H
@@ -439,6 +470,9 @@ class DecodeEngine:
         raw 16 kHz audio (float in [-1, 1] or int16)."""
         if self._stop.is_set():
             raise RuntimeError("engine is closed")
+        if self.mesh is not None and not self.mesh.is_leader:
+            raise RuntimeError("a data-parallel engine takes its requests on the mesh's "
+                               f"leader (rank {self.mesh.leader})")
         if self.audio_frontend:
             req = _Request(*wire_pcm16(x))
         else:
@@ -455,6 +489,11 @@ class DecodeEngine:
         if req.error:
             raise RuntimeError(req.error)
         return req.result
+
+    def join(self, timeout: Optional[float] = None):
+        """Wait for the worker to end: on a follower rank of a mesh pool,
+        until the leader closes the engine."""
+        self._worker.join(timeout)
 
     def close(self):
         if self._stop.is_set():
@@ -486,19 +525,7 @@ class DecodeEngine:
                 return
             ids, free = free[: len(take)], free[len(take):]
             try:
-                dev = self.device
-                payload = torch.from_numpy(np.stack([r.payload for r in take])).to(dev)
-                scales = torch.tensor([r.scale for r in take], device=dev)
-                init = self._init.to(dev).repeat(len(take), 1)
-                sids = torch.tensor(ids, device=dev)
-                kw = dict(scales=scales, audio_frontend=self.audio_frontend,
-                          lang_mask=self._lang_mask, detect=self._detect)
-                if self.beam:
-                    _beam_admit(self.model, self._decoder, self.cfg, self.state, sids,
-                                payload, init, self.tmax, self.beam, self.max_cands, **kw)
-                else:
-                    _engine_admit(self.model, self._decoder, self._cross_decoder, self.cfg,
-                                  self.state, sids, payload, init, self.tmax, **kw)
+                self._admit_rows(ids, [r.payload for r in take], [r.scale for r in take])
             except Exception as e:  # fail these requests (dequeued: nobody else
                 # will wake them) and keep serving
                 for req in take:
@@ -511,6 +538,21 @@ class DecodeEngine:
             if self.metrics is not None:
                 self.metrics.inc("engine_admitted_total", len(take))
                 self.metrics.inc("engine_admit_dispatches_total")
+
+    def _admit_rows(self, ids: List[int], payloads, scales):
+        """Encode and prompt-pass requests into this rank's free rows ``ids``."""
+        dev = self.device
+        payload = torch.from_numpy(np.stack(payloads)).to(dev)
+        kw = dict(scales=torch.tensor(scales, device=dev), audio_frontend=self.audio_frontend,
+                  lang_mask=self._lang_mask, detect=self._detect)
+        init = self._init.to(dev).repeat(len(ids), 1)
+        sids = torch.tensor(ids, device=dev)
+        if self.beam:
+            _beam_admit(self.model, self._decoder, self.cfg, self.state, sids, payload, init,
+                        self.tmax, self.beam, self.max_cands, **kw)
+        else:
+            _engine_admit(self.model, self._decoder, self._cross_decoder, self.cfg,
+                          self.state, sids, payload, init, self.tmax, **kw)
 
     def _result(self, ids: List[int], score: float, no_speech: float, lang: int) -> dict:
         return {"text": self.tokenizer.decode(ids).strip(), "tokens": [int(t) for t in ids],
@@ -548,23 +590,30 @@ class DecodeEngine:
             best = rank_group(sliced, scores, self.task.options.length_penalty)
             self._retire(g, self._result(sliced[best], scores[best], no_speech[g], lang[g]))
 
-    def _retire_finished(self):
-        if self.beam:
-            return self._retire_finished_beam()
+    def _finished_results(self, busy: List[bool]) -> Dict[int, dict]:
+        """The results of the greedy rows in use (``busy``) that finished."""
         finished = self.state.finished.cpu().numpy()
-        done = [i for i, r in enumerate(self._occupant) if r is not None and finished[i]]
+        done = [i for i, b in enumerate(busy) if b and finished[i]]
         if not done:
-            return
+            return {}
         st = self.state
         buf, cur, sum_lp, no_speech, lang = (
             t.cpu().numpy() for t in (st.buf, st.cur, st.sum_lp, st.no_speech, st.lang))
         eot, sb = self.cfg.eot, self.cfg.sample_begin
+        out = {}
         for slot in done:
             s = buf[slot][sb:int(cur[slot])]
             hits = np.nonzero(s == eot)[0]
             ids = s[: hits[0]].tolist() if hits.size else s.tolist()
-            self._retire(slot, self._result(ids, float(sum_lp[slot]), no_speech[slot],
-                                            lang[slot]))
+            out[slot] = self._result(ids, float(sum_lp[slot]), no_speech[slot], lang[slot])
+        return out
+
+    def _retire_finished(self):
+        if self.beam:
+            return self._retire_finished_beam()
+        busy = [r is not None for r in self._occupant]
+        for slot, result in self._finished_results(busy).items():
+            self._retire(slot, result)
 
     def _step(self):
         if self.beam:
@@ -637,3 +686,96 @@ class DecodeEngine:
                             req.error = f"{type(e).__name__}: {e}"
                             req.event.set()
                             self._occupant[i] = None
+
+    # -- data-parallel pool (mesh) ---------------------------------------------
+
+    def _plan(self) -> dict:
+        """The leader's plan for one iteration: the stop, or the queued
+        requests it admits, each into a free slot of the global pool, the
+        free slots taken across the data ranks in turn."""
+        if self._stop.is_set():
+            return {"stop": True}
+        free = [g for g, r in enumerate(self._occupant) if r is None]
+        free.sort(key=lambda g: (g % self.local_slots, g // self.local_slots))
+        with self._lock:
+            take = self._queue[:len(free)]
+            del self._queue[:len(take)]
+        admit = []
+        for g, req in zip(free, take):
+            self._occupant[g] = req
+            admit.append((g, req.payload, req.scale))
+        if admit and self.metrics is not None:
+            self.metrics.inc("engine_admitted_total", len(admit))
+        return {"stop": False, "admit": admit}
+
+    def _mesh_iteration(self, plan: dict) -> Dict[int, dict]:
+        """One lockstep iteration on every rank: admit the plan's requests
+        that fall in this rank's rows (in batches of ``admit_width``), step
+        this rank's rows, and gather every data rank's finished rows to
+        every rank, as {global slot: result or {"error": ...}}."""
+        base = self.mesh.index(parallel.DATA_AXIS) * self.local_slots
+        mine = [(g - base, payload, scale) for g, payload, scale in plan["admit"]
+                if base <= g < base + self.local_slots]
+        report: Dict[int, dict] = {}
+        for i in range(0, len(mine), self.admit_width):
+            chunk = mine[i:i + self.admit_width]
+            try:
+                self._timed("admit", lambda: self._admit_rows(*map(list, zip(*chunk))))
+            except Exception as e:  # fail these requests, keep serving
+                report.update({base + r[0]: {"error": f"{type(e).__name__}: {e}"}
+                               for r in chunk})
+                continue
+            self.admit_calls += 1
+            for r in chunk:
+                self._busy[r[0]] = True
+        if any(self._busy):
+            try:
+                self._timed("step", self._step)
+                done = self._finished_results(self._busy)
+            except Exception as e:  # fail this rank's live rows, keep serving
+                done = {i: {"error": f"{type(e).__name__}: {e}"}
+                        for i, b in enumerate(self._busy) if b}
+            for i, result in done.items():
+                self._busy[i] = False
+                report[base + i] = result
+        merged: Dict[int, dict] = {}
+        for part in parallel.gather_objects(report, self.mesh, parallel.DATA_AXIS):
+            merged.update(part)
+        return merged
+
+    def _run_mesh(self):
+        """The worker of a data-parallel pool: the leader plans, every rank
+        follows the broadcast plan; the leader answers the requests."""
+        leader = self.mesh.is_leader
+        with torch.inference_mode():
+            while True:
+                if leader:
+                    with self._lock:
+                        idle = not self._queue and all(r is None for r in self._occupant)
+                    if idle and not self._stop.is_set():
+                        # a plan still goes out every 0.1 s: the followers
+                        # wait in the broadcast
+                        self._wake.wait(timeout=0.1)
+                        self._wake.clear()
+                plan = parallel.broadcast_object(self._plan() if leader else None, self.mesh)
+                if plan["stop"]:
+                    return
+                results = self._mesh_iteration(plan)
+                if not leader:
+                    continue
+                for g, result in results.items():
+                    req = self._occupant[g]
+                    self._occupant[g] = None
+                    if "error" in result:
+                        req.error = result["error"]
+                        req.event.set()
+                    else:
+                        req.result = result
+                        req.event.set()
+                        if self.metrics is not None:
+                            self.metrics.inc("engine_retired_total")
+                            self.metrics.inc("engine_committed_tokens_total",
+                                             len(result["tokens"]) + 1)
+                if self.metrics is not None:
+                    self.metrics.set("engine_slots_occupied",
+                                     sum(r is not None for r in self._occupant))

@@ -20,7 +20,8 @@ Two options change the kernels the loop runs, as in the reference:
 kernel K9 in every step), and the opt-in fused step
 (``ops.decoder_step.set_fused_decoder_step(True)``) replaces every
 single-token step by one fused kernel launch per decoder layer (K10) where
-``fused_cache_applicable`` admits the cache; the prompt pass stays on the
+``fused_cache_applicable`` admits the cache and no mesh is pinned
+(``LoopConfig.mesh``, the reference's rule); the prompt pass stays on the
 unfused ``decoder_step``.  That gate refuses a grouped cache, so beam and
 best-of decode never run K10.
 
@@ -62,6 +63,9 @@ class LoopConfig(NamedTuple):
     kv_int8: bool = False
     # Steps between host checks of the all-finished exit.
     unroll: int = 4
+    # The mesh (``parallel.Mesh``) the encoder runs on; with one the fused
+    # step (K10) is off, as in the reference.
+    mesh: Optional[object] = None
 
 
 def _prompt_pass(decoder, cfg: LoopConfig, audio_features, initial_tokens,
@@ -120,7 +124,7 @@ def greedy_decode(
     )
     # The opt-in fused step (the reference's decode/loop.py gate): read when
     # the loop starts, and only for a cache the kernel takes.
-    if fused_step_enabled() and fused_cache_applicable(cache, cfg.dims, B):
+    if fused_step_enabled() and cfg.mesh is None and fused_cache_applicable(cache, cfg.dims, B):
         cache = to_fused_cache(cache, cfg.dims)
         step_fn = fused_decoder_step
     else:

@@ -14,7 +14,11 @@ out)`` and conv weights ``(O, I, K)`` (``qasr_ijcnlp_tpu/models/whisper.py``).
 :func:`from_jax_params` maps that tree, given as numpy arrays, onto the
 state-dict names and layouts, classical or quantum stem alike (a quantum
 encoder holds ``qconv1``/``qconv2``: ``pre_w`` (in, out) becomes
-``qconv1.pre.weight`` (out, in), and so on); :func:`from_jax_encoder` maps
+``qconv1.pre.weight`` (out, in), and so on), dense or MoE encoder blocks
+(``models.moe``: ``mlp.router.w`` and ``mlp.experts.{fc,proj}.{w,b}``,
+stacked (L, E, ...), become ``mlp.router.weight`` and
+``mlp.experts.{fc,proj}.{weight,bias}``, each expert's weight transposed);
+:func:`from_jax_encoder` maps
 an encoder tree alone, :func:`from_jax_head` a task head (the MLP and LSTM
 character heads, the classifier).  It mirrors the JAX package's
 ``to_torch_state_dict`` without importing it, so the port never imports JAX.
@@ -59,8 +63,17 @@ def _block(out, prefix, bp):
             for lin in ("query", "key", "value", "out"):
                 _linear(out, f"{prefix}.{name}.{lin}", bp[name][lin])
             _ln(out, f"{prefix}.{name}_ln", bp[f"{name}_ln"])
-    _linear(out, f"{prefix}.mlp.0", bp["mlp"]["fc"])
-    _linear(out, f"{prefix}.mlp.2", bp["mlp"]["proj"])
+    if "router" in bp["mlp"]:  # an MoE block (models.moe)
+        mp = bp["mlp"]
+        out[f"{prefix}.mlp.router.weight"] = _tensor(np.asarray(mp["router"]["w"]).T)
+        for lin in ("fc", "proj"):
+            ex = mp["experts"][lin]
+            out[f"{prefix}.mlp.experts.{lin}.weight"] = _tensor(
+                np.swapaxes(np.asarray(ex["w"]), -1, -2))
+            out[f"{prefix}.mlp.experts.{lin}.bias"] = _tensor(ex["b"])
+    else:
+        _linear(out, f"{prefix}.mlp.0", bp["mlp"]["fc"])
+        _linear(out, f"{prefix}.mlp.2", bp["mlp"]["proj"])
     _ln(out, f"{prefix}.mlp_ln", bp["mlp_ln"])
 
 
@@ -188,8 +201,15 @@ def _block_np(sd, prefix):
             out[name] = {lin: _linear_np(sd, f"{prefix}.{name}.{lin}")
                          for lin in ("query", "key", "value", "out")}
             out[f"{name}_ln"] = _ln_np(sd, f"{prefix}.{name}_ln")
-    out["mlp"] = {"fc": _linear_np(sd, f"{prefix}.mlp.0"),
-                  "proj": _linear_np(sd, f"{prefix}.mlp.2")}
+    if f"{prefix}.mlp.router.weight" in sd:  # an MoE block (models.moe)
+        ex = lambda lin: {"w": np.swapaxes(_np(sd[f"{prefix}.mlp.experts.{lin}.weight"]),
+                                           -1, -2).copy(),
+                          "b": _np(sd[f"{prefix}.mlp.experts.{lin}.bias"])}
+        out["mlp"] = {"router": {"w": _np(sd[f"{prefix}.mlp.router.weight"]).T.copy()},
+                      "experts": {"fc": ex("fc"), "proj": ex("proj")}}
+    else:
+        out["mlp"] = {"fc": _linear_np(sd, f"{prefix}.mlp.0"),
+                      "proj": _linear_np(sd, f"{prefix}.mlp.2")}
     out["mlp_ln"] = _ln_np(sd, f"{prefix}.mlp_ln")
     return out
 

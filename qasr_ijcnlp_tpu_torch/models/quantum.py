@@ -127,12 +127,15 @@ def quantum_stem(encoder: QuantumAudioEncoder, mel, compute_dtype=torch.float32)
 
 
 def quantum_encoder_apply(encoder: QuantumAudioEncoder, mel, dims: ModelDimensions,
-                          compute_dtype=torch.float32):
+                          compute_dtype=torch.float32, mesh=None):
     """Audio encoder with the quantum stem: (B, n_mels, 2 n_audio_ctx) ->
-    (B, n_audio_ctx, D).  The trunk pads to the tile length itself."""
+    (B, n_audio_ctx, D).  The trunk pads to the tile length itself.  With
+    ``mesh`` the quantum stem runs whole on each rank (its rows are this
+    data rank's) and the trunk takes the mesh."""
     if mel.shape[-1] != 2 * dims.n_audio_ctx:
         raise ValueError(f"expected {2 * dims.n_audio_ctx} mel frames, got {mel.shape[-1]}")
-    return cmodel.transformer_trunk(encoder, quantum_stem(encoder, mel, compute_dtype), dims)
+    return cmodel.transformer_trunk(encoder, quantum_stem(encoder, mel, compute_dtype), dims,
+                                    mesh=mesh)
 
 
 class QuantumWhisperModel(WhisperModel):

@@ -89,6 +89,9 @@ class WhisperModel:
         self.alignment_heads: Optional[np.ndarray] = None
         self._decoders: Dict[torch.dtype, Tuple[tuple, _model.TextDecoder]] = {}
         self._task_cache: Dict = {}
+        # The mesh this model is sharded over (``shard``): decode, the
+        # encoder entry points and the decode engine run data-parallel on it.
+        self.mesh = None
 
     @classmethod
     def from_state_dict(cls, state_dict: Dict[str, torch.Tensor], dims: ModelDimensions,
@@ -151,11 +154,28 @@ class WhisperModel:
         heads[self.dims.n_text_layer // 2:] = True
         return heads
 
+    def shard(self, mesh) -> "WhisperModel":
+        """Keep this rank's slices of the weights that the mesh's ``model``
+        axis shards (``parallel.shard_params``) and pin the mesh, so that
+        ``decode``, ``embed_audio``, ``forward`` and the decode engine run
+        on it: every rank of the mesh calls them with the same whole batch
+        and gets the same whole result.  A mesh of one rank pins nothing.
+        A re-shard drops the cached decoding tasks.  Returns self."""
+        from .. import parallel
+
+        parallel.shard_params(self.module, mesh)
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self._task_cache.clear()
+        return self
+
     @torch.inference_mode()
     def embed_audio(self, mel):
+        from ..parallel import map_rows
+
         mel = torch.as_tensor(mel).to(self.device)
-        return _model.dispatch_encoder_apply(self.module.encoder, mel, self.dims,
-                                             self.compute_dtype)
+        return map_rows(lambda m: _model.dispatch_encoder_apply(
+            self.module.encoder, m, self.dims, self.compute_dtype, mesh=self.mesh),
+            mel, self.mesh)
 
     @torch.inference_mode()
     def logits(self, tokens, audio_features):
@@ -166,9 +186,12 @@ class WhisperModel:
 
     @torch.inference_mode()
     def forward(self, mel, tokens):
-        return _model.forward(self.module, torch.as_tensor(mel).to(self.device),
-                              torch.as_tensor(tokens).to(self.device), self.dims,
-                              self.compute_dtype)
+        from ..parallel import map_rows
+
+        return map_rows(lambda m, t: _model.forward(self.module, m, t, self.dims,
+                                                    self.compute_dtype, mesh=self.mesh),
+                        (torch.as_tensor(mel).to(self.device),
+                         torch.as_tensor(tokens).to(self.device)), self.mesh)
 
     __call__ = forward
 

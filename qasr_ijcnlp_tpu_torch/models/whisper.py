@@ -319,22 +319,25 @@ def _mlp(mlp, x):
 # ---------------------------------------------------------------------------
 
 
-def dispatch_encoder_apply(encoder, mel, dims: ModelDimensions, compute_dtype=torch.float32):
+def dispatch_encoder_apply(encoder, mel, dims: ModelDimensions, compute_dtype=torch.float32,
+                           mesh=None):
     """The one quantum-vs-classical encoder dispatch, which every encoder
     call of the port takes (decode, the draft, the decode engine,
     ``embed_audio``, ``forward``).  The variant comes from the encoder
     module itself (a ``qconv1`` stem), so a caller can never pair quantum
-    weights with the classical stem."""
+    weights with the classical stem.  ``mesh``: see :func:`transformer_trunk`."""
     if hasattr(encoder, "qconv1"):
         from .quantum import quantum_encoder_apply
 
-        return quantum_encoder_apply(encoder, mel, dims, compute_dtype)
-    return encoder_apply(encoder, mel, dims, compute_dtype)
+        return quantum_encoder_apply(encoder, mel, dims, compute_dtype, mesh=mesh)
+    return encoder_apply(encoder, mel, dims, compute_dtype, mesh=mesh)
 
 
 def encoder_apply(encoder: AudioEncoder, mel, dims: ModelDimensions,
-                  compute_dtype=torch.float32):
-    """Audio encoder forward: (B, n_mels, 2 n_audio_ctx) -> (B, n_audio_ctx, D)."""
+                  compute_dtype=torch.float32, mesh=None):
+    """Audio encoder forward: (B, n_mels, 2 n_audio_ctx) -> (B, n_audio_ctx, D).
+    With ``mesh`` the stem still runs whole on each rank (its rows are this
+    data rank's) and the trunk takes the mesh (:func:`transformer_trunk`)."""
     T = dims.n_audio_ctx
     if mel.shape[-1] != 2 * T:
         raise ValueError(f"expected {2 * T} mel frames, got {mel.shape[-1]}")
@@ -345,7 +348,7 @@ def encoder_apply(encoder: AudioEncoder, mel, dims: ModelDimensions,
     # D and n_mels and emits the trunk input already padded to Tp.
     stem = fused_conv_stem if _kernels_on() else _plain_stem
     x = stem(encoder, mel, round_up(T, 128), compute_dtype)
-    return transformer_trunk(encoder, x, dims, t_real=T)
+    return transformer_trunk(encoder, x, dims, t_real=T, mesh=mesh)
 
 
 def _trunk_uses_fused_blocks(dims: ModelDimensions, t_pad: Optional[int] = None) -> bool:
@@ -364,14 +367,33 @@ def _trunk_uses_fused_blocks(dims: ModelDimensions, t_pad: Optional[int] = None)
 
 
 def transformer_trunk(encoder: AudioEncoder, x, dims: ModelDimensions,
-                      t_real: Optional[int] = None):
+                      t_real: Optional[int] = None, mesh=None):
     """Encoder blocks + ``ln_post`` on an embedded (B, T, D) input.  Pass
     ``t_real`` when ``x`` arrives padded already.  The stack runs at the
     tile-padded length where a kernel consumes the padding: padded rows mix
     with real ones only as attention keys, where they are masked, and are
-    sliced off at the end."""
+    sliced off at the end.
+
+    With a ``mesh`` (``parallel.Mesh``) whose model axis is > 1, ``x`` is
+    this data rank's rows and the trunk is sharded over ``model``, in the
+    reference's order: the head-sharded trunk (K4 head-sharded on each rank,
+    ``parallel.sharded.tp_trunk``; the encoder must hold this rank's slices,
+    ``parallel.shard_params``), else time (``sp_trunk``) where the heads do
+    not divide, else layers (``pp_trunk``); where none applies, the
+    single-rank trunk on the whole weights."""
     n_head = dims.n_audio_head
     T = t_real if t_real is not None else x.shape[1]
+    if mesh is not None and mesh.shape.get("model", 1) > 1:
+        from ..parallel import gathered_encoder, sharded
+
+        B = x.shape[0]
+        if sharded.tp_trunk_applicable(dims, mesh, B):
+            return sharded.tp_trunk(encoder, x, dims, T, mesh)
+        if sharded.sp_trunk_applicable(dims, mesh, B, T):
+            return sharded.sp_trunk(encoder, x, dims, T, mesh)
+        if sharded.pp_trunk_applicable(dims, mesh, B):
+            return sharded.pp_trunk(encoder, x, dims, T, mesh)
+        encoder = gathered_encoder(encoder, mesh)
     Tp = round_up(T, 128)
     fused = _trunk_uses_fused_blocks(dims, Tp)
     if x.shape[1] != Tp:
@@ -462,10 +484,12 @@ def decoder_apply_with_cross_qk(decoder: TextDecoder, tokens, xa, dims: ModelDim
 
 
 def forward(module: Whisper, mel, tokens, dims: ModelDimensions,
-            compute_dtype=torch.float32):
+            compute_dtype=torch.float32, mesh=None):
     """Full forward (reference Whisper.forward): mel (B, n_mels, 3000) and
-    tokens (B, T) -> fp32 logits (B, T, vocab)."""
-    xa = dispatch_encoder_apply(module.encoder, mel, dims, compute_dtype)
+    tokens (B, T) -> fp32 logits (B, T, vocab).  ``mesh`` routes the encoder
+    through the sharded trunks (:func:`transformer_trunk`); the rows are
+    this data rank's."""
+    xa = dispatch_encoder_apply(module.encoder, mel, dims, compute_dtype, mesh=mesh)
     return decoder_apply(module.decoder, tokens, xa, dims, compute_dtype)
 
 

@@ -73,12 +73,39 @@ def fused_block_applicable(n_head: int, d_model: int, t_pad: int,
     )
 
 
+def head_columns(attn) -> int:
+    """Dl, the width of the heads ``attn``'s Q/K/V weights hold: D for the
+    whole model, D / tp for a tensor-parallel rank's head shard."""
+    return attn.query.weight.shape[0]
+
+
+def attn_applicable(n_head: int, d_model: int, t_pad: int,
+                    d_head: Optional[int] = None) -> bool:
+    """The reference's gate for the attention kernel alone
+    (``attn_applicable``), also the tensor-parallel trunk's: there
+    ``n_head`` is a rank's head count, ``d_model`` stays the whole width
+    and ``d_head`` is passed, since d_model / n_head no longer gives it.
+    Heads of 128 or pairs of 64, D a multiple of 128, and the padded length
+    in the TPU kernel's 128-row query tiles and 256-row LN chunks."""
+    if d_head is None:
+        d_head = d_model // n_head if d_model % n_head == 0 else 0
+    return (
+        d_model % 128 == 0
+        and (d_head == 128 or (d_head == 64 and n_head % 2 == 0))
+        and t_pad % 128 == 0
+        and t_pad % 256 == 0
+    )
+
+
 def _plain_attn_ln(x, ln, attn, n_head: int, t_real: int):
     """Plain PyTorch LN + QKV + masked softmax attention (before the
-    out-projection): (B, Tp, D) -> (B, Tp, D)."""
+    out-projection): (B, Tp, D) -> (B, Tp, Dl), over the ``n_head`` heads of
+    width Dl / n_head whose weight columns ``attn`` holds (the reference's
+    ``_xla_attn_ln``)."""
     B, Tp, D = x.shape
     dt = x.dtype
-    dh = D // n_head
+    Dl = head_columns(attn)
+    dh = Dl // n_head
     scale = head_scale(dh, dt)
     h = layer_norm(x, ln)
     q = linear(h, attn.query) * scale
@@ -90,7 +117,7 @@ def _plain_attn_ln(x, ln, attn, n_head: int, t_real: int):
         keep = torch.arange(Tp, device=x.device) < t_real
         logits = logits.masked_fill(~keep, float("-inf"))
     w = torch.softmax(logits, dim=-1).to(dt)
-    return (w @ split(v)).transpose(1, 2).reshape(B, Tp, D)
+    return (w @ split(v)).transpose(1, 2).reshape(B, Tp, Dl)
 
 
 def _plain_finish(x, attn_out, block):
@@ -100,15 +127,19 @@ def _plain_finish(x, attn_out, block):
     return r + linear(t, block.mlp[2])
 
 
-def _check_block_input(name, x, n_head, t_real):
+def _check_block_input(name, x, n_head, t_real, d_heads=None):
+    """``d_heads``: Dl, the width of the heads the weights hold (default
+    D)."""
     if x.dim() != 3 or x.dtype not in _kernels.DTYPE_CODES:
         raise ValueError(f"{name}: expected (B, Tp, D) float32/bfloat16, got "
                          f"{tuple(x.shape)} {x.dtype}")
-    dh = kernel_head_width(name, x.shape[-1], n_head)
-    if x.shape[-1] % GEMM_TILE or dh not in (64, 128):
-        raise ValueError(f"{name}: the kernel takes D a multiple of {GEMM_TILE} in heads "
-                         f"of 64 or 128 (the fused-block gate's), got D={x.shape[-1]} "
-                         f"in {n_head} heads")
+    D = x.shape[-1]
+    Dl = D if d_heads is None else d_heads
+    dh = kernel_head_width(name, Dl, n_head)
+    if D % GEMM_TILE or Dl % GEMM_TILE or Dl > D or dh not in (64, 128):
+        raise ValueError(f"{name}: the kernel takes D and the heads' width Dl <= D in "
+                         f"multiples of {GEMM_TILE}, in heads of 64 or 128 (the fused-block "
+                         f"gate's), got D={D}, Dl={Dl} in {n_head} heads")
     if not 1 <= t_real <= x.shape[1]:
         raise ValueError(f"{name}: t_real={t_real} outside [1, {x.shape[1]}]")
 
@@ -147,10 +178,11 @@ def _version(t) -> int:
 def _kept(module, owners, dtype, build):
     """``build()``'s pack for ``module`` in ``dtype``, made at first use (with
     no autograd record) and kept on the module; made anew once any of
-    ``owners``, the tensors it packs, lies in another storage or dtype (a
-    deep copy, a reloaded or a recast module) or was changed in place (an
-    optimizer step)."""
-    tag = tuple((t.data_ptr(), t.dtype, _version(t)) for t in owners)
+    ``owners``, the tensors it packs, lies in another storage, shape or dtype
+    (a deep copy, a reloaded or a recast module, a tensor-parallel rank's
+    slice, which may start at the whole weight's address) or was changed in
+    place (an optimizer step)."""
+    tag = tuple((t.data_ptr(), tuple(t.shape), t.dtype, _version(t)) for t in owners)
     kept = module.__dict__.get("_encoder_packs")
     if kept is None or kept[0] != tag:
         kept = module.__dict__["_encoder_packs"] = (tag, {})
@@ -175,9 +207,10 @@ def _finish_weights(block):
 
 def attention_pack(ln, attn, dtype):
     """K4's weights in ``dtype``, packed once per module and dtype: the
-    stacked (3D, D) Q/K/V weight as a GEMM operand (``gemm_operand``), the
-    (3D,) bias [bq | 0 | bv] in ``dtype`` and the LayerNorm's weight and
-    bias in fp32.  Kept on ``attn``."""
+    stacked (3 Dl, D) Q/K/V weight as a GEMM operand (``gemm_operand``), the
+    (3 Dl,) bias [bq | 0 | bv] in ``dtype`` and the LayerNorm's weight and
+    bias in fp32.  Kept on ``attn``, keyed on its own (for a head shard:
+    sliced) weights."""
     def build():
         q, k, v = attn.query, attn.key, attn.value
         return {
@@ -211,10 +244,13 @@ def _slabs(dtype) -> int:
 
 def fused_attention_ln(x, ln, attn, n_head: int, t_real: int):
     """LN + QKV projection + softmax(QK^T)V over ``n_head`` heads, stopping
-    before the output projection: (B, Tp, D) -> (B, Tp, D).
+    before the output projection: (B, Tp, D) -> (B, Tp, Dl).
 
     ``ln`` is the block's ``attn_ln`` (nn.LayerNorm) and ``attn`` its
-    attention module (``query``/``key``/``value`` nn.Linear).  Where
+    attention module (``query``/``key``/``value`` nn.Linear(D, Dl)): Dl = D
+    for the whole model, or a tensor-parallel rank's head shard (Dl = D /
+    tp, the reference's head-sharded entry), whose output holds its heads
+    in the weight columns' order.  Where
     autograd must record the call, it goes through
     :class:`AttentionLNFunction`."""
     weights = _attention_weights(ln, attn)
@@ -230,21 +266,22 @@ def fused_attention_ln(x, ln, attn, n_head: int, t_real: int):
 def _launch_attention(x, ln, attn, n_head: int, t_real: int):
     """K4 on the card."""
     global attn_launches
-    _check_block_input("fused_attention_ln", x, n_head, t_real)
+    Dl = head_columns(attn)
+    _check_block_input("fused_attention_ln", x, n_head, t_real, Dl)
     B, Tp, D = x.shape
     dt = x.dtype
     p = attention_pack(ln, attn, dt)
     h = x.new_empty(_slabs(dt), B * Tp, D)
-    qkv = x.new_empty(B, Tp, 3 * D)
-    out = torch.empty_like(x)
+    qkv = x.new_empty(B, Tp, 3 * Dl)
+    out = x.new_empty(B, Tp, Dl)
     _kernels.check_cuda("fused_attention_ln", x, p["wqkv"], p["bqkv"], h, qkv, out, dtype=dt)
     _kernels.check_cuda("fused_attention_ln", x, p["g"], p["b"])
     _check_aligned("fused_attention_ln", x, h, qkv, out)
     _kernels.library().call(
         "qasr_attention", x.device, _kernels.DTYPE_CODES[dt],
         x.data_ptr(), p["g"].data_ptr(), p["b"].data_ptr(), p["wqkv"].data_ptr(),
-        p["bqkv"].data_ptr(), head_scale(D // n_head, dt), h.data_ptr(), qkv.data_ptr(),
-        out.data_ptr(), B, Tp, D, n_head, t_real,
+        p["bqkv"].data_ptr(), head_scale(Dl // n_head, dt), h.data_ptr(), qkv.data_ptr(),
+        out.data_ptr(), B, Tp, D, Dl, n_head, t_real,
     )
     attn_launches += 1
     return out

@@ -71,7 +71,8 @@ def _(mel, w1, b1, w2, b2, pos, t_pad, dtype):
 def attention_ln(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, wq: torch.Tensor,
                  bq: torch.Tensor, wk: torch.Tensor, wv: torch.Tensor, bv: torch.Tensor,
                  n_head: int, t_real: int) -> torch.Tensor:
-    """K4: LN + QKV + masked attention, (B, Tp, D) -> (B, Tp, D)."""
+    """K4: LN + QKV + masked attention, (B, Tp, D) -> (B, Tp, Dl), Dl the
+    width of the heads ``wq`` holds (D, or a tensor-parallel head shard)."""
     ln = _NS(weight=g, bias=b)
     attn = _NS(query=_NS(weight=wq, bias=bq), key=_NS(weight=wk, bias=None),
                value=_NS(weight=wv, bias=bv))
@@ -82,7 +83,7 @@ def attention_ln(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, wq: torch.Te
 
 @attention_ln.register_fake
 def _(x, g, b, wq, bq, wk, wv, bv, n_head, t_real):
-    return torch.empty_like(x)
+    return x.new_empty(*x.shape[:-1], wq.shape[0])
 
 
 @torch.library.custom_op("qasr::block_finish", mutates_args=())

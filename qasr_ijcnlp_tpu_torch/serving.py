@@ -20,7 +20,12 @@ Port of ``qasr_ijcnlp_tpu/serving.py``:
     GET  /healthz, /metrics (Prometheus text).
 
 Start it with ``python -m qasr_ijcnlp_tpu_torch.serving --model tiny``; it
-serves on the card (``--device cpu`` for the CPU).
+serves on the card (``--device cpu`` for the CPU).  Data-parallel serving
+runs one process per rank under a launcher (``torchrun --nproc_per_node N
+-m qasr_ijcnlp_tpu_torch.serving --data_parallel``): every rank builds the
+micro-batcher and the engine pools over a data-only mesh, rank 0 serves
+HTTP and the other ranks follow its plans (``BatchingTranscriber``,
+``decode.engine``).  Long-form requests run on rank 0 alone.
 """
 
 from __future__ import annotations
@@ -38,11 +43,9 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from . import _kernels
+from . import _kernels, parallel
 from .audio import resample_audio, wire_log_mel, wire_pcm16
-from .decode import DecodingOptions, decode
-
-_PARALLELISM = "not ported yet: ROADMAP.md queue 1, 'Parallelism'"
+from .decode import DecodingOptions, DecodingTask, decode
 
 
 class ServerMetrics:
@@ -99,13 +102,26 @@ class _Pending:
 
 class BatchingTranscriber:
     """Groups concurrent requests into padded fixed-size decode batches on
-    the model's device."""
+    the model's device.
+
+    ``mesh``: data-parallel micro-batches.  Every rank of the mesh builds
+    the transcriber (a collective call); the batch size is rounded up to
+    the data extent (``parallel.round_up_to_mesh``); the leader (rank 0)
+    takes the requests and broadcasts each micro-batch's wire audio, and
+    every rank computes the log-mel and decodes its rows of it
+    (``DecodingTask.run`` data-parallel, on a fork of the mesh's groups).
+    One worker; the other ranks follow until the leader closes."""
 
     def __init__(self, model, batch_size: int = 16, max_wait_ms: float = 25.0,
                  options: Optional[DecodingOptions] = None, workers: int = 1, mesh=None,
                  metrics: Optional[ServerMetrics] = None):
-        if mesh is not None:
-            raise NotImplementedError(f"data-parallel serving is {_PARALLELISM}")
+        self.mesh = None
+        if mesh is not None and mesh.size > 1:
+            if mesh.shape[parallel.MODEL_AXIS] > 1:
+                model.shard(mesh)
+            batch_size = parallel.round_up_to_mesh(batch_size, mesh)
+            self.mesh = mesh.fork()
+            workers = 1
         if model.device.type == "cuda":
             _kernels.library()  # built here, never by two threads at first use
         self.model = model
@@ -116,9 +132,12 @@ class BatchingTranscriber:
         # clip transcribes alike at 20 s (here) and 40 s (long-form).
         self.options = options or DecodingOptions(
             language=None if model.is_multilingual else "en", without_timestamps=True)
+        self._task = None if self.mesh is None else DecodingTask(model, self.options,
+                                                                 mesh=self.mesh)
         self._queue: "queue.Queue[_Pending]" = queue.Queue()
         self._stop = threading.Event()
-        self._workers = [threading.Thread(target=self._run, daemon=True)
+        run = self._run if self.mesh is None else self._run_mesh
+        self._workers = [threading.Thread(target=run, daemon=True)
                          for _ in range(max(1, workers))]
         for w in self._workers:
             w.start()
@@ -130,6 +149,9 @@ class BatchingTranscriber:
         micro-batch's log-mel in one call on the device."""
         if self._stop.is_set():
             raise RuntimeError("transcriber is closed")
+        if self.mesh is not None and not self.mesh.is_leader:
+            raise RuntimeError("a data-parallel transcriber takes its requests on the "
+                               f"mesh's leader (rank {self.mesh.leader})")
         item = _Pending(*wire_pcm16(audio))
         self._queue.put(item)
         if self._stop.is_set() and not item.event.is_set():
@@ -141,6 +163,12 @@ class BatchingTranscriber:
         if item.error:
             raise RuntimeError(item.error)
         return item.result
+
+    def join(self, timeout: Optional[float] = None):
+        """Wait for the workers to end: on a follower rank of a mesh, until
+        the leader closes."""
+        for w in self._workers:
+            w.join(timeout)
 
     def close(self):
         if self._stop.is_set():
@@ -188,14 +216,38 @@ class BatchingTranscriber:
                 if batch:
                     self._serve(batch)
 
-    def _serve(self, batch: List[_Pending]):
+    def _run_mesh(self):
+        """The worker of a data-parallel transcriber: the leader collects a
+        micro-batch (or nothing, at least every 0.1 s) and broadcasts it;
+        every rank decodes its rows; the leader answers."""
+        leader = self.mesh.is_leader
+        with torch.inference_mode():
+            while True:
+                batch, plan = [], None
+                if leader:
+                    if not self._stop.is_set():
+                        batch = self._collect()
+                    plan = {"stop": self._stop.is_set() and not batch,
+                            "wire": self._wire(batch) if batch else None}
+                plan = parallel.broadcast_object(plan, self.mesh)
+                if plan["stop"]:
+                    return
+                if plan["wire"] is not None:
+                    self._serve(batch, plan["wire"])
+
+    def _wire(self, batch: List[_Pending]):
+        """The micro-batch's int16 audio and scales, padded to the batch
+        size by repeating the last clip."""
+        pad = [batch[-1]] * (self.batch_size - len(batch))
+        return (np.stack([p.audio for p in batch + pad]),
+                np.asarray([p.scale for p in batch + pad], np.float32))
+
+    def _serve(self, batch: List[_Pending], wire=None):
         t0 = time.perf_counter()
         try:
-            # pad to the batch size by repeating the last clip
-            pad = [batch[-1]] * (self.batch_size - len(batch))
-            mels = self.mels(np.stack([p.audio for p in batch + pad]),
-                             np.asarray([p.scale for p in batch + pad], np.float32))
-            results = decode(self.model, mels, self.options)
+            mels = self.mels(*(wire if wire is not None else self._wire(batch)))
+            results = (decode(self.model, mels, self.options) if self._task is None
+                       else self._task.run(mels))
             for p, r in zip(batch, results):
                 p.result = {"text": r.text.strip(), "tokens": [int(t) for t in r.tokens],
                             "avg_logprob": float(r.avg_logprob),
@@ -275,11 +327,14 @@ def serve(model, host: str = "127.0.0.1", port: int = 8077, batch_size: int = 16
 
     from .transcribe import transcribe as _long_transcribe
 
-    if mesh is not None:
-        raise NotImplementedError(f"data-parallel serving is {_PARALLELISM}")
+    if mesh is not None and mesh.size == 1:
+        mesh = None
+    if mesh is not None and mesh.shape[parallel.MODEL_AXIS] > 1:
+        raise ValueError("serve shards requests over a data-only mesh "
+                         "(parallel.make_mesh(model_parallel=1))")
     if model.device.type == "cuda":
         _kernels.library()
-    transcriber = BatchingTranscriber(model, batch_size, max_wait_ms, options)
+    transcriber = BatchingTranscriber(model, batch_size, max_wait_ms, options, mesh=mesh)
     engine = stream_engine = None
     if engine_slots:
         from .decode.engine import DecodeEngine
@@ -287,17 +342,26 @@ def serve(model, host: str = "127.0.0.1", port: int = 8077, batch_size: int = 16
         try:
             engine = DecodeEngine(model, options or transcriber.options, slots=engine_slots,
                                   audio_frontend=True, lookup_gamma=engine_lookup_gamma,
-                                  metrics=transcriber.metrics)
+                                  mesh=mesh, metrics=transcriber.metrics)
             # Sessions decode with timestamps (the slide needs segment
             # boundaries): a pool of their own.
             stream_engine = DecodeEngine(
                 model, replace(options or transcriber.options, without_timestamps=False),
-                slots=engine_slots, audio_frontend=True, lookup_gamma=engine_lookup_gamma)
+                slots=engine_slots, audio_frontend=True, lookup_gamma=engine_lookup_gamma,
+                mesh=mesh)
         except Exception:
             transcriber.close()
             if engine is not None:
                 engine.close()
             raise
+    if mesh is not None and not mesh.is_leader:
+        # A follower rank: no HTTP; its components follow the leader's plans
+        # until the leader closes them.
+        if block:
+            for part in (transcriber, engine, stream_engine):
+                if part is not None:
+                    part.join()
+        return None, transcriber
 
     # The long-form pool: mel input and timestamps, with the options
     # transcribe builds its t = 0 rung from (_engine_shortcut compares them),
@@ -308,7 +372,9 @@ def serve(model, host: str = "127.0.0.1", port: int = 8077, batch_size: int = 16
     long_engine_lock = threading.Lock()
 
     def _get_long_engine():
-        if not engine_slots:
+        # Under a mesh the long-form pool would be built on rank 0 alone,
+        # where a mesh pool needs every rank: long-form runs on rank 0 alone.
+        if not engine_slots or mesh is not None:
             return None
         with long_engine_lock:
             if "engine" not in long_engine:
@@ -589,7 +655,8 @@ def main(argv=None):
     p.add_argument("--device", type=str, default="auto",
                    help="auto or cuda (the card; exits without one) or cpu")
     p.add_argument("--data_parallel", action="store_true",
-                   help="shard micro-batches across devices (not ported yet)")
+                   help="one process per rank under torchrun: micro-batches and engine "
+                        "pools data-parallel over every rank, rank 0 serves HTTP")
     p.add_argument("--engine_slots", type=int, default=None,
                    help="route short requests through the continuous-batching "
                         "DecodeEngine with this many slots")
@@ -598,10 +665,15 @@ def main(argv=None):
                         "gamma+1 tokens per slot per forward (token-exact)")
     args = p.parse_args(argv)
     device = resolve_device(args.device)
+    mesh = None
     if args.data_parallel:
-        raise NotImplementedError(f"--data_parallel is {_PARALLELISM}")
+        parallel.initialize_distributed()
+        mesh = parallel.make_mesh(model_parallel=1)
+        device = parallel.rank_device(device)
+        if mesh.is_leader:
+            print(f"data-parallel serving over {mesh.size} ranks")
     model = load_model_with_fallback(args.model, device=device)
-    serve(model, args.host, args.port, args.batch_size, args.max_wait_ms,
+    serve(model, args.host, args.port, args.batch_size, args.max_wait_ms, mesh=mesh,
           engine_slots=args.engine_slots, engine_lookup_gamma=args.engine_lookup_gamma)
 
 

@@ -207,8 +207,9 @@ def restore_train_state(path: str, template, mesh=None, fsdp: bool = False):
     from .step import TrainState, as_module
 
     if mesh is not None or fsdp:
-        raise NotImplementedError("sharded train states are not ported yet (ROADMAP "
-                                  "queue 1, item 7: parallelism)")
+        raise NotImplementedError("sharded train states come with the training half of "
+                                  "ROADMAP queue 1, item 7 (parallelism), the next slice "
+                                  "of the port")
     tree = load_pytree(path)
     module = as_module(template.params)
     module.load_state_dict({k: torch.from_numpy(np.asarray(v)) for k, v in

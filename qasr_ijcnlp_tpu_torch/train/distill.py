@@ -32,7 +32,8 @@ from ..models import whisper as model
 from ..models.dims import ModelDimensions
 from .step import init_state, make_optimizer, make_train_step
 
-_PARALLEL = "sharded distillation is not ported yet (ROADMAP queue 1, item 7: parallelism)"
+_PARALLEL = ("sharded distillation comes with the training half of ROADMAP queue 1, item 7 "
+             "(parallelism), the next slice of the port")
 
 
 def _dtype(compute_dtype) -> torch.dtype:

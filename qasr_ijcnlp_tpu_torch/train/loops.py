@@ -347,8 +347,8 @@ def train_token_asr(params, dims, tokenizer, train_loader: DataLoader,
     from .step import make_accum_train_step, whisper_loss_fn, whisper_sum_loss_fn
 
     if mesh is not None or fsdp:
-        raise NotImplementedError("sharded training is not ported yet (ROADMAP queue 1, "
-                                  "item 7: parallelism)")
+        raise NotImplementedError("sharded training is the training half of ROADMAP queue 1, "
+                                  "item 7 (parallelism), the next slice of the port")
     module = params
     dev = next(module.parameters()).device
     steps_per_epoch = max(len(train_loader), 1)

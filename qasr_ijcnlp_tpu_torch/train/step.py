@@ -50,8 +50,8 @@ from ..models import whisper as model
 from ..models.dims import ModelDimensions
 from .loss import shifted_token_loss, shifted_token_loss_sum
 
-_PARALLEL = ("sharded training is not ported yet (ROADMAP queue 1, item 7: "
-             "parallelism)")
+_PARALLEL = ("sharded training is the training half of ROADMAP queue 1, item 7 "
+             "(parallelism), the next slice of the port")
 
 
 class TrainState(NamedTuple):

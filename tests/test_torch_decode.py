@@ -185,6 +185,10 @@ def test_port_runs_without_jax():
         from qasr_ijcnlp_tpu_torch.ops import library  # noqa: F401
         from qasr_ijcnlp_tpu_torch.tokenizer import bpe
         from qasr_ijcnlp_tpu_torch.train import distill  # noqa: F401
+        from qasr_ijcnlp_tpu_torch import parallel
+        from qasr_ijcnlp_tpu_torch.parallel import sharded  # noqa: F401
+        from qasr_ijcnlp_tpu_torch.models import moe
+        assert parallel.make_mesh().size == 1 and moe.MoEConfig(4).capacity(10) == 8
         assert bpe.get_encoding("gpt2")._native is not None
         q = quantize.quantize_params(m.module, lf)
         assert q["decoder.token_embedding.weight"]["q"].dtype == torch.int8

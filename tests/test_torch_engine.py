@@ -16,6 +16,7 @@ engine.  One JAX decode compile per option set.
 
 import threading
 import time
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -137,8 +138,11 @@ def test_refusals_as_jax(models):
         DecodeEngine(tm, O(beam_size=2, **NO_TS), lookup_gamma=2)
     with pytest.raises(ValueError, match="kv_int8 beam"):
         DecodeEngine(tm, O(beam_size=2, kv_int8=True, **NO_TS))
-    with pytest.raises(NotImplementedError, match="Parallelism"):
-        DecodeEngine(tm, O(**NO_TS), mesh=object())
+    mesh2 = SimpleNamespace(size=2, shape={"data": 2, "model": 1})
+    with pytest.raises(ValueError, match="beam engine pools do not shard"):
+        DecodeEngine(tm, O(beam_size=2, **NO_TS), mesh=mesh2)
+    with pytest.raises(ValueError, match="multiple of the mesh's data axis"):
+        DecodeEngine(tm, O(**NO_TS), slots=3, mesh=mesh2)
 
 
 def test_admission_failure_fails_request_and_keeps_serving(models, mel):

@@ -287,13 +287,15 @@ def test_evaluate_classifier_matches_jax(trees, clf_jax_results, quantum_stem):
 
 
 def test_parallel_flags_raise_naming_the_roadmap(in_tmp):
-    """The mesh, data-parallel and FSDP options wait for ROADMAP queue 1,
-    item 7 (parallelism) and say so, before any work."""
-    from qasr_ijcnlp_tpu_torch.cli import evaluate_pretrained_whisper, train_classical_whisper_asr
-    from qasr_ijcnlp_tpu_torch.train import checkpoint as tck, step as tstep
+    """The training options under a mesh (model parallel, FSDP, sharded
+    steps, restores and distillation) wait for the training half of ROADMAP
+    queue 1, item 7 (parallelism) and say so, before any work."""
+    from qasr_ijcnlp_tpu_torch.cli import train_classical_whisper_asr
+    from qasr_ijcnlp_tpu_torch.train import checkpoint as tck, distill as tdistill
+    from qasr_ijcnlp_tpu_torch.train import step as tstep
 
     calls = [
-        lambda: evaluate_pretrained_whisper.main(["--data_parallel", "--device", "cpu"]),
+        lambda: tdistill.distill_loss_fn(LF_DIMS, LF_DIMS, mesh=object()),
         lambda: train_classical_whisper_asr.main(["--model_parallel", "2", "--device", "cpu"]),
         lambda: train_classical_whisper_asr.main(["--fsdp", "--device", "cpu"]),
         lambda: loops.train_token_asr(None, LF_DIMS, None, [], None, mesh=object()),

@@ -1279,3 +1279,46 @@ def test_kernels_artifact_token_exact_on_card(cuda_dev, tmp_path):
     assert got == live and got["attn"] == dims.n_audio_layer and got["mel"] == 1
     assert [list(t) for t in export.decode_artifact_tokens(out[0], out[1], meta)] == \
         [list(r.tokens) for r in want]
+
+
+# K4 head-sharded: the tensor-parallel trunk's (D, D / tp) Q/K/V columns
+# (parallel.shard_params' cut), at every Dl the JAX gate admits on the
+# driven geometries: medium at tp 2 and 4, large-v3 at tp 2, small with 6
+# heads of 128 at tp 2.
+HEAD_SHARDS = [(1024, 16, 2), (1024, 16, 4), (1280, 20, 2), (768, 6, 2)]
+
+
+def _head_shard(blk, tp, m):
+    """Rank m of tp's Q/K/V columns of ``blk``'s attention."""
+    from types import SimpleNamespace as NS
+
+    n = blk.attn.query.weight.shape[0] // tp
+    cut = lambda lin: NS(weight=lin.weight[m * n:(m + 1) * n].contiguous(),
+                         bias=None if lin.bias is None else lin.bias[m * n:(m + 1) * n].clone())
+    return NS(query=cut(blk.attn.query), key=cut(blk.attn.key), value=cut(blk.attn.value))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("D,H,tp", HEAD_SHARDS, ids=["dl512", "dl256", "dl640", "dl384"])
+def test_attention_kernel_head_sharded(cuda_dev, D, H, tp, dtype):
+    """Each rank's launch against its plain version, and the tp shards side
+    by side equal to the full-width launch (Dl = D) bit for bit: a head's
+    projection columns and its attention never depend on another head."""
+    torch.manual_seed(5)
+    blk = ResidualAttentionBlock(D, H).to(cuda_dev).requires_grad_(False)
+    T, Tp, nh = 1500, 1536, H // tp
+    x = torch.randn(2, Tp, D, generator=torch.Generator(device="cuda").manual_seed(6),
+                    device="cuda")
+    x[:, T:] = x[:, T:T + 1]
+    x = x.to(dtype)
+    full = encoder_block.fused_attention_ln(x, blk.attn_ln, blk.attn, H, T)
+    parts = []
+    for m in range(tp):
+        attn = _head_shard(blk, tp, m)
+        before = encoder_block.attn_launches
+        k = encoder_block.fused_attention_ln(x, blk.attn_ln, attn, nh, T)
+        assert encoder_block.attn_launches == before + 1 and k.shape == (2, Tp, D // tp)
+        _close(k, encoder_block._plain_attn_ln(x, blk.attn_ln, attn, nh, T),
+               lambda: encoder_block._plain_attn_ln(x.float(), blk.attn_ln, attn, nh, T))
+        parts.append(k)
+    assert torch.equal(torch.cat(parts, -1), full)

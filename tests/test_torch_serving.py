@@ -20,6 +20,7 @@ import urllib.error
 import urllib.request
 import wave
 from dataclasses import replace
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -29,7 +30,7 @@ from qasr_ijcnlp_tpu import serving as jserving
 from qasr_ijcnlp_tpu.decode import DecodingOptions as JOptions
 from qasr_ijcnlp_tpu.streaming import StreamingTranscriber as JStreaming
 import qasr_ijcnlp_tpu_torch as port
-from qasr_ijcnlp_tpu_torch import serving
+from qasr_ijcnlp_tpu_torch import parallel, serving
 from qasr_ijcnlp_tpu_torch.streaming import StreamingTranscriber
 from tests.torch_port_common import lf_models, one_torch_thread, speechlike_pcm  # noqa: F401
 
@@ -249,11 +250,12 @@ def test_main_device_and_refusals(lf):
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="no CUDA device"):
             serving.main(["--device", "auto"])
-    with pytest.raises(NotImplementedError, match="Parallelism"):
-        serving.main(["--device", "cpu", "--data_parallel"])
     _, tm = lf
-    with pytest.raises(NotImplementedError, match="Parallelism"):
-        serving.BatchingTranscriber(tm, mesh=object())
+    with pytest.raises(ValueError, match="data-only mesh"):
+        serving.serve(tm, mesh=SimpleNamespace(size=2, shape={"data": 1, "model": 2}))
+    one = serving.BatchingTranscriber(tm, mesh=parallel.make_mesh())  # one rank: plain
+    assert one.mesh is None and one.batch_size == 16
+    one.close()
     with pytest.raises(ValueError, match="without_timestamps"):
         StreamingTranscriber(tm, port.DecodingOptions(**OPTS))
     with pytest.raises(ValueError, match="temperature 0"):
