@@ -65,7 +65,9 @@ and the opt-in fused step) and its grouped decodes (beam search, best-of):
    proj over 12,288 rows) beside ``torch.matmul`` in f32 and bf16; then a batch of 8 end to
    end in f32 and bf16 (wall time and stages), where the stem, K4 and the
    finish must launch and K8 never;
-5. **large-v3** (32 + 32 layers, D 1280, 128 mels, vocab 51866, full depth):
+5. **large-v3** (D 1280, 128 mels, vocab 51866; the kernel rows at full
+   width, the end-to-end paths at LARGE_PATH_LAYERS of its 32 + 32 layers,
+   a depth cut that keeps the whole run within its time limit):
    K1 at 128 mels, the stem at D 1280, K8 on (8, 1536, 1280) with 20 heads
    and t_real 1500 (timed beside ``scaled_dot_product_attention`` as its
    library yardstick), and K9 at B=8, 20 heads, for one query row (a step)
@@ -73,17 +75,17 @@ and the opt-in fused step) and its grouped decodes (beam search, best-of):
    K9 row timed cold (rotating over >= 128 MB of distinct caches, as the
    decode loop reads each layer's cache from device memory: ``ms``) and
    hot (one cache in L2: ``hot_ms``); then a
-   batch of 8 end to end, where K1 and the stem must launch, K8 exactly 32
-   times, K4 and the finish never; then the same batch with ``kv_int8`` in
-   f32 and bf16 (K9 exactly 32 x 64 times), request 0 teacher-forced
+   batch of 8 end to end, where K1 and the stem must launch, K8 exactly
+   once a layer, K4 and the finish never; then the same batch with
+   ``kv_int8`` in f32 and bf16 (K9 exactly once a layer a token), request 0 teacher-forced
    against the CPU plain int8 path, int8 vs fp token agreement and
    avg_logprob gap, times and stages; then beam_size 5 (40 hypothesis rows
-   over a cross cache of 8), fp and int8 (K9 at G=5 exactly 32 x 64 times,
+   over a cross cache of 8), fp and int8 (K9 at G=5 once a layer a token,
    K10 never), request 0 against the CPU plain path's beam (equal, or a
    near tie where they diverge), int8 vs fp avg_logprob gap, bf16, times
    and stages; then the sequential long-form loop with word timestamps on
    a 55-s file (three windows, the last partial) in f32 and bf16 (K8
-   exactly 32 times per encoder pass), every f32 window teacher-forced
+   exactly once a layer per encoder pass), every f32 window teacher-forced
    against the CPU plain path under its own options (prompt, timestamp
    rules) and window 0's alignment matrix, words and times held against
    the CPU's.
@@ -208,8 +210,16 @@ and the opt-in fused step) and its grouped decodes (beam search, best-of):
    single-rank form; tiny greedy decode of 16 requests data-parallel over 2
    ranks with the fused step on (K10 never), token-exact against the
    single-rank decode; the data-parallel engine (8 slots over 2 ranks, 12
-   requests) token-exact per request against the single-rank engine.  The
-   ranks share one card: their times are not scaling figures;
+   requests) token-exact per request against the single-rank engine; then
+   sharded training: the single-rank references in this process before
+   the ranks take the card (the tiny trainer CLI, two medium steps), the
+   tiny trainer CLI at full width and depth with ``--model_parallel 2``
+   over (2, 2) and ``--fsdp`` over (4, 1) (2 epochs and a resumed third:
+   each step's loss, its exact launches), and medium at full width and
+   depth, B=2 f32 remat, two steps under TP (1, 2) and FSDP (4, 1) (the
+   losses, this rank's slice of every parameter, ms a step, peak memory,
+   parameter-plus-moment bytes).  The ranks share one card: their times
+   are not scaling figures;
 16. prints the long-form, service, quantum, training, export, distillation and
    parallel stages as JSON lines, the whole script's seconds, the per-kernel JSON line (every ported kernel with its
    launches, times, error and bound), the card line, then ``{"ok": true,
@@ -273,6 +283,10 @@ INT8_LOGPROB_GAP = 0.15
 PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12, "tf32x3": 495e12 / 3}
 HBM_BYTES_PER_S = 3.35e12
 B_KERNEL = 8
+# The large-v3 end-to-end paths' depth (of 32 + 32): its kernel rows run at
+# full width whatever the depth; the whole run must end within 1,200 s on a
+# slow host too.
+LARGE_PATH_LAYERS = 4
 # ``--attn`` records a digest of every kernel output (two trees compared
 # bit for bit).
 DIGESTS = False
@@ -4301,6 +4315,7 @@ def parallel_phases(port, dev, smi):
     kres = k4_sharded_phase(dev)
     start_parallel()
     work = BACKGROUND["par_dir"]
+    train_references(dev, work, smi)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     open(os.path.join(work, "go"), "w").close()
@@ -4320,6 +4335,12 @@ def parallel_phases(port, dev, smi):
         by_path[f"{label} per rank"] = runs[0]["launches"]
     if outs[0]["dp"]["tokens_digest"] != outs[1]["dp"]["tokens_digest"]:
         raise AssertionError("data-parallel decode: the ranks returned different lists")
+    for label in ("tp (2,2)", "fsdp (4,1)"):
+        by_path[f"train cli {label} per rank, a step"] = outs[0]["train"]["cli"][label][
+            "launches_per_step"]
+    for label in ("tp (1,2)", "fsdp (4,1)"):
+        by_path[f"train medium {label} per rank, a step"] = outs[0]["train"][
+            f"medium {label}"]["launches_per_step"]
     PARALLEL_STAGES.update({"ranks": outs, "seconds": time.perf_counter() - t0})
     log(json.dumps({"parallel": {k: v for k, v in outs[0].items()}}, default=str))
     log(f"parallel phases: {time.perf_counter() - t0:.1f} s ({smi})")
@@ -4359,6 +4380,7 @@ def parallel_rank(rank, work):
             out["trunks"] = trunk_rank_cases(rank, dev)
         out["dp"] = dp_rank_case(port, rank, dev)
         out["engine"] = engine_rank_case(port, rank, dev)
+        out["train"] = train_rank_cases(rank, dev, work)
         with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
             json.dump(out, f, default=str)
         dist.barrier()
@@ -4571,6 +4593,319 @@ def engine_rank_case(port, rank, dev, n=12):
     return {"ms": ms, "admit_calls": engine.admit_calls, "step_calls": engine.step_calls}
 
 
+# == sharded training (--parallel): the trainer CLI and medium steps ==============
+# (a) the tiny token trainer CLI at full width and depth on the four ranks,
+# --model_parallel 2 ((2, 2)) and --fsdp ((4, 1)), 2 epochs over TRAIN_ITEMS
+# synthetic items at TRAIN_BATCH, then resumed from its epoch-1 state for a
+# third; (b) medium at full width and depth, MEDIUM_TRAIN_B rows in f32 with
+# remat, MEDIUM_TRAIN_STEPS steps of make_sharded_train_step under TP over
+# ranks 0 and 1 ((1, 2)) and FSDP over the four ((4, 1)).  Both against the
+# single-rank trainer in this process, which runs first and frees the card.
+MEDIUM_TRAIN_B, MEDIUM_TRAIN_STEPS, MEDIUM_TRAIN_TOKENS = 2, 2, 24
+# Against the single-rank step: the loss within 2e-4 relative, every
+# parameter within 5e-4 (JAX's test_sharded_training_at_real_widths).
+SHARDED_LOSS_RTOL, SHARDED_PARAM_ATOL = 2e-4, 5e-4
+
+
+def recording_steps(record):
+    """``train.loops.make_train_step`` (the token trainer's step) made to
+    append each step's loss, skip flag and launches to ``record``; returns
+    the function that undoes it."""
+    from qasr_ijcnlp_tpu_torch.train import loops
+
+    real = loops.make_train_step
+
+    def make(loss_fn, tx, **kw):
+        inner = real(loss_fn, tx, **kw)
+
+        def step(state, *batch):
+            cs = zero_counters()
+            state, m = inner(state, *batch)
+            launches = read_counters(cs)
+            del launches["mel"]  # the loader's thread makes the next items' mel meanwhile
+            record.append({"loss": float(m["loss"]), "skipped": int(m["skipped"]),
+                           "launches": launches})
+            return state, m
+        return step
+
+    loops.make_train_step = make
+    return lambda: setattr(loops, "make_train_step", real)
+
+
+def trainer_cli_runs(run_dir, flags):
+    """The token trainer CLI (tiny, --device cuda) in ``run_dir``: 2 epochs,
+    then resumed from the epoch-1 state for a third; each run's per-step
+    records and the resumed run's step count."""
+    import os
+
+    from qasr_ijcnlp_tpu_torch.cli import train_classical_whisper_asr as tcli
+
+    argv = ["--model_size", "tiny", "--epochs", "2", "--batch_size", str(TRAIN_BATCH),
+            "--max_samples", str(TRAIN_ITEMS), "--save_every", "1", "--warmup_epochs", "1",
+            "--lr", str(STEP_LR), "--device", "cuda", "--checkpoint_dir", "ck", *flags]
+    here = os.getcwd()
+    os.makedirs(run_dir, exist_ok=True)
+    os.chdir(run_dir)
+    out = {}
+    try:
+        for label, extra in (("2 epochs", []), ("resumed", ["--epochs", "3", "--resume_state",
+                                                           "ck/state_epoch_1"])):
+            record = []
+            undo = recording_steps(record)
+            try:
+                res = tcli.main(argv + extra)
+            finally:
+                undo()
+            if torch.distributed.is_initialized():
+                torch.distributed.barrier()  # the leader has written the history
+            out[label] = {"steps": record, "step": int(res["state"].step)}
+        out["epochs"] = _history_ok("classical_whisper_asr_training_history.json",
+                                    f"cli {flags}", [2])
+    finally:
+        os.chdir(here)
+    return out
+
+
+def medium_train_batch(dev, rows):
+    """The medium steps' batch: MEDIUM_TRAIN_B rows of mel and tokens (-100
+    padded, counts differing per row), padded with rows whose tokens are all
+    -100 (no target: the loss and gradient of the real rows alone) up to
+    ``rows``."""
+    from qasr_ijcnlp_tpu_torch.models.dims import dims_for
+
+    dims = dims_for("medium")
+    rng = np.random.default_rng(SEED + 96)
+    B = MEDIUM_TRAIN_B
+    mel = np.zeros((rows, dims.n_mels, 2 * dims.n_audio_ctx), np.float32)
+    mel[:B] = rng.standard_normal((B, dims.n_mels, 2 * dims.n_audio_ctx)) * 0.5
+    mel[B:] = mel[B - 1]
+    tokens = np.full((rows, MEDIUM_TRAIN_TOKENS), -100, np.int64)
+    tokens[:B] = rng.integers(0, 50257, (B, MEDIUM_TRAIN_TOKENS))
+    tokens[1, MEDIUM_TRAIN_TOKENS // 2:] = -100
+    return torch.from_numpy(mel).to(dev), torch.from_numpy(tokens).to(dev)
+
+
+def state_bytes(state):
+    """Bytes of this rank's parameters and both Adam moments."""
+    from qasr_ijcnlp_tpu_torch.train.step import as_module
+
+    ps = list(as_module(state.params).parameters())
+    return sum(t.numel() * t.element_size()
+               for t in ps + state.opt_state["mu"] + state.opt_state["nu"])
+
+
+def medium_module(dev, work):
+    """The medium model on the card from the initial weights this process
+    wrote (memory-mapped, the same on every rank)."""
+    import os
+
+    from qasr_ijcnlp_tpu_torch.models.dims import dims_for
+    from qasr_ijcnlp_tpu_torch.models.whisper import Whisper
+
+    with torch.device("meta"):
+        module = Whisper(dims_for("medium"))
+    sd = torch.load(os.path.join(work, "medium_init.pt"), mmap=True)
+    module.load_state_dict(sd, assign=True)
+    return module.to(dev).requires_grad_(True)
+
+
+def medium_steps(module, state, step, mel, tokens):
+    """MEDIUM_TRAIN_STEPS steps: per step the loss, its launches and ms."""
+    record = []
+    for _ in range(MEDIUM_TRAIN_STEPS):
+        cs = zero_counters()
+        t0 = time.perf_counter()
+        state, m = step(state, mel, tokens)
+        launches = read_counters(cs)  # synchronizes
+        record.append({"loss": float(m["loss"]), "skipped": int(m["skipped"]),
+                       "ms": (time.perf_counter() - t0) * 1000, "launches": launches})
+    return state, record
+
+
+def train_references(dev, work, smi):
+    """The single-rank references of the ranks' training, in this process
+    before the ranks have the card: the tiny trainer CLI's runs, then
+    medium's steps (its initial and final weights written to ``work`` for
+    the ranks, the card freed after)."""
+    import os
+
+    from qasr_ijcnlp_tpu_torch.models import whisper as cmodel
+    from qasr_ijcnlp_tpu_torch.models.dims import dims_for
+    from qasr_ijcnlp_tpu_torch.train import step as st
+
+    t0 = time.perf_counter()
+    ref = {"cli": trainer_cli_runs(os.path.join(work, "cli_single"), [])}
+    L = dims_for("tiny").n_audio_layer
+    for part in ("2 epochs", "resumed"):
+        for i, s in enumerate(ref["cli"][part]["steps"]):
+            expect_launches(f"cli single rank {part} step {i}", s["launches"],
+                            {"stem": 1, "attn": L, "finish": L})
+    dims = dims_for("medium")
+    torch.save(cmodel.init_params(torch.Generator().manual_seed(SEED + 95), dims),
+               os.path.join(work, "medium_init.pt"))
+    cmodel.set_remat(True)
+    try:
+        module = medium_module(dev, work)
+        tx = st.make_optimizer(STEP_LR)
+        state = st.init_state(module, tx)
+        mel, tokens = medium_train_batch(dev, MEDIUM_TRAIN_B)
+        torch.cuda.reset_peak_memory_stats()
+        state, record = medium_steps(module, state,
+                                     st.make_train_step(st.whisper_loss_fn(dims), tx),
+                                     mel, tokens)
+    finally:
+        cmodel.set_remat(False)
+    L = dims.n_audio_layer
+    for i, s in enumerate(record):
+        expect_launches(f"medium single rank step {i}", s["launches"],
+                        {"stem": 1, "attn": 2 * L, "finish": 2 * L})
+    ref["medium"] = {"steps": record, "state_bytes": state_bytes(state),
+                     "peak_bytes": torch.cuda.max_memory_allocated()}
+    torch.save({k: v.cpu() for k, v in module.state_dict().items()},
+               os.path.join(work, "medium_final.pt"))
+    del module, state, mel, tokens
+    torch.cuda.empty_cache()
+    with open(os.path.join(work, "train_ref.json"), "w") as f:
+        json.dump(ref, f)
+    log(f"single-rank training references: tiny CLI losses "
+        f"{[round(s['loss'], 5) for s in ref['cli']['2 epochs']['steps']]}; medium losses "
+        f"{[s['loss'] for s in ref['medium']['steps']]}, ms "
+        f"{[round(s['ms'], 1) for s in ref['medium']['steps']]}, state "
+        f"{ref['medium']['state_bytes'] / 1e9:.2f} GB, peak "
+        f"{ref['medium']['peak_bytes'] / 1e9:.2f} GB; {time.perf_counter() - t0:.1f} s "
+        f"({smi})")
+
+
+def _same_losses(label, got, want):
+    g, w = [s["loss"] for s in got], [s["loss"] for s in want]
+    if len(g) != len(w) or not np.allclose(g, w, rtol=SHARDED_LOSS_RTOL, atol=0):
+        raise AssertionError(f"{label}: per-step losses {g} against the single rank's {w}")
+    if any(s["skipped"] for s in got):
+        raise AssertionError(f"{label}: a step was skipped")
+
+
+def cli_rank_case(rank, dev, work, ref):
+    """(a) on this rank: the trainer CLI under --model_parallel 2 and --fsdp,
+    each step's loss against the single-rank trainer's, its exact launches
+    (the stem once; K4 once a layer where the trunk runs it: every block
+    under FSDP, the TP trunk's head shards where ``tp_uses_kernel``; the
+    finish K5 once a layer under FSDP, never under TP), and the resume."""
+    import os
+
+    from qasr_ijcnlp_tpu_torch.models.dims import tiny_dims
+    from qasr_ijcnlp_tpu_torch.parallel import sharded
+
+    dims = tiny_dims()
+    L = dims.n_audio_layer
+    res = {}
+    for label, flags in (("tp (2,2)", ["--model_parallel", "2"]), ("fsdp (4,1)", ["--fsdp"])):
+        t0 = time.perf_counter()
+        runs = trainer_cli_runs(os.path.join(work, "cli_" + label.split()[0]), flags)
+        if label.startswith("tp"):
+            shape = SimpleNamespace(shape={"data": 2, "model": 2})
+            k4 = L if sharded.tp_uses_kernel(dims, shape, dims.n_audio_ctx) else 0
+            expect = {"stem": 1, "attn": k4}
+        else:
+            expect = {"stem": 1, "attn": L, "finish": L}
+        for part in ("2 epochs", "resumed"):
+            _same_losses(f"cli {label} rank {rank} {part}", runs[part]["steps"],
+                         ref[part]["steps"])
+            for i, s in enumerate(runs[part]["steps"]):
+                expect_launches(f"cli {label} rank {rank} {part} step {i}", s["launches"],
+                                expect)
+        if runs["resumed"]["step"] != ref["resumed"]["step"]:
+            raise AssertionError(f"cli {label}: resumed at step {runs['resumed']['step']}")
+        res[label] = {"losses": [s["loss"] for s in runs["2 epochs"]["steps"]],
+                      "resumed_losses": [s["loss"] for s in runs["resumed"]["steps"]],
+                      "launches_per_step": runs["2 epochs"]["steps"][0]["launches"],
+                      "seconds": time.perf_counter() - t0}
+        log(f"cli {label} rank {rank}: per-step losses {res[label]['losses']} (single rank "
+            f"{[s['loss'] for s in ref['2 epochs']['steps']]}), resumed "
+            f"{res[label]['resumed_losses']}, launches a step "
+            f"{json.dumps(res[label]['launches_per_step'])}, {res[label]['seconds']:.1f} s")
+    return res
+
+
+def medium_rank_case(label, rank, dev, work, ref):
+    """(b) on this rank: medium's steps under TP (1, 2) on ranks 0 and 1 or
+    FSDP (4, 1): losses and this rank's slice of every updated parameter
+    against the single-rank steps, launches a step (the stem once; K4
+    twice a layer under remat; the finish K6 twice a layer under FSDP),
+    ms a step, peak memory and this rank's parameter-plus-moment bytes."""
+    import os
+
+    from qasr_ijcnlp_tpu_torch import parallel
+    from qasr_ijcnlp_tpu_torch.models import whisper as cmodel
+    from qasr_ijcnlp_tpu_torch.models.dims import dims_for
+    from qasr_ijcnlp_tpu_torch.train import step as st
+
+    fsdp = label.startswith("fsdp")
+    mesh = rank_mesh(4, 1) if fsdp else rank_mesh(2, 2)
+    if not mesh.member:
+        return None
+    dims = dims_for("medium")
+    L = dims.n_audio_layer
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    module = medium_module(dev, work)
+    tx = st.make_optimizer(STEP_LR)
+    state = st.shard_state(st.init_state(module, tx), mesh, fsdp=fsdp)
+    nbytes = state_bytes(state)
+    mel, tokens = medium_train_batch(dev, parallel.round_up_to_mesh(MEDIUM_TRAIN_B, mesh))
+    cmodel.set_remat(True)
+    try:
+        state, record = medium_steps(module, state, st.make_sharded_train_step(
+            st.whisper_loss_fn(dims), tx, mesh), mel, tokens)
+    finally:
+        cmodel.set_remat(False)
+    peak = torch.cuda.max_memory_allocated()
+    _same_losses(f"medium {label} rank {rank}", record, ref["steps"])
+    expect = {"stem": 1, "attn": 2 * L, **({"finish": 2 * L} if fsdp else {})}
+    for i, s in enumerate(record):
+        expect_launches(f"medium {label} rank {rank} step {i}", s["launches"], expect)
+    final = torch.load(os.path.join(work, "medium_final.pt"), mmap=True)
+    layout = parallel.param_layout(module)
+    err = 0.0
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            want = final[name]
+            if name in layout:
+                want = parallel.local_slice(want, layout[name], mesh)
+            err = max(err, float((p - want.to(dev)).abs().max()))
+    if not err <= SHARDED_PARAM_ATOL:
+        raise AssertionError(f"medium {label} rank {rank}: parameters {err:.3e} from the "
+                             f"single rank's (tol {SHARDED_PARAM_ATOL})")
+    share = nbytes / ref["state_bytes"]
+    if fsdp and not 0.24 <= share <= 0.27:
+        raise AssertionError(f"medium {label} rank {rank}: parameters and moments "
+                             f"{nbytes} B, {share:.3f} of the single rank's")
+    res = {"losses": [s["loss"] for s in record], "ms": [s["ms"] for s in record],
+           "launches_per_step": record[0]["launches"], "max_abs_err": err,
+           "state_bytes": nbytes, "state_share": share, "peak_bytes": peak}
+    log(f"medium {label} rank {rank}: losses {res['losses']} (single rank "
+        f"{[s['loss'] for s in ref['steps']]}), params max_abs_err {err:.3e}, ms a step "
+        f"{[round(m, 1) for m in res['ms']]}, launches a step "
+        f"{json.dumps(res['launches_per_step'])}, state {nbytes / 1e9:.2f} GB "
+        f"({share:.3f} of one rank's), peak {peak / 1e9:.2f} GB")
+    del module, state, mel, tokens
+    torch.cuda.empty_cache()
+    return res
+
+
+def train_rank_cases(rank, dev, work):
+    """The sharded-training cases of this rank ((a) then (b))."""
+    import os
+
+    with open(os.path.join(work, "train_ref.json")) as f:
+        ref = json.load(f)
+    t0 = time.perf_counter()
+    res = {"cli": cli_rank_case(rank, dev, work, ref["cli"])}
+    for label in ("tp (1,2)", "fsdp (4,1)"):
+        res[f"medium {label}"] = medium_rank_case(label, rank, dev, work, ref["medium"])
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
 def parallel_run(port, dev, smi):
     """``python3 chip_smoke.py --parallel``: K4 head-sharded alone and the
     ranks' phases; the kernel rows of K4's head-sharded widths as one JSON
@@ -4670,7 +5005,9 @@ def kernel_table(kres, by_path):
         entry = {"name": name, "tpu_kernel": kid, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": by_path[path][counter], "path": path,
                  "shape": shape,
-                 "launches_by_path": {p: c[counter] for p, c in by_path.items()}}
+                 # (a trainer's step leaves K1 out: its loader makes mel in a thread)
+                 "launches_by_path": {p: c[counter] for p, c in by_path.items()
+                                      if counter in c}}
         first = "f32" if "f32" in kres[kid] else "bf16"  # K11 is bf16 only
         entry.update(kres[kid][first])
         if first == "f32" and "bf16" in kres[kid]:
@@ -4960,7 +5297,9 @@ def main():
     by_path.update(export_phases(port, dev, smi))
     by_path.update(distill_phases(port, dev, smi))
     # == medium and large-v3, full width and depth ==================================
-    medium, large = dims_for("medium"), dims_for("large-v3")
+    medium = dims_for("medium")
+    large = replace(dims_for("large-v3"), n_audio_layer=LARGE_PATH_LAYERS,
+                    n_text_layer=LARGE_PATH_LAYERS)
     mres, mpaths = family_path(port, "medium", medium, dev, smi, FUSED_EXPECT,
                                medium_kernel_phase, services=medium_services)
     lres, lpaths = family_path(port, "large-v3", large, dev, smi, large_expect(large),

@@ -6,12 +6,18 @@ tokenizer-space teacher forcing with -100 padding, AdamW(0.9, 0.98, 1e-6)
 + linear-warmup-cosine per step, best-WER checkpoints (the JAX package's
 layout), full train states every ``--save_every`` epochs, ``--resume_state``,
 ``--grad_accum`` and ``--remat``; on ``--device`` (the card unless ``cpu``
-is asked for).  ``--model_parallel`` and ``--fsdp`` wait for ROADMAP queue
-1, item 7 and raise.
+is asked for).  ``--model_parallel N`` and ``--fsdp`` train on a (data,
+model) mesh of every rank of the job (``parallel.initialize_distributed``
+reads torchrun's environment; each rank takes ``parallel.rank_device``):
+N-way tensor parallelism, and with ``--fsdp`` the parameters and moments
+sliced along ``data`` (ZeRO-3); in one process either runs on a (1, 1)
+mesh.  Only the mesh's leader writes the history and the checkpoints.
 
     python -m qasr_ijcnlp_tpu_torch.cli.train_classical_whisper_asr \\
         --model_size tiny --epochs 2 --batch_size 8 --max_samples 16 \\
         [--grad_accum 2] [--remat] [--device cpu]
+    torchrun --nproc_per_node 4 -m qasr_ijcnlp_tpu_torch.cli.train_classical_whisper_asr \\
+        --model_size tiny --model_parallel 2 [--fsdp] ...
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import argparse
 
 import torch
 
+from .. import parallel
 from ..data import TokenASRView, load_librispeech
 from ..data.loader import DataLoader
 from ..models import whisper as cmodel
@@ -29,10 +36,6 @@ from ..reporting import print_training_header
 from ..tokenizer import get_tokenizer
 from ..train.loops import train_token_asr
 from . import resolve_device
-
-_PARALLEL = ("the training half of ROADMAP queue 1, item 7 (parallelism), the next slice "
-             "of the port")
-
 
 def build_parser():
     p = argparse.ArgumentParser(description=__doc__,
@@ -60,16 +63,25 @@ def build_parser():
                    help="Rematerialize transformer blocks in backward (less device "
                         "memory, one more forward of each block)")
     p.add_argument("--model_parallel", type=int, default=0,
-                   help=f"Tensor-parallel degree: {_PARALLEL}")
-    p.add_argument("--fsdp", action="store_true", help=f"ZeRO-3 sharding: {_PARALLEL}")
+                   help="Train on a (data, model) mesh of every rank of the job with this "
+                        "tensor-parallel degree (0: one rank, no mesh); degraded to a "
+                        "divisor of the rank count")
+    p.add_argument("--fsdp", action="store_true",
+                   help="ZeRO-3: slice the parameters and Adam moments along the data axis "
+                        "(implies a mesh; combine with --model_parallel for TP x FSDP)")
     return p
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.model_parallel or args.fsdp:
-        raise NotImplementedError(f"--model_parallel / --fsdp: {_PARALLEL}")
     device = resolve_device(args.device)
+    mesh = None
+    if args.model_parallel or args.fsdp:
+        parallel.initialize_distributed()
+        device = parallel.rank_device(device)
+        mesh = parallel.make_mesh(model_parallel=args.model_parallel or 1)
+        print(f"mesh: ({mesh.shape['data']}, {mesh.shape['model']}) (data, model)"
+              + (" + fsdp" if args.fsdp else ""))
 
     dims = dims_for(args.model_size)
     # "From scratch": random init with the official architecture.
@@ -95,6 +107,7 @@ def main(argv=None):
             learning_rate=args.lr, warmup_steps=args.warmup_epochs * steps_per_epoch,
             checkpoint_dir=args.checkpoint_dir,
             history_path="classical_whisper_asr_training_history.json",
+            mesh=mesh, fsdp=args.fsdp,
             grad_accum=args.grad_accum, save_state_every=args.save_every,
             resume_state=args.resume_state,
         )

@@ -17,9 +17,8 @@ nn.Linear layout ((E, F, D) and (E, F) for fc, (E, D, F) and (E, D) for
 proj).  ``models.convert`` maps them to the JAX package's tree
 (``mlp.router.w``, ``mlp.experts.{fc,proj}.{w,b}`` stacked (L, E, ...)).
 The decoder is the dense one.  The encoder's forward is
-:func:`moe_encoder_apply`; :func:`moe_whisper_loss_fn` is the loss forward
-(its training under a mesh comes with the training half of the port's
-parallelism).
+:func:`moe_encoder_apply`; :func:`moe_whisper_loss_fn` is the loss, which
+``train.step.make_sharded_train_step`` trains expert-parallel.
 """
 
 from __future__ import annotations
@@ -33,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import gelu, layer_norm, round_up
+from ..parallel import fsdp_view
 from . import whisper as w
 from .dims import ModelDimensions
 
@@ -229,6 +229,7 @@ def moe_trunk(encoder: MoEAudioEncoder, x, dims: ModelDimensions, moe: MoEConfig
              (torch.arange(x.shape[1], device=x.device) < T)[None].expand(x.shape[0], -1))
 
     def layer(xc, bp):
+        bp = fsdp_view(bp)
         xc = xc + w._self_attn(bp.attn, layer_norm(xc, bp.attn_ln), n_head, t_real=T)
         y, aux = moe_mlp(bp.mlp, layer_norm(xc, bp.mlp_ln), moe, valid=valid)
         return xc + y, aux
@@ -253,6 +254,7 @@ def moe_encoder_apply(encoder: MoEAudioEncoder, mel, dims: ModelDimensions, moe:
     T = dims.n_audio_ctx
     if mel.shape[-1] != 2 * T:
         raise ValueError(f"expected {2 * T} mel frames, got {mel.shape[-1]}")
+    encoder = fsdp_view(encoder, skip=("blocks",))
     stem = fused_conv_stem if w._kernels_on() else _plain_stem
     x = stem(encoder, mel, round_up(T, 128), compute_dtype)[:, :T]
     if mesh is not None:
@@ -260,6 +262,11 @@ def moe_encoder_apply(encoder: MoEAudioEncoder, mel, dims: ModelDimensions, moe:
 
         if sharded.ep_trunk_applicable(dims, moe, mesh, x.shape[0], T):
             return sharded.ep_trunk(encoder, x, dims, moe, T, mesh)
+        from ..parallel import DATA_AXIS, axis_size, psum
+
+        x, aux = moe_trunk(encoder, x, dims, moe)
+        # the mean of the data ranks' own losses, as the EP trunk's
+        return x, psum(aux, mesh, DATA_AXIS) / axis_size(mesh, DATA_AXIS)
     return moe_trunk(encoder, x, dims, moe)
 
 
@@ -273,8 +280,11 @@ def moe_whisper_loss_fn(dims: ModelDimensions, moe: MoEConfig, compute_dtype="fl
                                                                               compute_dtype)
 
     def loss_fn(module, mel, tokens):
-        xa, aux = moe_encoder_apply(module.encoder, mel, dims, moe, dt, mesh=mesh)
+        from ..parallel import current_mesh
+
+        m = mesh if mesh is not None else current_mesh()
+        xa, aux = moe_encoder_apply(module.encoder, mel, dims, moe, dt, mesh=m)
         logits = w.decoder_apply(module.decoder, tokens.clamp_min(0), xa, dims, dt)
-        return shifted_token_loss(logits, tokens) + moe.aux_weight * aux
+        return shifted_token_loss(logits, tokens, mesh=m) + moe.aux_weight * aux
 
     return loss_fn

@@ -346,6 +346,9 @@ def encoder_apply(encoder: AudioEncoder, mel, dims: ModelDimensions,
     # convolutions otherwise (large-v3).  The port has no plain stem on the
     # card's path, so every size runs the same stem kernel, which takes any
     # D and n_mels and emits the trunk input already padded to Tp.
+    from ..parallel import fsdp_view
+
+    encoder = fsdp_view(encoder, skip=("blocks",))
     stem = fused_conv_stem if _kernels_on() else _plain_stem
     x = stem(encoder, mel, round_up(T, 128), compute_dtype)
     return transformer_trunk(encoder, x, dims, t_real=T, mesh=mesh)
@@ -401,8 +404,18 @@ def transformer_trunk(encoder: AudioEncoder, x, dims: ModelDimensions,
     block = (_unfused_block if not fused else fused_encoder_block if _kernels_on()
              else _plain_fused_block)
     for bp in encoder.blocks:
-        x = _maybe_remat(block, x, bp, n_head, T)
+        x = _maybe_remat(_gathered(block), x, bp, n_head, T)
     return layer_norm(x[:, :T], encoder.ln_post)
+
+
+def _gathered(block):
+    """``block`` on a view of its module with the FSDP slices gathered
+    (``parallel.fsdp_view``), inside the remat region: under remat each
+    block's gather is made again in the backward, so only one layer's whole
+    weights live at a time."""
+    from ..parallel import fsdp_view
+
+    return lambda x, bp, *args: block(x, fsdp_view(bp), *args)
 
 
 def _unfused_block(x, bp, n_head: int, t_real: int):
@@ -429,6 +442,9 @@ def decoder_apply(decoder: TextDecoder, tokens, xa, dims: ModelDimensions,
                   compute_dtype=torch.float32):
     """Teacher-forced decoder: tokens (B, T), xa (B, Ta, D) -> fp32 logits
     (B, T, vocab)."""
+    from ..parallel import fsdp_view
+
+    decoder = fsdp_view(decoder, skip=("blocks",))
     T = tokens.shape[1]
     n_head = dims.n_text_head
     x = decoder.token_embedding.weight[tokens] + decoder.positional_embedding[:T]
@@ -436,7 +452,7 @@ def decoder_apply(decoder: TextDecoder, tokens, xa, dims: ModelDimensions,
     xa = xa.to(compute_dtype)
     causal = _causal_mask(T, x.device)
     for bp in decoder.blocks:
-        x = _maybe_remat(_decoder_block, x, bp, xa, n_head, causal)
+        x = _maybe_remat(_gathered(_decoder_block), x, bp, xa, n_head, causal)
     x = layer_norm(x, decoder.ln)
     return (x @ decoder.token_embedding.weight.to(x.dtype).t()).float()
 
@@ -488,7 +504,9 @@ def forward(module: Whisper, mel, tokens, dims: ModelDimensions,
     """Full forward (reference Whisper.forward): mel (B, n_mels, 3000) and
     tokens (B, T) -> fp32 logits (B, T, vocab).  ``mesh`` routes the encoder
     through the sharded trunks (:func:`transformer_trunk`); the rows are
-    this data rank's."""
+    this data rank's.  A module with FSDP slices (``parallel.fsdp_shard``)
+    gathers each block's leaves where the block runs, under grad with a
+    reduce-scatter of their gradients."""
     xa = dispatch_encoder_apply(module.encoder, mel, dims, compute_dtype, mesh=mesh)
     return decoder_apply(module.decoder, tokens, xa, dims, compute_dtype)
 

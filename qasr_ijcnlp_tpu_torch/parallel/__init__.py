@@ -27,12 +27,20 @@ each rank fills its own slot, which is exact (every sum has one nonzero
 term).  The gloo backend takes ``all_reduce`` of CUDA tensors, so several
 ranks can share one card (NCCL refuses two ranks on one device), and the
 same code runs on the CPU, under NCCL with a card per rank, and in the
-tests.  A collective that fails raises; nothing falls back.
+tests.  A collective that fails raises; nothing falls back.  Each is an
+``autograd.Function`` with its transpose, so the sharded paths train.
+
+FSDP (ZeRO-3) slices every large leaf along ``data`` (:func:`fsdp_shard`,
+the leaves of ``param_specs(fsdp=True)``) and gathers a module's slices
+where it is used (:func:`fsdp_view`), into a fresh view whose backward
+reduce-scatters the gradients.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
+import threading
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -146,6 +154,11 @@ class Mesh:
         call on every rank, like the constructor."""
         return Mesh(self.ranks, self.rank)
 
+    def __deepcopy__(self, memo):
+        # process groups cannot be copied: a copy of a sharded module keeps
+        # the mesh it was sliced for
+        return self
+
     def __repr__(self):
         return f"Mesh(shape={self.shape}, rank={self.rank})"
 
@@ -167,60 +180,220 @@ def make_mesh(model_parallel: int = 1, group=None) -> Mesh:
     return Mesh(np.asarray(ranks).reshape(n_data, n_model), dist.get_rank())
 
 
+_ACTIVE = threading.local()
+
+
+@contextlib.contextmanager
+def use_mesh(mesh: Optional[Mesh]):
+    """Within the block, :func:`current_mesh` is ``mesh``: the mesh that the
+    loss functions built without one run on (JAX's ``with mesh:``).
+    ``train.step.make_sharded_train_step`` sets it around each step."""
+    stack = _ACTIVE.__dict__.setdefault("meshes", [])
+    stack.append(mesh)
+    try:
+        yield mesh
+    finally:
+        stack.pop()
+
+
+def current_mesh() -> Optional[Mesh]:
+    """The innermost :func:`use_mesh` mesh of this thread, or None."""
+    stack = getattr(_ACTIVE, "meshes", None)
+    return stack[-1] if stack else None
+
+
 def axis_size(mesh: Optional[Mesh], axis: str) -> int:
     return 1 if mesh is None else mesh.shape.get(axis, 1)
 
 
 # ---------------------------------------------------------------------------
-# Collectives (all_reduce only; exact)
+# Collectives (all_reduce only; exact), each with its transpose
 # ---------------------------------------------------------------------------
+#
+# Every rank of a ``model`` group computes the same loss, and each data
+# rank's loss carries the global value (``train.loss``), so a collective's
+# backward is its transpose under one rule: a cotangent that arrives at a
+# value every rank holds alike is whole on each rank, and one that arrives at
+# a value a rank uses for its own share of the work (its heads, time rows,
+# stage or experts) is that rank's part and must be summed.
+# ``dist.all_reduce`` on a clone has no autograd record (PyTorch only warns
+# and takes it for the identity), so each collective here is an
+# ``autograd.Function``.
 
 
-def psum(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
-    """The sum of ``x`` over the ranks of ``axis`` (a new tensor)."""
-    if axis_size(mesh, axis) == 1:
-        return x
-    y = x.contiguous().clone()
-    dist.all_reduce(y, group=mesh.axis_group(axis))
-    return y
+def _group(mesh: Mesh, axis: Optional[str]):
+    return mesh.group if axis is None else mesh.axis_group(axis)
 
 
-def _slots(x: torch.Tensor, mesh: Mesh, axis: str, slot=None) -> torch.Tensor:
-    """(n, *x.shape): every rank's ``x`` in its slot along ``axis``."""
-    n = mesh.shape[axis]
+def _extent(mesh: Optional[Mesh], axis: Optional[str]) -> int:
+    if mesh is None:
+        return 1
+    return mesh.size if axis is None else axis_size(mesh, axis)
+
+
+def all_reduce_flat(tensors, mesh: Mesh, axis: Optional[str]) -> List[torch.Tensor]:
+    """Each tensor summed over ``axis`` (None: the whole mesh), as new
+    tensors: one ``all_reduce`` of a flat buffer per dtype (no autograd
+    record)."""
+    out: List[Optional[torch.Tensor]] = [None] * len(tensors)
+    by_dtype: Dict[Any, List[int]] = {}
+    for i, t in enumerate(tensors):
+        by_dtype.setdefault(t.dtype, []).append(i)
+    for idx in by_dtype.values():
+        flat = torch.cat([tensors[i].reshape(-1) for i in idx])
+        dist.all_reduce(flat, group=_group(mesh, axis))
+        for i, part in zip(idx, flat.split([tensors[i].numel() for i in idx])):
+            out[i] = part.view(tensors[i].shape)
+    return out
+
+
+class _Psum(torch.autograd.Function):
+    """Partial sums -> their sum on every rank.  The sum is a value every
+    rank holds alike, so each part's cotangent is the sum's, unchanged."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        y = x.contiguous().clone()
+        dist.all_reduce(y, group=_group(mesh, axis))
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+class _Gather(torch.autograd.Function):
+    """Tensors ``xs`` gathered along ``axis``: tensor i concatenated over the
+    ranks along ``dims[i]``, or passed unchanged where ``dims[i]`` is None;
+    one all-reduce of zero-filled slot buffers.  With ``reduce`` the
+    backward sums every cotangent over ``axis`` (one flat all-reduce) and
+    keeps this rank's slot of each gathered one (a reduce-scatter): the
+    results serve each rank's own share of the work.  Without it a gathered
+    tensor's cotangent is cut to this rank's slot, unsummed: the results
+    serve every rank alike."""
+
+    @staticmethod
+    def forward(ctx, mesh, axis, dims, reduce, *xs):
+        n, k = _extent(mesh, axis), mesh.index(axis)
+        ctx.mesh, ctx.axis, ctx.dims, ctx.reduce = mesh, axis, dims, reduce
+        ctx.sizes = [None if d is None else x.shape[d] for x, d in zip(xs, dims)]
+        slots = []
+        for x, d in zip(xs, dims):
+            if d is not None:
+                buf = x.new_zeros((n,) + tuple(x.shape))
+                buf[k] = x
+                slots.append(buf)
+        whole = iter(all_reduce_flat(slots, mesh, axis) if slots else ())
+        return tuple(x.view_as(x) if d is None else torch.cat(next(whole).unbind(0), d)
+                     for x, d in zip(xs, dims))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        if ctx.reduce:
+            grads = all_reduce_flat(grads, ctx.mesh, ctx.axis)
+        k = ctx.mesh.index(ctx.axis)
+        return (None, None, None, None, *(
+            g if d is None else g.narrow(d, k * s, s)
+            for g, d, s in zip(grads, ctx.dims, ctx.sizes)))
+
+
+def _exchange(x, mesh: Mesh, axis: str, shift: Optional[int]) -> torch.Tensor:
+    n, k = mesh.shape[axis], mesh.index(axis)
     buf = x.new_zeros((n,) + tuple(x.shape))
-    buf[mesh.index(axis) if slot is None else slot] = x
+    buf[k] = x
     dist.all_reduce(buf, group=mesh.axis_group(axis))
-    return buf
+    if shift is None:
+        return buf[:, k].clone()
+    return buf[(k - shift) % n].clone()
 
 
-def all_gather(x: torch.Tensor, mesh: Mesh, axis: str, dim: int = 0) -> torch.Tensor:
+class _Exchange(torch.autograd.Function):
+    """``all_to_all`` (``shift`` None) or the ring shift by ``shift`` along
+    ``axis``; the backward is the reverse exchange."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, shift):
+        ctx.mesh, ctx.axis, ctx.shift = mesh, axis, shift
+        return _exchange(x, mesh, axis, shift)
+
+    @staticmethod
+    def backward(ctx, grad):
+        back = None if ctx.shift is None else -ctx.shift
+        return _exchange(grad.contiguous(), ctx.mesh, ctx.axis, back), None, None, None
+
+
+def psum(x: torch.Tensor, mesh: Mesh, axis: Optional[str]) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``axis`` (None: every rank of the
+    mesh), a new tensor.  The backward passes the cotangent on unchanged:
+    partial sums become a value every rank holds alike (the row-parallel
+    out-projection and MLP, the pipeline's last stage, the load-balance
+    loss, the data ranks' shares of the loss)."""
+    if _extent(mesh, axis) == 1:
+        return x
+    return _Psum.apply(x, mesh, axis)
+
+
+def to_model_region(mesh: Optional[Mesh], *xs: torch.Tensor, axis: str = MODEL_AXIS):
+    """``xs`` unchanged, as a tuple, entering a region where each rank of
+    ``axis`` uses them for its own share of the work (a column-parallel
+    branch, a time shard, a pipeline stage): the backward sums their
+    cotangents over ``axis``, in one all-reduce."""
+    if _extent(mesh, axis) == 1:
+        return xs
+    return _Gather.apply(mesh, axis, (None,) * len(xs), True, *xs)
+
+
+def all_gather(x: torch.Tensor, mesh: Mesh, axis: str, dim: int = 0,
+               grad: str = "reduce_scatter") -> torch.Tensor:
     """The ranks' ``x`` of ``axis`` concatenated along ``dim`` in rank
-    order (``jax.lax.all_gather(..., tiled=True)``)."""
+    order (``jax.lax.all_gather(..., tiled=True)``).  ``grad``: where each
+    rank uses the result for its own share of the work (the sequence
+    shards' keys and values, an FSDP weight), ``"reduce_scatter"`` sums the
+    cotangent over the ranks and keeps this rank's slot; where every rank
+    uses it alike (a trunk's output), ``"slice"`` keeps this rank's slot."""
     if axis_size(mesh, axis) == 1:
         return x
-    return torch.cat(_slots(x, mesh, axis).unbind(0), dim)
+    if grad not in ("reduce_scatter", "slice"):
+        raise ValueError(f"all_gather: grad must be 'reduce_scatter' or 'slice', got {grad!r}")
+    return _Gather.apply(mesh, axis, (dim,), grad == "reduce_scatter", x)[0]
+
+
+def gather_leaves(tensors, dims, mesh: Mesh, axis: str, region: bool = False) -> list:
+    """``tensors`` gathered along ``axis`` where ``dims[i]`` names a dim, in
+    one all-reduce each way; the backward reduce-scatters their gradients.
+    With ``region`` the others enter a region (:func:`to_model_region`),
+    else they pass untouched and stay out of the collectives."""
+    tensors = list(tensors)
+    if axis_size(mesh, axis) == 1:
+        return tensors
+    pick = [i for i, d in enumerate(dims) if region or d is not None]
+    if pick:
+        outs = _Gather.apply(mesh, axis, tuple(dims[i] for i in pick), True,
+                             *(tensors[i] for i in pick))
+        for i, o in zip(pick, outs):
+            tensors[i] = o
+    return tensors
 
 
 def all_to_all(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     """``x`` (S, ...) in S blocks, block j sent to rank j of ``axis``; the
     result's block j is what rank j sent here (``jax.lax.all_to_all(x,
-    axis, 0, 0, tiled=True)`` on the leading dim)."""
+    axis, 0, 0, tiled=True)`` on the leading dim).  Its own transpose."""
     S = axis_size(mesh, axis)
     if S == 1:
         return x
     if x.shape[0] != S:
         raise ValueError(f"all_to_all: expected {S} blocks, got {x.shape[0]}")
-    return _slots(x, mesh, axis)[:, mesh.index(axis)]
+    return _Exchange.apply(x, mesh, axis, None)
 
 
 def shift_next(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     """The ring shift i -> i + 1 along ``axis``: the ``x`` of the previous
-    rank (``jax.lax.ppermute`` with pairs (i, (i + 1) % S))."""
-    S = axis_size(mesh, axis)
-    if S == 1:
+    rank (``jax.lax.ppermute`` with pairs (i, (i + 1) % S)); the backward
+    shifts the cotangent to the previous rank."""
+    if axis_size(mesh, axis) == 1:
         return x
-    return _slots(x, mesh, axis)[(mesh.index(axis) - 1) % S]
+    return _Exchange.apply(x, mesh, axis, 1)
 
 
 def gather_objects(obj, mesh: Optional[Mesh], axis: str) -> List[Any]:
@@ -304,8 +477,8 @@ def param_specs(params: Dict[str, Any], mesh=None, fsdp: bool = False,
     With ``mesh``, a sharded dim whose size the axis extent does not divide
     is demoted to replicated (the 51865-token vocabulary at model-parallel
     2): sharding never changes a result or refuses a model.  ``fsdp=True``
-    also shards every large leaf along ``data`` (:func:`_fsdp_augment`);
-    the training half of the port's parallelism uses it."""
+    also shards every large leaf along ``data`` (:func:`_fsdp_augment`),
+    which :func:`fsdp_shard` slices."""
     if fsdp and mesh is None:
         raise ValueError("fsdp=True requires a mesh (the data extent determines the "
                          "shard layout)")
@@ -349,20 +522,50 @@ class _Shape:
         self.shape = tuple(shape)
 
 
-# The encoder block's leaves that have a rule: port name suffix -> the JAX
-# path, and whether the port stores the leaf transposed (nn.Linear (out,
-# in) against JAX's (in, out); an expert stack (E, out, in) against (E, in,
-# out)).
+# The port's parameter names -> the JAX tree's paths: a block leaf's path
+# relative to its stack, and whether the port stores the leaf transposed
+# (nn.Linear (out, in) against JAX's (in, out); an expert stack (E, out, in)
+# against (E, in, out); the router (E, D) against (D, E)).
+_LIN = {"weight": "w", "bias": "b"}
+_LN = {"weight": "g", "bias": "b"}
+
+
 def _block_leaf(name: str):
+    """The JAX path of a block leaf (``attn.query.weight`` ->
+    ``("attn", "query", "w")``), or None."""
     parts = name.split(".")
-    if parts[0] == "attn" and len(parts) == 3:
-        return ("attn", parts[1], {"weight": "w", "bias": "b"}[parts[2]])
+    if parts[0] in ("attn", "cross_attn") and len(parts) == 3:
+        return (parts[0], parts[1], _LIN[parts[2]])
+    if parts[0] in ("attn_ln", "cross_attn_ln", "mlp_ln") and len(parts) == 2:
+        return (parts[0], _LN[parts[1]])
     if parts[:1] == ["mlp"] and parts[1] in ("0", "2") and len(parts) == 3:
-        return ("mlp", {"0": "fc", "2": "proj"}[parts[1]],
-                {"weight": "w", "bias": "b"}[parts[2]])
+        return ("mlp", {"0": "fc", "2": "proj"}[parts[1]], _LIN[parts[2]])
+    if parts[:2] == ["mlp", "router"] and len(parts) == 3:
+        return ("mlp", "router", "w")
     if parts[:2] == ["mlp", "experts"] and len(parts) == 4:
-        return ("mlp", "experts", parts[2], {"weight": "w", "bias": "b"}[parts[3]])
+        return ("mlp", "experts", parts[2], _LIN[parts[3]])
     return None
+
+
+def _jax_leaf(name: str):
+    """(JAX path, layer index or None) of a parameter of a ``Whisper`` (or
+    MoE) module by its name, or None for a leaf the JAX tree names
+    otherwise (a quantum stem's)."""
+    parts = name.split(".")
+    side, rest = parts[0], parts[1:]
+    if side not in ("encoder", "decoder") or not rest:
+        return None
+    if rest[0] == "blocks" and len(rest) > 2:
+        keys = _block_leaf(".".join(rest[2:]))
+        return None if keys is None else ((side, "blocks") + keys, int(rest[1]))
+    joined = ".".join(rest)
+    top = {"conv1.weight": ("conv1", "w"), "conv1.bias": ("conv1", "b"),
+           "conv2.weight": ("conv2", "w"), "conv2.bias": ("conv2", "b"),
+           "positional_embedding": ("pos",) if side == "encoder" else ("pos_emb",),
+           "ln_post.weight": ("ln_post", "g"), "ln_post.bias": ("ln_post", "b"),
+           "token_embedding.weight": ("tok_emb",),
+           "ln.weight": ("ln", "g"), "ln.bias": ("ln", "b")}.get(joined)
+    return None if top is None else ((side,) + top, None)
 
 
 def _jax_shape(keys, shape, n_layer):
@@ -406,13 +609,18 @@ def _sharded_leaves(encoder, mesh):
     return out
 
 
-def _set_param(module, name: str, value: torch.Tensor):
+def _owner(module, name: str):
     *path, leaf = name.split(".")
     for part in path:
         module = module[int(part)] if part.isdigit() else getattr(module, part)
+    return module, leaf
+
+
+def _set_param(module, name: str, value: torch.Tensor, features: bool = True):
+    module, leaf = _owner(module, name)
     old = getattr(module, leaf)
     setattr(module, leaf, torch.nn.Parameter(value, requires_grad=old.requires_grad))
-    if isinstance(module, torch.nn.Linear):
+    if features and isinstance(module, torch.nn.Linear):
         module.out_features, module.in_features = module.weight.shape
 
 
@@ -446,6 +654,7 @@ def shard_params(module, mesh: Mesh):
                     memory_format=torch.contiguous_format))
     # (model extent, this rank's index, the (name, dim) of every cut leaf)
     encoder.shard_layout = (tp, m, tuple(cut))
+    encoder.shard_mesh = mesh
     return module
 
 
@@ -454,13 +663,236 @@ def is_head_sharded(encoder) -> bool:
     return getattr(encoder, "shard_layout", None) is not None
 
 
-def gathered_encoder(encoder, mesh: Mesh):
-    """A copy of a sliced encoder with its blocks' leaves whole again (an
-    all-gather along ``model`` per cut leaf): what GSPMD gathers around a
-    trunk whose weights are replicated, for the sequence- and
-    pipeline-parallel trunks on a model sharded for tensor parallelism."""
+# ---------------------------------------------------------------------------
+# FSDP: leaves sliced along ``data``, gathered per use
+# ---------------------------------------------------------------------------
+
+
+def fsdp_shard(module, mesh: Mesh, min_size: int = 65536):
+    """Keep, in place, this rank's ``data`` slice of every leaf of a
+    ``Whisper`` (or MoE) module that ``param_specs(fsdp=True)`` slices along
+    ``data`` (ZeRO-3: the decoder and the token embedding too); returns
+    ``module``.  Call it after :func:`shard_params`: a leaf that is also cut
+    along ``model`` keeps the ``data`` slice of its ``model`` slice (the
+    specs are JAX's, computed on the whole shapes).  Each module that owns
+    a sliced leaf records it in ``fsdp_slices`` ({leaf: dim}) beside the
+    mesh (``fsdp_mesh``); :func:`fsdp_view` gathers them where the module is
+    used.  A leaf whose ``data`` slice JAX puts on the blocks' layer axis
+    (a stack whose other dims the data extent does not divide) stays whole:
+    the port keeps a layer's tensors together."""
+    n = axis_size(mesh, DATA_AXIS)
+    if n == 1:
+        return module
+    d = mesh.index(DATA_AXIS)
+    named = dict(module.named_parameters())
+    whole = _whole_shapes(module, mesh)
+    tree, where = {}, {}
+    n_layers: Dict[tuple, int] = {}
+    for name in named:
+        hit = _jax_leaf(name)
+        if hit is not None:
+            keys, layer = hit
+            where[name] = hit
+            if layer is not None:
+                n_layers[keys] = max(n_layers.get(keys, 0), layer + 1)
+    for name, (keys, layer) in where.items():
+        shape = whole[name]
+        node = tree
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = _Shape(shape if layer is None
+                                else _jax_shape(keys, shape, n_layers[keys]))
+    specs = param_specs(tree, mesh, fsdp=True, fsdp_min_size=min_size)
+    with torch.no_grad():
+        for name, (keys, layer) in where.items():
+            spec = specs
+            for k in keys:
+                spec = spec[k]
+            if DATA_AXIS not in spec:
+                continue
+            jd = spec.index(DATA_AXIS)
+            p = named[name]
+            if layer is None:
+                dim = jd
+            elif jd == 0:
+                continue  # the layer axis (see above)
+            else:
+                dim = _torch_dim(keys, jd, p.dim())
+            size = p.shape[dim] // n
+            owner, leaf = _owner(module, name)
+            _set_param(module, name, p.narrow(dim, d * size, size).clone(
+                memory_format=torch.contiguous_format), features=False)
+            owner.__dict__.setdefault("fsdp_slices", {})[leaf] = dim
+            owner.__dict__["fsdp_mesh"] = mesh
+    return module
+
+
+def _whole_shapes(module, mesh: Mesh) -> Dict[str, tuple]:
+    """Every parameter's shape before :func:`shard_params` cut it along
+    ``model``."""
+    shapes = {n: list(p.shape) for n, p in module.named_parameters()}
+    for name, (dim, _) in param_layout(module).items():
+        if dim is not None:
+            shapes[name][dim] *= axis_size(mesh, MODEL_AXIS)
+    return {n: tuple(s) for n, s in shapes.items()}
+
+
+def param_layout(module) -> Dict[str, Tuple[Optional[int], Optional[int]]]:
+    """{name: (model dim, data dim)} of every parameter that
+    :func:`shard_params` or :func:`fsdp_shard` sliced (the dims of the
+    port's tensor; None where the leaf is whole along that axis)."""
+    out: Dict[str, list] = {}
+    for prefix, m in module.named_modules():
+        pre = f"{prefix}." if prefix else ""
+        lay = getattr(m, "shard_layout", None)
+        if lay is not None:
+            for i in range(len(m.blocks)):
+                for leaf, dim in lay[2]:
+                    out.setdefault(f"{pre}blocks.{i}.{leaf}", [None, None])[0] = dim
+        for leaf, dim in m.__dict__.get("fsdp_slices", {}).items():
+            out.setdefault(pre + leaf, [None, None])[1] = dim
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def layout_mesh(module) -> Optional[Mesh]:
+    """The mesh that :func:`shard_params` or :func:`fsdp_shard` sliced
+    ``module`` for, or None for a whole module."""
+    for m in module.modules():
+        mesh = m.__dict__.get("fsdp_mesh") or (m.__dict__.get("shard_mesh")
+                                               if is_head_sharded(m) else None)
+        if mesh is not None:
+            return mesh
+    return None
+
+
+def local_slice(t: torch.Tensor, layout, mesh: Mesh) -> torch.Tensor:
+    """This rank's slice of a whole tensor ``t`` under ``layout`` ((model
+    dim, data dim), as :func:`param_layout` gives), a new tensor."""
+    for dim, axis in zip(layout, (MODEL_AXIS, DATA_AXIS)):
+        if dim is not None:
+            n = axis_size(mesh, axis)
+            size = t.shape[dim] // n
+            t = t.narrow(dim, mesh.index(axis) * size, size)
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+@torch.no_grad()
+def full_tensor(t: torch.Tensor, layout, mesh: Mesh) -> torch.Tensor:
+    """The whole tensor of this rank's slice ``t`` under ``layout`` (a
+    collective on every rank of the mesh, every rank the same result)."""
+    model_dim, data_dim = layout
+    if data_dim is not None:
+        t = all_gather(t, mesh, DATA_AXIS, data_dim)
+    if model_dim is not None:
+        t = all_gather(t, mesh, MODEL_AXIS, model_dim)
+    return t
+
+
+def full_state_dict(module) -> Dict[str, torch.Tensor]:
+    """``module``'s state dict with every sliced leaf whole (a collective
+    on every rank of its mesh); the whole leaves are the module's own
+    tensors, not copies."""
+    layout, mesh = param_layout(module), layout_mesh(module)
+    return {k: full_tensor(v, layout[k], mesh) if k in layout else v
+            for k, v in module.state_dict().items()}
+
+
+def _walk(module, prefix: str = "", skip=()):
+    """(name prefix, module) of ``module`` and its descendants, leaving out
+    the children of ``module`` named in ``skip``."""
+    yield prefix, module
+    for name, child in module._modules.items():
+        if child is not None and not (not prefix and name in skip):
+            yield from _walk(child, f"{prefix}{name}.", ())
+
+
+def _view(module, new: Dict[str, torch.Tensor]):
+    """A shallow copy of ``module`` whose parameters named in ``new``
+    (dotted, relative to it) are the given tensors; the modules on their
+    paths are copied, every other child is shared.  A copy carries no
+    kernel weight pack (``ops.encoder_block._kept`` keys a pack on its
+    tensors' addresses and versions, and a gathered weight lies in a fresh
+    buffer that may reuse a freed one's address at version 0) and no FSDP
+    record."""
     import copy
 
+    if not new:
+        return module
+    v = copy.copy(module)
+    state = v.__dict__
+    for key in ("_encoder_packs", "fsdp_slices", "fsdp_mesh", "shard_mesh"):
+        state.pop(key, None)
+    state["_parameters"] = dict(module._parameters)
+    state["_modules"] = dict(module._modules)
+    children: Dict[str, Dict[str, torch.Tensor]] = {}
+    for name, t in new.items():
+        head, _, rest = name.partition(".")
+        if rest:
+            children.setdefault(head, {})[rest] = t
+        else:
+            state["_parameters"][head] = t
+    for head, sub in children.items():
+        state["_modules"][head] = _view(module._modules[head], sub)
+    return v
+
+
+def _data_sliced(module, skip=()):
+    """(names, tensors, dims, mesh) of the ``data``-sliced leaves of
+    ``module`` and its descendants outside ``skip``."""
+    names, tensors, dims, mesh = [], [], [], None
+    for prefix, m in _walk(module, "", skip):
+        slices = m.__dict__.get("fsdp_slices")
+        if slices:
+            mesh = m.__dict__["fsdp_mesh"]
+            for leaf, dim in slices.items():
+                names.append(prefix + leaf)
+                tensors.append(m._parameters[leaf])
+                dims.append(dim)
+    return names, tensors, dims, mesh
+
+
+def fsdp_view(module, skip=()):
+    """``module`` with its ``data``-sliced leaves (:func:`fsdp_shard`)
+    gathered, for one use: a fresh view (:func:`_view`) whose gathers
+    reduce-scatter the gradients in the backward, or ``module`` itself
+    where nothing is sliced.  ``skip`` names children left as they are
+    (the blocks, which each gather at their own use).  Every rank of the
+    mesh's data axis must make the same calls."""
+    if not isinstance(module, torch.nn.Module):
+        return module  # a traced program's namespace of weights
+    names, tensors, dims, mesh = _data_sliced(module, skip)
+    if not names:
+        return module
+    return _view(module, dict(zip(names, gather_leaves(tensors, dims, mesh, DATA_AXIS))))
+
+
+def gathered_encoder(encoder, mesh: Mesh):
+    """The encoder with its blocks' leaves whole, for the sequence-,
+    pipeline- and expert-parallel trunks, which run whole weights on a
+    model sliced for tensor parallelism (what GSPMD gathers around a trunk
+    whose weights are replicated).
+
+    Under grad: a view whose blocks' ``data`` slices (FSDP) and ``model``
+    slices are all-gathered from the live leaves, the other block leaves
+    entering the trunk's region (:func:`to_model_region`): each rank uses
+    them on its own time rows, stage or experts, so the backward sums
+    their gradients over ``model`` and reduce-scatters the gathered ones,
+    as the transpose of JAX's ``shard_map`` does.  Without grad, where
+    nothing is ``data``-sliced: a copy with its cut leaves gathered."""
+    import copy
+
+    names, tensors, dims, _ = _data_sliced(encoder.blocks)
+    if torch.is_grad_enabled() or names:
+        leaves = dict(encoder.blocks.named_parameters())
+        leaves.update(zip(names, gather_leaves(tensors, dims, mesh, DATA_AXIS)))
+        cut = dict(encoder.shard_layout[2]) if is_head_sharded(encoder) else {}
+        keys = list(leaves)
+        region = torch.is_grad_enabled()
+        dims_m = [cut.get(k.split(".", 1)[1]) for k in keys]
+        whole = gather_leaves([leaves[k] for k in keys], dims_m, mesh, MODEL_AXIS, region)
+        view = _view(encoder, {f"blocks.{k}": t for k, t in zip(keys, whole)})
+        view.__dict__["shard_layout"] = None
+        return view
     if not is_head_sharded(encoder):
         return encoder
     whole = copy.deepcopy(encoder)

@@ -25,6 +25,13 @@ collectives of ``parallel`` stand where ``psum``, ``all_gather``,
 The ``batch`` the gates take is this rank's local batch (its rows are
 whole by construction), so the JAX gates' "batch divisible by the data
 axis" clause has no counterpart.
+
+Under grad the trunks' collectives are their transposes (``parallel``):
+every rank of a model group holds the same loss, so a whole weight or
+input that a rank uses for its own heads, time rows, stage or experts
+enters through ``to_model_region`` (its gradient summed over ``model``),
+as JAX's ``shard_map`` transposes do.  Every rank builds the same graph,
+so that the backward's collectives meet.
 """
 
 from __future__ import annotations
@@ -34,9 +41,11 @@ from typing import Optional
 import torch
 
 from ..ops import gelu, head_scale, layer_norm, linear, round_up
+from types import SimpleNamespace as _NS
+
 from . import (
-    DATA_AXIS, MODEL_AXIS, Mesh, all_gather, all_to_all, axis_size, gathered_encoder,
-    is_head_sharded, psum, shift_next,
+    DATA_AXIS, MODEL_AXIS, Mesh, all_gather, all_to_all, axis_size, fsdp_view,
+    gathered_encoder, is_head_sharded, psum, shift_next, to_model_region,
 )
 
 
@@ -135,11 +144,16 @@ def tp_trunk(encoder, x, dims, t_real: int, mesh: Mesh):
     attend = eb.fused_attention_ln if use_kernel else eb._plain_attn_ln
 
     def layer(xc, bp):
+        bp = fsdp_view(bp)
         dt = xc.dtype
-        ao = attend(xc, bp.attn_ln, bp.attn, nh, T)
+        # the column-parallel entries: each rank's heads and hidden columns
+        # give their part of the input's (and attn_ln's) gradient
+        xin, g, b = to_model_region(mesh, xc, bp.attn_ln.weight, bp.attn_ln.bias)
+        ao = attend(xin, _NS(weight=g, bias=b), bp.attn, nh, T)
         part = ao @ bp.attn.out.weight.to(dt).t()
         xc = xc + (psum(part, mesh, MODEL_AXIS) + bp.attn.out.bias.to(dt))
-        t = gelu(linear(layer_norm(xc, bp.mlp_ln), bp.mlp[0]))
+        h, = to_model_region(mesh, layer_norm(xc, bp.mlp_ln))
+        t = gelu(linear(h, bp.mlp[0]))
         part = t @ bp.mlp[2].weight.to(dt).t()
         return xc + (psum(part, mesh, MODEL_AXIS) + bp.mlp[2].bias.to(dt))
 
@@ -177,12 +191,13 @@ def sp_trunk(encoder, x, dims, t_real: int, mesh: Mesh):
     encoder = gathered_encoder(encoder, mesh)
     T = t_real
     Tp = round_up(T, 128)
+    x, = to_model_region(mesh, x)
     xx = _time_shard(x, mesh, Tp)
     key_mask = _key_mask(Tp, T, x.device)
     for bp in encoder.blocks:
         xx = _remat(_dense_layer, xx, bp, dims.n_audio_head, key_mask, mesh)
-    out = all_gather(layer_norm(xx, encoder.ln_post), mesh, MODEL_AXIS, 1)
-    return out[:, :T]
+    out = all_gather(xx, mesh, MODEL_AXIS, 1, grad="slice")
+    return layer_norm(out[:, :T], encoder.ln_post)
 
 
 # ---------------------------------------------------------------------------
@@ -213,22 +228,28 @@ def pp_trunk(encoder, x, dims, t_real: int, mesh: Mesh, n_micro: int = 4):
     key_mask = None if x.shape[1] == T else _key_mask(x.shape[1], T, x.device)
     B_l, T_l, D = x.shape
     M = n_micro
+    x, = to_model_region(mesh, x)
 
     def stage(mb):
         for bp in blocks:
             mb = _remat(_dense_layer, mb, bp, dims.n_audio_head, key_mask)
         return mb
 
+    # Every stage builds the same graph, so that the collectives of the
+    # backward meet on every rank: stage 0 takes the microbatch and the
+    # others the shifted activation by weights of 1 and 0, and only the last
+    # stage's finished microbatches count, by a weight of 1.
+    first, last = float(s == 0), float(s == S - 1)
     micro = x.reshape(M, B_l // M, T_l, D)
     buf = torch.zeros_like(micro[0])  # the activation from stage s - 1
-    outs = torch.zeros_like(micro)  # finished microbatches, on the last stage
+    outs = []  # finished microbatches (the last stage's count)
     for step in range(M + S - 1):
-        out = stage(micro[min(step, M - 1)] if s == 0 else buf)
+        out = stage(micro[min(step, M - 1)] * first + buf * (1.0 - first))
         if step >= S - 1:
-            outs[step - (S - 1)] = out
+            outs.append(out)
         if step < M + S - 2:
             buf = shift_next(out, mesh, MODEL_AXIS)
-    outs = psum(outs if s == S - 1 else torch.zeros_like(outs), mesh, MODEL_AXIS)
+    outs = psum(torch.stack(outs) * last, mesh, MODEL_AXIS)
     out = layer_norm(outs.reshape(B_l, T_l, D), encoder.ln_post)
     return out[:, :T] if T_l != T else out
 
@@ -265,6 +286,7 @@ def ep_trunk(encoder, x, dims, moe, t_real: int, mesh: Mesh):
     E = moe.n_experts
     E_l = E // S
     e0 = mesh.index(MODEL_AXIS) * E_l
+    x, = to_model_region(mesh, x)
     xx = _time_shard(x, mesh, Tp)
     B_l, T_l, D = xx.shape
     key_mask = _key_mask(Tp, T, x.device)
@@ -291,10 +313,6 @@ def ep_trunk(encoder, x, dims, moe, t_real: int, mesh: Mesh):
     for bp in encoder.blocks:
         xx, aux = _remat(layer, xx, bp)
         auxes.append(aux)
-    aux = torch.stack(auxes).mean()
-    if mesh.size > 1:
-        aux = aux.clone()
-        torch.distributed.all_reduce(aux, group=mesh.group)
-    aux = aux / (dp * S)
-    out = all_gather(layer_norm(xx, encoder.ln_post), mesh, MODEL_AXIS, 1)
-    return out[:, :T], aux
+    aux = psum(torch.stack(auxes).mean(), mesh, None) / (dp * S)
+    out = all_gather(xx, mesh, MODEL_AXIS, 1, grad="slice")
+    return layer_norm(out[:, :T], encoder.ln_post), aux

@@ -111,6 +111,9 @@ class BestTracker:
     directory: str
     metrics: Dict[str, str]  # name -> "min" | "max"
     best: Dict[str, float] = field(default_factory=dict)
+    # False: track and make the tree (a collective under a mesh) but write
+    # nothing, on every rank of a mesh but its leader
+    write: bool = True
 
     def seed_from_disk(self) -> Dict[str, float]:
         """Re-seed ``best`` from existing ``best_<metric>.meta.json`` files,
@@ -142,8 +145,9 @@ class BestTracker:
                 self.best[name] = v
                 if callable(tree):
                     tree = tree()
-                save_pytree(os.path.join(self.directory, f"best_{name}"), tree,
-                            {**(metadata or {}), "metric": name, "value": v})
+                if self.write:
+                    save_pytree(os.path.join(self.directory, f"best_{name}"), tree,
+                                {**(metadata or {}), "metric": name, "value": v})
         return improved
 
 
@@ -185,17 +189,32 @@ def save_train_state(path: str, state, metadata: Optional[dict] = None) -> None:
     """Save a full ``train.step.TrainState``: every parameter and buffer of
     the model by name, both Adam moments by parameter name, the
     optimizer's count and the step.  Restoring it resumes the optimization
-    exactly (:func:`restore_train_state`)."""
+    exactly (:func:`restore_train_state`).
+
+    A state on a mesh (``train.step.shard_state``) is saved whole: every
+    rank of the mesh calls this, the sliced leaves are gathered, the
+    mesh's leader writes the file (the format of a one-rank state) and the
+    others wait for it at a barrier."""
+    from .. import parallel
     from .step import as_module
 
+    module = as_module(state.params)
+    layout = parallel.param_layout(module)
+    mesh = parallel.layout_mesh(module)
+    whole = lambda name, t: (parallel.full_tensor(t.detach(), layout[name], mesh)
+                             if name in layout else t)
     opt = state.opt_state
-    save_pytree(path, {
-        "params": as_module(state.params).state_dict(),
-        "mu": dict(zip(opt["names"], opt["mu"])),
-        "nu": dict(zip(opt["names"], opt["nu"])),
+    tree = {
+        "params": parallel.full_state_dict(module),
+        "mu": {n: whole(n, t) for n, t in zip(opt["names"], opt["mu"])},
+        "nu": {n: whole(n, t) for n, t in zip(opt["names"], opt["nu"])},
         "count": np.int32(int(opt["count"])),
         "step": np.int32(int(state.step)),
-    }, metadata)
+    }
+    if mesh is None or mesh.is_leader:
+        save_pytree(path, tree, metadata)
+    if mesh is not None and mesh.size > 1:
+        torch.distributed.barrier(group=mesh.group)
 
 
 def restore_train_state(path: str, template, mesh=None, fsdp: bool = False):
@@ -203,29 +222,39 @@ def restore_train_state(path: str, template, mesh=None, fsdp: bool = False):
     state of the same model and optimizer, e.g. a fresh
     ``train.init_state(params, tx)``): the parameters are copied into the
     template's modules in place, the moments and counts onto their
-    device."""
-    from .step import TrainState, as_module
+    device.  A whole template with ``mesh`` is then placed on it
+    (``train.step.shard_state(state, mesh, fsdp)``); a template already on
+    a mesh keeps its layout and takes this rank's slices.  A state saved on
+    a mesh restores on one rank, and the other way round."""
+    from .. import parallel
+    from .step import TrainState, as_module, shard_state
 
-    if mesh is not None or fsdp:
-        raise NotImplementedError("sharded train states come with the training half of "
-                                  "ROADMAP queue 1, item 7 (parallelism), the next slice "
-                                  "of the port")
     tree = load_pytree(path)
     module = as_module(template.params)
-    module.load_state_dict({k: torch.from_numpy(np.asarray(v)) for k, v in
-                            tree["params"].items()}, strict=True)
+    layout = parallel.param_layout(module)
+    lmesh = parallel.layout_mesh(module)
+    if lmesh is not None and mesh is not None and lmesh.shape != mesh.shape:
+        raise ValueError(f"restore_train_state: the template lies on a {lmesh.shape} mesh, "
+                         f"not on the {mesh.shape} one asked for")
+    own = lambda name, arr: (parallel.local_slice(torch.from_numpy(np.asarray(arr)),
+                                                  layout[name], lmesh)
+                             if name in layout else torch.from_numpy(np.asarray(arr)))
+    module.load_state_dict({k: own(k, v) for k, v in tree["params"].items()}, strict=True)
     opt = template.opt_state
     if sorted(tree["mu"]) != sorted(opt["names"]):
         raise ValueError(f"{path}: the saved moments are for other parameters")
-    moment = lambda name, like: torch.from_numpy(np.asarray(tree[name][like[0]])).to(
-        like[1].device, like[1].dtype)
+    moment = lambda name, like: own(like[0], tree[name][like[0]]).to(like[1].device,
+                                                                      like[1].dtype)
     count = opt["count"]
-    return TrainState(template.params, {
+    state = TrainState(template.params, {
         **opt,
         "mu": [moment("mu", nm) for nm in zip(opt["names"], opt["mu"])],
         "nu": [moment("nu", nm) for nm in zip(opt["names"], opt["nu"])],
         "count": torch.tensor(int(tree["count"]), dtype=count.dtype, device=count.device),
     }, torch.tensor(int(tree["step"]), dtype=template.step.dtype, device=template.step.device))
+    if lmesh is None and mesh is not None:
+        state = shard_state(state, mesh, fsdp=fsdp)
+    return state
 
 
 def save_whisper_pt(path: str, params, dims) -> None:

@@ -19,6 +19,13 @@ weight decay 1e-4 (optax's default) and no clipping, where the port's
 ``make_optimizer`` defaults to 0.01 and a clip at 1.0; ``make_train_step``
 keeps its non-finite guard, as JAX's does.  On the card both forwards run
 the encoder kernels (the student's through their autograd Functions).
+
+With a ``mesh`` both models run on it: the student's state is placed by
+``train.step.shard_state`` and trained by ``make_sharded_train_step`` (each
+data rank its rows, the KL's mean over the global batch), the teacher is
+sharded for the mesh's ``model`` axis (``WhisperModel.shard``), labels the
+batches data-parallel and runs its forward under ``torch.no_grad`` on the
+same mesh.
 """
 
 from __future__ import annotations
@@ -28,12 +35,12 @@ from typing import Callable, Iterable, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import parallel
 from ..models import whisper as model
 from ..models.dims import ModelDimensions
-from .step import init_state, make_optimizer, make_train_step
-
-_PARALLEL = ("sharded distillation comes with the training half of ROADMAP queue 1, item 7 "
-             "(parallelism), the next slice of the port")
+from .loss import global_mean
+from .step import init_state, make_optimizer, make_sharded_train_step, make_train_step, \
+    shard_state
 
 
 def _dtype(compute_dtype) -> torch.dtype:
@@ -46,22 +53,24 @@ def distill_loss_fn(t_dims: ModelDimensions, s_dims: ModelDimensions, compute_dt
     """(student module, teacher module, mel, tokens) -> scalar distillation
     loss: KL(teacher || student) over the next-token distributions at every
     position whose label is not -100, both softened by ``tau``, times
-    tau^2 (the gradient's scale does not depend on tau)."""
-    if mesh is not None:
-        raise NotImplementedError(_PARALLEL)
+    tau^2 (the gradient's scale does not depend on tau).  With ``mesh``
+    (else the active one, ``parallel.use_mesh``) both forwards route
+    through it, the rows are this data rank's and the mean is over the
+    global batch."""
     dt = _dtype(compute_dtype)
 
     def loss_fn(student, teacher, mel, tokens):
+        m = mesh if mesh is not None else parallel.current_mesh()
         inputs = tokens.clamp_min(0).long()
         with torch.no_grad():
-            t_logits = model.forward(teacher, mel, inputs, t_dims, dt)
-        s_logits = model.forward(student, mel, inputs, s_dims, dt)
+            t_logits = model.forward(teacher, mel, inputs, t_dims, dt, mesh=m)
+        s_logits = model.forward(student, mel, inputs, s_dims, dt, mesh=m)
         # predict token t+1 from the prefix ..t (as shifted_token_loss)
         t_lp = torch.log_softmax(t_logits[:, :-1].float() / tau, dim=-1)
         s_lp = torch.log_softmax(s_logits[:, :-1].float() / tau, dim=-1)
         kl = torch.sum(torch.exp(t_lp) * (t_lp - s_lp), dim=-1)  # (B, T-1)
         mask = (tokens[:, 1:] != -100).float()
-        return (tau * tau) * torch.sum(kl * mask) / torch.clamp(torch.sum(mask), min=1.0)
+        return (tau * tau) * global_mean(torch.sum(kl * mask), torch.sum(mask), m)
 
     return loss_fn
 
@@ -128,9 +137,11 @@ def distill_draft(
     ``mel_batches`` yields (B, n_mels, T) arrays or tensors and is cycled;
     the teacher's labels are computed once per distinct batch.  Every
     draft parameter trains (``requires_grad`` is set for the run and
-    restored after)."""
-    if mesh is not None:
-        raise NotImplementedError(_PARALLEL)
+    restored after).  With ``mesh`` every rank of it calls this with the
+    same batches; the draft's module is left holding this rank's slices
+    (``train.step.shard_state``) and the target is sharded in place."""
+    if mesh is not None and target_model.mesh is None:
+        target_model.shard(mesh)
     label = make_teacher_labeler(target_model, sample_len, language)
     loss_fn = distill_loss_fn(target_model.dims, draft_model.dims,
                               compute_dtype=draft_model.compute_dtype, tau=tau)
@@ -139,8 +150,12 @@ def distill_draft(
     student.requires_grad_(True)
     try:
         tx = make_optimizer(learning_rate, weight_decay=1e-4, clip_norm=None)
-        step_fn = make_train_step(loss_fn, tx)
         state = init_state(student, tx)
+        if mesh is None:
+            step_fn = make_train_step(loss_fn, tx)
+        else:
+            state = shard_state(state, mesh)
+            step_fn = make_sharded_train_step(loss_fn, tx, mesh)
         dev = draft_model.device
         batches = [torch.as_tensor(b).to(dev) for b in mel_batches]
         labels = [None] * len(batches)

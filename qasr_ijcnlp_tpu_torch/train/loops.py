@@ -296,10 +296,14 @@ def train_classifier(params, encoder_apply: Callable, train_loader: DataLoader,
 
 
 @torch.inference_mode()
-def _token_validation(module, dims, tokenizer, loader: DataLoader, compute_dtype):
+def _token_validation(module, dims, tokenizer, loader: DataLoader, compute_dtype, mesh=None):
     """Teacher-forced validation: the loss and the argmax WER/CER of one
     forward a batch (the JAX package runs the same forward twice, for the
-    loss and for the argmax)."""
+    loss and for the argmax).  Under ``mesh`` the forward routes as the
+    train step's: each data rank runs its rows of the batch (padded to the
+    data extent), the loss is the global mean and the argmax rows are
+    gathered, so every rank returns the same numbers."""
+    from ..parallel import DATA_AXIS, all_gather, axis_size, pad_batch_to_mesh, shard_batch
     from .loss import shifted_token_loss
 
     dev = next(module.parameters()).device
@@ -309,9 +313,17 @@ def _token_validation(module, dims, tokenizer, loader: DataLoader, compute_dtype
         (mel, tokens), real = pad_batch_to(batch, loader.batch_size, (None, -100))
         mel_d = torch.from_numpy(np.ascontiguousarray(mel)).to(dev)
         tok_d = torch.from_numpy(np.ascontiguousarray(tokens)).long().to(dev)
-        logits = cmodel.forward(module, mel_d, tok_d.clamp_min(0), dims, dt)
-        vlosses.append(float(shifted_token_loss(logits, tok_d)))
-        out = logits.argmax(-1).cpu().numpy()
+        if axis_size(mesh, DATA_AXIS) > 1:
+            (mel_d, tok_d), rows = pad_batch_to_mesh((mel_d, tok_d), mesh)
+            # the padding rows repeat the last one: mask their targets out
+            tok_d[rows:] = -100
+            mel_d, tok_d = shard_batch((mel_d, tok_d), mesh)
+        logits = cmodel.forward(module, mel_d, tok_d.clamp_min(0), dims, dt, mesh=mesh)
+        vlosses.append(float(shifted_token_loss(logits, tok_d, mesh=mesh)))
+        out = logits.argmax(-1)
+        if axis_size(mesh, DATA_AXIS) > 1:
+            out = all_gather(out, mesh, DATA_AXIS, 0)
+        out = out.cpu().numpy()
         tok_np = np.asarray(tokens)
         for b in range(real):
             valid = tok_np[b] != -100
@@ -340,15 +352,25 @@ def train_token_asr(params, dims, tokenizer, train_loader: DataLoader,
     full-batch step).  ``save_state_every`` > 0 writes the full train
     state every N epochs (``state_epoch_N``) and beside each new best WER
     (``best_wer_state``); ``resume_state`` restores such a state and
-    continues at the epoch its step count reaches.  ``mesh`` and ``fsdp``
-    wait for ROADMAP queue 1, item 7."""
+    continues at the epoch its step count reaches.
+
+    ``mesh`` (a ``parallel.Mesh``; every rank of it runs this with the same
+    loaders) trains on it: the state is placed by ``train.step.
+    shard_state`` (``fsdp`` also slices the parameters and moments along
+    ``data``), each step takes this data rank's rows of the batch, the
+    validation runs under the same mesh, and only the mesh's leader writes
+    the history and the best checkpoints (every rank gathers them)."""
+    from .. import parallel
     from .checkpoint import restore_train_state, save_train_state
     from .schedule import warmup_cosine
-    from .step import make_accum_train_step, whisper_loss_fn, whisper_sum_loss_fn
+    from .step import (
+        make_accum_train_step, make_sharded_train_step, shard_state, whisper_loss_fn,
+        whisper_sum_loss_fn,
+    )
 
-    if mesh is not None or fsdp:
-        raise NotImplementedError("sharded training is the training half of ROADMAP queue 1, "
-                                  "item 7 (parallelism), the next slice of the port")
+    if fsdp and mesh is None:
+        raise ValueError("fsdp=True requires a mesh (the data extent determines the "
+                         "shard layout)")
     module = params
     dev = next(module.parameters()).device
     steps_per_epoch = max(len(train_loader), 1)
@@ -358,14 +380,21 @@ def train_token_asr(params, dims, tokenizer, train_loader: DataLoader,
         step = make_accum_train_step(whisper_sum_loss_fn(dims, compute_dtype), tx, grad_accum)
     else:
         step = make_train_step(whisper_loss_fn(dims, compute_dtype), tx)
-    tracker = BestTracker(checkpoint_dir, {"wer": "min"})
-    history = TrainingHistory(history_path)
+    if mesh is not None:
+        step = make_sharded_train_step(None, tx, mesh, step_fn=step)
+    writer = mesh is None or mesh.is_leader
+    tracker = BestTracker(checkpoint_dir, {"wer": "min"}, write=writer)
+    history = TrainingHistory(history_path if writer else None)
     history.config = {"epochs": epochs, "lr": learning_rate, "warmup": warmup_steps}
+    whole = (lambda: to_jax_params(module, dims)) if mesh is None else \
+        (lambda: to_jax_params(parallel.full_state_dict(module), dims))
     with _trainable(module, None):
         state = init_state(module, tx)
+        if mesh is not None:
+            state = shard_state(state, mesh, fsdp=fsdp)
         start_epoch = 0
         if resume_state:
-            state = restore_train_state(resume_state, state)
+            state = restore_train_state(resume_state, state, mesh=mesh, fsdp=fsdp)
             # the step counts loader batches: step // steps_per_epoch epochs are done
             start_epoch = min(int(state.step) // steps_per_epoch, epochs)
             for ldr in (train_loader, val_loader):
@@ -383,9 +412,8 @@ def train_token_asr(params, dims, tokenizer, train_loader: DataLoader,
             entry = {"epoch": epoch, **_epoch_stats(step_metrics), "time_s": time.time() - t0}
             if val_loader is not None:
                 entry.update(_token_validation(module, dims, tokenizer, val_loader,
-                                               compute_dtype))
-                improved = tracker.update({"wer": entry["val_wer"]},
-                                          lambda: to_jax_params(module, dims), {"epoch": epoch})
+                                               compute_dtype, mesh))
+                improved = tracker.update({"wer": entry["val_wer"]}, whole, {"epoch": epoch})
                 if improved.get("wer") and save_state_every:
                     save_train_state(os.path.join(checkpoint_dir, "best_wer_state"), state,
                                      {"epoch": epoch, "val_wer": entry["val_wer"]})

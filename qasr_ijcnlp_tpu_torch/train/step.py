@@ -33,9 +33,19 @@ not compute (a frozen trunk only passes gradients through).
 
 Parameters live in the caller's modules and are updated in place; the
 caller sets ``requires_grad`` to match the mask (the trainers in
-``train.loops`` do, and restore the flags afterwards).  The parallel forms
-(``shard_state``, ``make_sharded_train_step``) wait for ROADMAP queue 1,
-item 7 and raise.
+``train.loops`` do, and restore the flags afterwards).
+
+**Under a mesh** (one process per rank): :func:`shard_state` keeps this
+rank's slices of the parameters and moments, and
+:func:`make_sharded_train_step` runs the step on this data rank's rows with
+the mesh active (``parallel.use_mesh``), so the loss functions built
+without a mesh route through it, as JAX's ``with mesh:`` does.  Every
+rank's loss carries the global value (``train.loss``); the gradients of
+the leaves whole along ``data`` are summed over the data ranks in flat
+buckets (an FSDP leaf's gather already reduce-scattered its own), the
+clip's norm sums each sliced leaf's squares over the axes it is sliced
+along and counts a replicated leaf once, and the non-finite guard decides
+from the global loss and norm, so every rank skips together.
 """
 
 from __future__ import annotations
@@ -46,12 +56,10 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Set, Union
 import torch
 from torch import nn
 
+from .. import parallel
 from ..models import whisper as model
 from ..models.dims import ModelDimensions
 from .loss import shifted_token_loss, shifted_token_loss_sum
-
-_PARALLEL = ("sharded training is the training half of ROADMAP queue 1, item 7 "
-             "(parallelism), the next slice of the port")
 
 
 class TrainState(NamedTuple):
@@ -184,12 +192,96 @@ def init_state(params, tx: AdamW) -> TrainState:
                       torch.zeros((), dtype=torch.int32, device=opt_state["count"].device))
 
 
-def shard_state(*args, **kwargs):
-    raise NotImplementedError(_PARALLEL)
+def shard_state(state: TrainState, mesh, fsdp: bool = False,
+                fsdp_min_size: int = 65536) -> TrainState:
+    """Place a state on the mesh: the parameters keep this rank's slices
+    (``parallel.shard_params`` along ``model``, then with ``fsdp``
+    ``parallel.fsdp_shard`` along ``data``: ZeRO-3, the decoder and the
+    token embedding included), both Adam moments the slices of their
+    parameters, and the count and the step stay whole.  As in the JAX
+    package, the unsharded input is consumed: its modules are sliced in
+    place and the returned state shares them."""
+    module = as_module(state.params)
+    parallel.shard_params(module, mesh)
+    if fsdp:
+        parallel.fsdp_shard(module, mesh, fsdp_min_size)
+    layout = parallel.param_layout(module)
+    named = dict(module.named_parameters())
+    opt = state.opt_state
+
+    def cut(name, t):
+        lay = layout.get(name)
+        if lay is None or t.shape == named[name].shape:
+            return t
+        return parallel.local_slice(t, lay, mesh)
+
+    return TrainState(state.params, {
+        **opt,
+        "mu": [cut(n, t) for n, t in zip(opt["names"], opt["mu"])],
+        "nu": [cut(n, t) for n, t in zip(opt["names"], opt["nu"])],
+    }, state.step)
 
 
-def make_sharded_train_step(*args, **kwargs):
-    raise NotImplementedError(_PARALLEL)
+def make_sharded_train_step(loss_fn: Optional[Callable], tx: AdamW, mesh,
+                            step_fn: Optional[Callable] = None) -> Callable:
+    """(state, *batch) -> (state, metrics) on the mesh: every rank calls it
+    with the same global batch (``parallel.shard_batch`` keeps this data
+    rank's rows of each tensor; other arguments pass as they are) and a
+    state from :func:`shard_state`.  ``step_fn`` replaces the default
+    :func:`make_train_step` body (e.g. a :func:`make_accum_train_step`)."""
+    inner = step_fn or make_train_step(loss_fn, tx)
+
+    def run(state: TrainState, *batch):
+        batch = tuple(parallel.shard_batch(b, mesh) if isinstance(b, torch.Tensor) else b
+                      for b in batch)
+        with parallel.use_mesh(mesh):
+            return inner(state, *batch)
+
+    return run
+
+
+def _active_mesh():
+    mesh = parallel.current_mesh()
+    return mesh if mesh is not None and mesh.size > 1 else None
+
+
+def reduce_gradients(grads, layout, mesh) -> List[torch.Tensor]:
+    """The gradients summed over the data ranks, in flat buckets of about
+    ``_CHUNK`` elements; a leaf sliced along ``data`` (an FSDP leaf, whose
+    gathers reduce-scattered it already) passes as it is.  ``layout``: each
+    gradient's (model dim, data dim)."""
+    grads = list(grads)
+    if parallel.axis_size(mesh, parallel.DATA_AXIS) == 1:
+        return grads
+    todo = [i for i, lay in enumerate(layout) if lay[1] is None]
+    for idx in _chunks([grads[i] for i in todo]):
+        picked = [todo[j] for j in idx]
+        summed = parallel.all_reduce_flat([grads[i] for i in picked], mesh, parallel.DATA_AXIS)
+        for i, g in zip(picked, summed):
+            grads[i] = g
+    return grads
+
+
+def sharded_global_norm(grads, layout, mesh) -> torch.Tensor:
+    """optax's ``global_norm`` of the whole leaves from this rank's
+    slices: each leaf's squares summed over the axes it is sliced along, a
+    replicated one counted once (one all-reduce over the mesh, every rank
+    the same result)."""
+    d0 = mesh.index(parallel.DATA_AXIS) == 0
+    m0 = mesh.index(parallel.MODEL_AXIS) == 0
+    total = None
+    for g, (mdim, ddim) in zip(grads, layout):
+        # a leaf whole along an axis holds the same gradient on each of its
+        # ranks: only the axis's first rank adds it
+        if (mdim is None and not m0) or (ddim is None and not d0):
+            continue
+        sq = torch.sum(g.float() * g.float())
+        total = sq if total is None else total + sq
+    if total is None:
+        total = torch.zeros((), dtype=torch.float32, device=grads[0].device)
+    total = total.clone()
+    torch.distributed.all_reduce(total, group=mesh.group)
+    return torch.sqrt(total)
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -202,28 +294,35 @@ def global_norm(tensors) -> torch.Tensor:
 
 
 def _forward(dims, compute_dtype, mesh):
-    if mesh is not None:
-        raise NotImplementedError(_PARALLEL)
     dt = getattr(torch, compute_dtype) if isinstance(compute_dtype, str) else compute_dtype
 
     def logits(params, mel, tokens):
+        m = mesh if mesh is not None else parallel.current_mesh()
         # -100 pads are placeholders, masked in the loss
-        return model.forward(params, mel, tokens.clamp_min(0).long(), dims, dt)
+        return model.forward(params, mel, tokens.clamp_min(0).long(), dims, dt, mesh=m), m
 
     return logits
 
 
 def whisper_loss_fn(dims: ModelDimensions, compute_dtype="float32", mesh=None) -> Callable:
-    """(module, mel, tokens) -> scalar next-token CE (ignore -100)."""
+    """(module, mel, tokens) -> scalar next-token CE (ignore -100).  With
+    ``mesh`` (else the active one, ``parallel.use_mesh``) the forward routes
+    through it (``models.whisper.forward``), the rows are this data rank's
+    and the mean is over the global batch (``train.loss``)."""
     logits = _forward(dims, compute_dtype, mesh)
-    return lambda params, mel, tokens: shifted_token_loss(logits(params, mel, tokens), tokens)
+
+    def loss_fn(params, mel, tokens):
+        out, m = logits(params, mel, tokens)
+        return shifted_token_loss(out, tokens, mesh=m)
+
+    return loss_fn
 
 
 def whisper_sum_loss_fn(dims: ModelDimensions, compute_dtype="float32", mesh=None) -> Callable:
-    """(module, mel, tokens) -> (CE sum, valid count), the accumulation form
-    of :func:`whisper_loss_fn`."""
+    """(module, mel, tokens) -> (CE sum, valid count) of this rank's rows,
+    the accumulation form of :func:`whisper_loss_fn`."""
     logits = _forward(dims, compute_dtype, mesh)
-    return lambda params, mel, tokens: shifted_token_loss_sum(logits(params, mel, tokens),
+    return lambda params, mel, tokens: shifted_token_loss_sum(logits(params, mel, tokens)[0],
                                                               tokens)
 
 
@@ -237,7 +336,14 @@ def _trainable_tensors(tx: AdamW, params) -> List[torch.Tensor]:
 
 
 def _finish(state: TrainState, tx: AdamW, ps, grads, loss, skip_nonfinite: bool):
-    gnorm = global_norm(grads)
+    mesh = _active_mesh()
+    if mesh is None:
+        gnorm = global_norm(grads)
+    else:
+        layout = parallel.param_layout(as_module(state.params))
+        lay = [layout.get(n, (None, None)) for n, _ in tx.trainable(state.params)]
+        grads = reduce_gradients(grads, lay, mesh)
+        gnorm = sharded_global_norm(grads, lay, mesh)
     ok = (torch.isfinite(loss) & torch.isfinite(gnorm)) if skip_nonfinite else None
     opt_state = tx.apply(grads, state.opt_state, ps, ok, gnorm)
     skipped = (~ok).to(torch.int32) if skip_nonfinite else torch.zeros_like(state.step)
@@ -265,7 +371,9 @@ def make_accum_train_step(sum_loss_fn: Callable, tx: AdamW, accum: int,
     batch tensor's leading dim must divide by ``accum``): the gradients of
     the summed losses added up and divided by the total valid count, which
     gives the full-batch mean gradient exactly.  Each micro-batch's graph
-    is freed before the next one runs."""
+    is freed before the next one runs.  Under a mesh (as the ``step_fn``
+    of :func:`make_sharded_train_step`) the micro-batches are this data
+    rank's rows and the count and the sum are the data ranks' total."""
 
     def train_step(state: TrainState, *batch):
         if any(x.shape[0] % accum for x in batch):
@@ -279,6 +387,10 @@ def make_accum_train_step(sum_loss_fn: Callable, tx: AdamW, accum: int,
             g = torch.autograd.grad(s, ps, allow_unused=True, materialize_grads=True)
             gsum = list(g) if gsum is None else torch._foreach_add(gsum, g)
             ssum, csum = ssum + s.detach(), csum + c.detach()
+        mesh = _active_mesh()
+        if mesh is not None:  # the counts and sums of every data rank
+            csum = parallel.psum(csum, mesh, parallel.DATA_AXIS)
+            ssum = parallel.psum(ssum, mesh, parallel.DATA_AXIS)
         csum = torch.clamp(csum, min=1.0)
         grads = torch._foreach_div(gsum, csum)
         return _finish(state, tx, ps, grads, ssum / csum, skip_nonfinite)

@@ -189,6 +189,14 @@ def test_port_runs_without_jax():
         from qasr_ijcnlp_tpu_torch.parallel import sharded  # noqa: F401
         from qasr_ijcnlp_tpu_torch.models import moe
         assert parallel.make_mesh().size == 1 and moe.MoEConfig(4).capacity(10) == 8
+        from qasr_ijcnlp_tpu_torch.train import step as tstep
+        from qasr_ijcnlp_tpu_torch.train import checkpoint as tck  # noqa: F401
+        one = parallel.make_mesh(model_parallel=2)  # one process: a (1, 1) mesh
+        state = tstep.shard_state(state, one, fsdp=True)
+        state, met = tstep.make_sharded_train_step(train.whisper_loss_fn(lf), tx, one)(
+            state, torch.nn.functional.pad(mel, (0, 3000 - mel.shape[-1])),
+            torch.tensor([[50258, 50359, 440, 50257]]))
+        assert int(state.step) == 2 and torch.isfinite(met["loss"])
         assert bpe.get_encoding("gpt2")._native is not None
         q = quantize.quantize_params(m.module, lf)
         assert q["decoder.token_embedding.weight"]["q"].dtype == torch.int8

@@ -287,27 +287,44 @@ def test_evaluate_classifier_matches_jax(trees, clf_jax_results, quantum_stem):
 
 
 def test_parallel_flags_raise_naming_the_roadmap(in_tmp):
-    """The training options under a mesh (model parallel, FSDP, sharded
-    steps, restores and distillation) wait for the training half of ROADMAP
-    queue 1, item 7 (parallelism) and say so, before any work."""
+    """No training entry point under a mesh raises NotImplementedError any
+    more (they once waited for ROADMAP queue 1, item 7): on one process each
+    runs on its (1, 1) mesh, and a wrong call raises the JAX package's own
+    ValueError (FSDP without a mesh)."""
+    from qasr_ijcnlp_tpu_torch import parallel
     from qasr_ijcnlp_tpu_torch.cli import train_classical_whisper_asr
+    from qasr_ijcnlp_tpu_torch.models.dims import ModelDimensions
+    from qasr_ijcnlp_tpu_torch.models.whisper import Whisper, init_params
     from qasr_ijcnlp_tpu_torch.train import checkpoint as tck, distill as tdistill
     from qasr_ijcnlp_tpu_torch.train import step as tstep
 
+    mesh = parallel.make_mesh(model_parallel=2)
+    assert mesh.shape == {"data": 1, "model": 1}
+    dims = ModelDimensions(8, 16, 16, 2, 1, 64, 8, 16, 2, 1)
+    module = Whisper(dims)
+    module.load_state_dict(init_params(torch.Generator().manual_seed(0), dims))
+    tx = tstep.make_optimizer(1e-3)
+    loss = tstep.whisper_loss_fn(dims, mesh=mesh)
+    state = tstep.shard_state(tstep.init_state(module, tx), mesh, fsdp=True)
+    mel, tokens = torch.randn(2, 8, 32), torch.tensor([[1, 5, 6, 2], [3, 4, -100, -100]])
+    state, m = tstep.make_sharded_train_step(loss, tx, mesh)(state, mel, tokens)
+    assert int(state.step) == 1 and int(m["skipped"]) == 0
+    tck.save_train_state("state", state)
+    restored = tck.restore_train_state("state", tstep.init_state(module, tx), mesh=mesh,
+                                       fsdp=True)
+    assert int(restored.step) == 1
+    assert torch.isfinite(tdistill.distill_loss_fn(dims, dims, mesh=mesh)(
+        module, module, mel, tokens))
     calls = [
-        lambda: tdistill.distill_loss_fn(LF_DIMS, LF_DIMS, mesh=object()),
-        lambda: train_classical_whisper_asr.main(["--model_parallel", "2", "--device", "cpu"]),
-        lambda: train_classical_whisper_asr.main(["--fsdp", "--device", "cpu"]),
-        lambda: loops.train_token_asr(None, LF_DIMS, None, [], None, mesh=object()),
         lambda: loops.train_token_asr(None, LF_DIMS, None, [], None, fsdp=True),
-        lambda: tstep.whisper_loss_fn(LF_DIMS, mesh=object()),
-        lambda: tstep.shard_state(None, None),
-        lambda: tstep.make_sharded_train_step(None, None, None),
-        lambda: tck.restore_train_state("x", None, mesh=object()),
+        lambda: parallel.param_specs({"w": torch.zeros(4)}, None, fsdp=True),
     ]
     for call in calls:
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 7"):
+        with pytest.raises(ValueError, match="requires a mesh"):
             call()
+    args = train_classical_whisper_asr.build_parser().parse_args(
+        ["--model_parallel", "2", "--fsdp", "--device", "cpu"])
+    assert args.model_parallel == 2 and args.fsdp
 
 
 @pytest.fixture

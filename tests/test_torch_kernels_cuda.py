@@ -1322,3 +1322,104 @@ def test_attention_kernel_head_sharded(cuda_dev, D, H, tp, dtype):
                lambda: encoder_block._plain_attn_ln(x.float(), blk.attn_ln, attn, nh, T))
         parts.append(k)
     assert torch.equal(torch.cat(parts, -1), full)
+
+
+# -- sharded training ---------------------------------------------------------------
+
+
+def _swap_leaves(module, leaves):
+    """Put ``leaves`` ({dotted name: tensor}) in place of ``module``'s own."""
+    for name, t in leaves.items():
+        *path, leaf = name.split(".")
+        m = module
+        for part in path:
+            m = m._modules[part]
+        m._parameters[leaf] = t
+
+
+def test_fsdp_views_never_run_a_stale_pack(cuda_dev):
+    """The hazard "stale packs under FSDP": a weight gathered into a fresh
+    buffer can lie at the address of an earlier, freed gather with the same
+    version (always 0 under ``inference_mode``, where validation gathers),
+    the key of the kernels' weight packs.  Two steps' weights are written
+    through one buffer per leaf and taken as fresh inference tensors at the
+    same address: a module object kept across the steps runs K4 and K5 on
+    the first step's packs (wrong by far), while ``parallel.fsdp_view``'s
+    fresh view per use (``parallel._view``) matches the plain versions on
+    both steps' weights."""
+    from qasr_ijcnlp_tpu_torch import parallel
+
+    torch.manual_seed(7)
+    D, H, T, Tp = 384, 6, 1500, 1536
+    blk = ResidualAttentionBlock(D, H).to(cuda_dev).requires_grad_(False)
+    x = torch.randn(2, Tp, D, generator=torch.Generator(device="cuda").manual_seed(8),
+                    device="cuda")
+    named = dict(blk.named_parameters())
+    buf = {n: torch.empty_like(p) for n, p in named.items()}
+
+    def gathered(scale):
+        for n, p in named.items():
+            buf[n].copy_(p * scale)
+        return {n: torch.empty(0, device="cuda").set_(b.untyped_storage(), 0, b.shape,
+                                                       b.stride()) for n, b in buf.items()}
+
+    plain = lambda view: tmodel._plain_fused_block(x, view, H, T)
+    launches = (encoder_block.attn_launches, encoder_block.finish_launches)
+    with torch.inference_mode():
+        kept = parallel._view(blk, gathered(1.0))
+        first = encoder_block.fused_encoder_block(x, kept, H, T)
+        _close(first, plain(kept), lambda: plain(kept))
+        packs = (kept.attn.__dict__["_encoder_packs"], kept.__dict__["_encoder_packs"])
+        second = gathered(1.5)
+        fresh = parallel._view(blk, second)
+        got = encoder_block.fused_encoder_block(x, fresh, H, T)
+        _close(got, plain(fresh), lambda: plain(fresh))
+        assert float((got - first).abs().max()) > 0.1
+        _swap_leaves(kept, second)  # the kept object, the second weights at the same key
+        stale = encoder_block.fused_encoder_block(x, kept, H, T)
+        wrong = float((stale - plain(kept)).abs().max())
+    # its packs are the first step's (the GEMM operands; an f32 pack's LN
+    # and bias entries alias the buffers): far from the plain block on the
+    # weights it holds
+    now = (kept.attn.__dict__["_encoder_packs"], kept.__dict__["_encoder_packs"])
+    assert now[0] is packs[0] and now[1] is packs[1]
+    assert wrong > 0.1, wrong
+    assert (encoder_block.attn_launches, encoder_block.finish_launches) == tuple(
+        n + 3 for n in launches)
+
+
+def test_collectives_backward_on_the_card_match_the_cpu(cuda_dev, tmp_path):
+    """Each collective's forward and backward over gloo on CUDA tensors (two
+    ranks on cuda:0) equal its CPU form bit for bit."""
+    from tests.torch_parallel_ranks import run_ranks
+
+    outs = run_ranks("card_collectives", {}, tmp_path, world=2)
+    for out in outs:
+        names = {name for _, name in out}
+        assert len(names) == 8
+        for name in names:
+            for a, b in zip(out[("cuda", name)], out[("cpu", name)]):
+                assert torch.equal(a, b), name
+
+
+def test_tp_step_gradients_with_kernels_on_and_off(cuda_dev, tmp_path):
+    """The loss of a (1, 2) tensor-parallel step's forward and every
+    parameter's gradient with K4 head-sharded (8 heads of 64 a rank, one
+    launch a layer) against the kernels off: within the smoke's GRAD_TOL
+    (a whole model's gradient, card against CPU) of each leaf's largest
+    magnitude."""
+    from chip_smoke import GRAD_TOL as MODEL_GRAD_TOL
+    from tests.torch_parallel_ranks import run_ranks
+
+    dims = ModelDimensions(80, 1500, 1024, 16, 1, 51865, 32, 1024, 16, 1)
+    g = torch.Generator().manual_seed(11)
+    tokens = torch.randint(0, 50257, (2, 12), generator=g)
+    tokens[1, 7:] = -100
+    inputs = {"dims": dims, "sd": init_params(torch.Generator().manual_seed(3), dims),
+              "mel": torch.randn(2, 80, 3000, generator=g) * 0.5, "tokens": tokens}
+    for out in run_ranks("card_tp_step", inputs, tmp_path, world=2, timeout=600.0):
+        assert out["kernel"] and out["k4_on"] == 1 and out["k4_off"] == 0
+        assert abs(out["loss_on"] - out["loss_off"]) <= 1e-5 * abs(out["loss_off"])
+        for name, want in out["off"].items():
+            err = float((out["on"][name] - want).abs().max())
+            assert err <= MODEL_GRAD_TOL * float(want.abs().max()), (name, err)
