@@ -21,6 +21,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .profiling import span
+
 SAMPLE_RATE = 16000
 N_FFT = 400
 HOP_LENGTH = 160
@@ -181,20 +183,21 @@ def pad_or_trim(array, length: int = N_SAMPLES, *, axis: int = -1):
     """Pad with zeros or trim ``array`` to ``length`` along ``axis``.
 
     Works on numpy arrays and torch tensors."""
-    if array.shape[axis] > length:
-        index = [slice(None)] * array.ndim
-        index[axis] = slice(0, length)
-        array = array[tuple(index)]
-    if array.shape[axis] < length:
-        if isinstance(array, torch.Tensor):
-            axis = axis % array.ndim
-            pad = [0, 0] * (array.ndim - 1 - axis) + [0, length - array.shape[axis]]
-            array = F.pad(array, pad)
-        else:
-            pad_widths = [(0, 0)] * array.ndim
-            pad_widths[axis] = (0, length - array.shape[axis])
-            array = np.pad(array, pad_widths)
-    return array
+    with span("frontend.pad"):
+        if array.shape[axis] > length:
+            index = [slice(None)] * array.ndim
+            index[axis] = slice(0, length)
+            array = array[tuple(index)]
+        if array.shape[axis] < length:
+            if isinstance(array, torch.Tensor):
+                axis = axis % array.ndim
+                pad = [0, 0] * (array.ndim - 1 - axis) + [0, length - array.shape[axis]]
+                array = F.pad(array, pad)
+            else:
+                pad_widths = [(0, 0)] * array.ndim
+                pad_widths[axis] = (0, length - array.shape[axis])
+                array = np.pad(array, pad_widths)
+        return array
 
 
 def _hz_to_mel_slaney(freq: np.ndarray) -> np.ndarray:
@@ -253,7 +256,8 @@ def _as_waveform(audio, device) -> torch.Tensor:
     if not isinstance(audio, torch.Tensor):
         audio = torch.as_tensor(np.asarray(audio, np.float32))
     if device is not None:
-        audio = audio.to(device)
+        with span("frontend.upload"):
+            audio = audio.to(device)
     if audio.dtype == torch.int16:
         return audio.float() / 32768.0
     return audio.float()
@@ -287,14 +291,15 @@ def log_mel_spectrogram(
 
     if isinstance(audio, str):
         audio = _load_audio_any(audio)
-    audio = _as_waveform(audio, device)
-    lead = audio.shape[:-1]
-    audio = audio.reshape(-1, audio.shape[-1])
-    if _USE_FUSED_MEL is False:
-        out = clamp_and_scale(_plain_log10_mel(reflect_pad(audio, padding), n_mels))
-    else:
-        out = fused_log_mel_batched(audio, n_mels, padding)
-    return out.reshape(*lead, *out.shape[1:])
+    with span("frontend"):
+        audio = _as_waveform(audio, device)
+        lead = audio.shape[:-1]
+        audio = audio.reshape(-1, audio.shape[-1])
+        if _USE_FUSED_MEL is False:
+            out = clamp_and_scale(_plain_log10_mel(reflect_pad(audio, padding), n_mels))
+        else:
+            out = fused_log_mel_batched(audio, n_mels, padding)
+        return out.reshape(*lead, *out.shape[1:])
 
 
 # None: the mel kernel (K1) wherever the audio lies on the card (the

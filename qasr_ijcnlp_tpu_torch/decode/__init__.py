@@ -20,6 +20,7 @@ import torch
 
 from ..audio import CHUNK_LENGTH
 from ..models import whisper as model
+from ..profiling import span
 from ..tokenizer import Tokenizer, get_tokenizer
 from ..utils import compression_ratio
 from . import loop as _loop
@@ -100,9 +101,10 @@ def _audio_features(model_obj, mel: torch.Tensor, fp16: bool, mesh=None) -> torc
     dims = model_obj.dims
     if tuple(mel.shape[-2:]) == (dims.n_audio_ctx, dims.n_audio_state):
         return mel  # already encoded
-    return model.dispatch_encoder_apply(
-        model_obj.module.encoder, mel, dims, _compute_dtype(fp16, mel.device), mesh=mesh
-    )
+    with span("encoder"):
+        return model.dispatch_encoder_apply(
+            model_obj.module.encoder, mel, dims, _compute_dtype(fp16, mel.device), mesh=mesh
+        )
 
 
 def detect_language(
@@ -369,70 +371,72 @@ class DecodingTask:
         return [replace(r, audio_features=feats[i]) for i, r in enumerate(rows)]
 
     def _run(self, mel, generator, spec_events) -> List[DecodingResult]:
-        """``run`` on this rank's rows."""
-        tokenizer = self.tokenizer
-        n_audio = mel.shape[0]
-        opts = self.options
-        dims = self.model.dims
-        # The JAX package encodes inside the decode program when the input
-        # is a mel of known language; only then can a draft model encode it.
-        is_mel = tuple(mel.shape[-2:]) != (dims.n_audio_ctx, dims.n_audio_state)
-        draft_mel = mel if is_mel and opts.language is not None and \
-            opts.task != "lang_id" else None
+        """``run`` on this rank's rows, in a ``request`` span."""
+        with span("request"):
+            tokenizer = self.tokenizer
+            n_audio = mel.shape[0]
+            opts = self.options
+            dims = self.model.dims
+            # The JAX package encodes inside the decode program when the input
+            # is a mel of known language; only then can a draft model encode it.
+            is_mel = tuple(mel.shape[-2:]) != (dims.n_audio_ctx, dims.n_audio_state)
+            draft_mel = mel if is_mel and opts.language is not None and \
+                opts.task != "lang_id" else None
 
-        audio_features = _audio_features(self.model, mel, opts.fp16, self.loop_cfg.mesh)
+            audio_features = _audio_features(self.model, mel, opts.fp16, self.loop_cfg.mesh)
 
-        languages = [opts.language] * n_audio
-        language_probs = None
-        init = np.tile(np.asarray(self.initial_tokens, np.int64), (n_audio, 1))
-        if opts.language is None or opts.task == "lang_id":
-            lang_tokens, language_probs = detect_language(
-                self.model, audio_features, tokenizer
-            )
-            languages = [max(p, key=p.get) for p in language_probs]
-            if opts.language is None:
-                init[:, self.sot_index + 1] = np.asarray(lang_tokens)
-        if opts.task == "lang_id":
-            return [
-                DecodingResult(
-                    audio_features=audio_features[i],
-                    language=languages[i],
-                    language_probs=language_probs[i],
+            languages = [opts.language] * n_audio
+            language_probs = None
+            init = np.tile(np.asarray(self.initial_tokens, np.int64), (n_audio, 1))
+            if opts.language is None or opts.task == "lang_id":
+                lang_tokens, language_probs = detect_language(
+                    self.model, audio_features, tokenizer
                 )
-                for i in range(n_audio)
-            ]
+                languages = [max(p, key=p.get) for p in language_probs]
+                if opts.language is None:
+                    init[:, self.sot_index + 1] = np.asarray(lang_tokens)
+            if opts.task == "lang_id":
+                return [
+                    DecodingResult(
+                        audio_features=audio_features[i],
+                        language=languages[i],
+                        language_probs=language_probs[i],
+                    )
+                    for i in range(n_audio)
+                ]
 
-        # Hypothesis rows are group-major (audio i, group g) = row i G + g; the
-        # audio features keep one row per audio.
-        init_rep = np.repeat(init, self.n_group, axis=0)
-        init_rep = torch.from_numpy(init_rep).to(audio_features.device)
-        if opts.beam_size is not None:
-            tokens_lists, logprob_lists, no_speech = self._run_beam(audio_features, init_rep)
-        else:
-            tokens_lists, logprob_lists, no_speech = self._run_greedy(
-                audio_features, init_rep, generator, draft_mel, spec_events)
+            # Hypothesis rows are group-major (audio i, group g) = row i G + g; the
+            # audio features keep one row per audio.
+            init_rep = np.repeat(init, self.n_group, axis=0)
+            init_rep = torch.from_numpy(init_rep).to(audio_features.device)
+            if opts.beam_size is not None:
+                tokens_lists, logprob_lists, no_speech = self._run_beam(audio_features, init_rep)
+            else:
+                tokens_lists, logprob_lists, no_speech = self._run_greedy(
+                    audio_features, init_rep, generator, draft_mel, spec_events)
 
-        eot = tokenizer.eot
-        sliced = [[_cut_at_eot(np.asarray(seq), self.sample_begin, eot) for seq in group]
-                  for group in tokens_lists]
-        selected = self._rank(sliced, logprob_lists)
-        tokens = [g[i] for i, g in zip(selected, sliced)]
-        texts = [tokenizer.decode(t).strip() for t in tokens]
-        sum_logprobs = [lp[i] for i, lp in zip(selected, logprob_lists)]
-        avg_logprobs = [lp / (len(t) + 1) for t, lp in zip(tokens, sum_logprobs)]
-        return [
-            DecodingResult(
-                audio_features=audio_features[i],
-                language=languages[i],
-                tokens=tokens[i],
-                text=texts[i],
-                avg_logprob=avg_logprobs[i],
-                no_speech_prob=float(no_speech[i]),
-                temperature=opts.temperature,
-                compression_ratio=compression_ratio(texts[i]),
-            )
-            for i in range(n_audio)
-        ]
+            with span("request.assemble"):
+                eot = tokenizer.eot
+                sliced = [[_cut_at_eot(np.asarray(seq), self.sample_begin, eot) for seq in group]
+                          for group in tokens_lists]
+                selected = self._rank(sliced, logprob_lists)
+                tokens = [g[i] for i, g in zip(selected, sliced)]
+                texts = [tokenizer.decode(t).strip() for t in tokens]
+                sum_logprobs = [lp[i] for i, lp in zip(selected, logprob_lists)]
+                avg_logprobs = [lp / (len(t) + 1) for t, lp in zip(tokens, sum_logprobs)]
+                return [
+                    DecodingResult(
+                        audio_features=audio_features[i],
+                        language=languages[i],
+                        tokens=tokens[i],
+                        text=texts[i],
+                        avg_logprob=avg_logprobs[i],
+                        no_speech_prob=float(no_speech[i]),
+                        temperature=opts.temperature,
+                        compression_ratio=compression_ratio(texts[i]),
+                    )
+                    for i in range(n_audio)
+                ]
 
     def _rank(self, tokens: List[List[List[int]]], sum_logprobs: List[List[float]]):
         return [rank_group(s, p, self.options.length_penalty)
@@ -472,8 +476,9 @@ class DecodingTask:
                 float(self.options.temperature), generator, cross_decoder=cross_decoder,
             )
         # one device -> host copy for the whole batch
-        buf, sum_lp = buf.cpu().numpy(), sum_lp.cpu().numpy()
-        no_speech = no_speech[::G].cpu().numpy()
+        with span("decode.fetch"):
+            buf, sum_lp = buf.cpu().numpy(), sum_lp.cpu().numpy()
+            no_speech = no_speech[::G].cpu().numpy()
         n_audio = buf.shape[0] // G
         tokens_lists = [[buf[i * G + g] for g in range(G)] for i in range(n_audio)]
         logprob_lists = [[float(sum_lp[i * G + g]) for g in range(G)] for i in range(n_audio)]
@@ -485,8 +490,9 @@ class DecodingTask:
         decoder, cross_decoder = self._decoders()
         out = _loop.beam_decode(decoder, self.loop_cfg, audio_features, init_rep, K, C,
                                 cross_decoder=cross_decoder)
-        beams, beam_scores, fin_toks, fin_scores, fin_count, no_speech = (
-            t.cpu().numpy() for t in out)
+        with span("decode.fetch"):
+            beams, beam_scores, fin_toks, fin_scores, fin_count, no_speech = (
+                t.cpu().numpy() for t in out)
         tokens_lists, logprob_lists = [], []
         for b in range(beams.shape[0]):
             seqs, scores = finalize_beam_group(

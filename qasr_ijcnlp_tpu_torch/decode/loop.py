@@ -45,6 +45,7 @@ from ..ops import round_up
 from ..ops.decoder_step import (
     fused_cache_applicable, fused_decoder_step, fused_step_enabled, to_fused_cache,
 )
+from ..profiling import count, span
 from .filters import FilterConfig, _log_softmax, _masks, apply_filters
 
 
@@ -119,55 +120,59 @@ def greedy_decode(
     eot = cfg.eot
     dev = audio_features.device
 
-    cache, logits, no_speech_probs = _prompt_pass(
-        decoder, cfg, audio_features, initial_tokens, cross_decoder
-    )
-    # The opt-in fused step (the reference's decode/loop.py gate): read when
-    # the loop starts, and only for a cache the kernel takes.
-    if fused_step_enabled() and cfg.mesh is None and fused_cache_applicable(cache, cfg.dims, B):
-        cache = to_fused_cache(cache, cfg.dims)
-        step_fn = fused_decoder_step
-    else:
-        step_fn = model.decoder_step
-    buf = torch.full((B, n_ctx + 1), eot, dtype=torch.long, device=dev)
-    buf[:, : cfg.sample_begin] = initial_tokens
-    cur_len = cfg.sample_begin
-    sum_logprobs = torch.zeros(B, device=dev)
-    finished = torch.zeros(B, dtype=torch.bool, device=dev)
-    last = torch.full((B,), -1, dtype=torch.long, device=dev)
-    prev = torch.full((B,), -1, dtype=torch.long, device=dev)
-    max_ts = torch.zeros(B, dtype=torch.long, device=dev)
-
-    for i in range(cfg.sample_len):
-        if cur_len > n_ctx:
-            break
-        if i and i % cfg.unroll == 0 and bool(finished.all()):
-            break
-        filtered = apply_filters(cfg.filters, logits, cur_len, last, prev, max_ts)
-        if temperature == 0:
-            next_tok = filtered.argmax(-1)
+    with span("decode.prompt"):
+        cache, logits, no_speech_probs = _prompt_pass(
+            decoder, cfg, audio_features, initial_tokens, cross_decoder
+        )
+    with span("decode.loop"):
+        # The opt-in fused step (the reference's decode/loop.py gate): read when
+        # the loop starts, and only for a cache the kernel takes.
+        if (fused_step_enabled() and cfg.mesh is None
+                and fused_cache_applicable(cache, cfg.dims, B)):
+            cache = to_fused_cache(cache, cfg.dims)
+            step_fn = fused_decoder_step
         else:
-            probs = torch.softmax(filtered.float() / temperature, dim=-1)
-            next_tok = torch.multinomial(probs, 1, generator=generator)[:, 0]
-        # Only the chosen token's logprob is needed: gather + row logsumexp.
-        f32 = filtered.float()
-        m32 = f32.amax(-1)
-        lse = m32 + torch.log(torch.exp(f32 - m32[:, None]).sum(-1))
-        cur_lp = f32.gather(1, next_tok[:, None])[:, 0] - lse
-        commit = ~finished
-        sum_logprobs = sum_logprobs + cur_lp * commit
-        next_tok = torch.where(commit, next_tok, torch.full_like(next_tok, eot))
-        buf[:, cur_len] = next_tok
-        finished = finished | (next_tok == eot)
-        prev, last = last, next_tok
-        max_ts = torch.where(next_tok >= cfg.timestamp_begin,
-                             torch.maximum(max_ts, next_tok), max_ts)
-        cur_len += 1
-        if i + 1 < cfg.sample_len and cur_len <= n_ctx:
-            step_logits, cache = step_fn(
-                decoder, next_tok[:, None], cache, cfg.dims, cfg.compute_dtype
-            )
-            logits = step_logits[:, 0]
+            step_fn = model.decoder_step
+        buf = torch.full((B, n_ctx + 1), eot, dtype=torch.long, device=dev)
+        buf[:, : cfg.sample_begin] = initial_tokens
+        cur_len = cfg.sample_begin
+        sum_logprobs = torch.zeros(B, device=dev)
+        finished = torch.zeros(B, dtype=torch.bool, device=dev)
+        last = torch.full((B,), -1, dtype=torch.long, device=dev)
+        prev = torch.full((B,), -1, dtype=torch.long, device=dev)
+        max_ts = torch.zeros(B, dtype=torch.long, device=dev)
+
+        for i in range(cfg.sample_len):
+            if cur_len > n_ctx:
+                break
+            if i and i % cfg.unroll == 0 and bool(finished.all()):
+                break
+            filtered = apply_filters(cfg.filters, logits, cur_len, last, prev, max_ts)
+            if temperature == 0:
+                next_tok = filtered.argmax(-1)
+            else:
+                probs = torch.softmax(filtered.float() / temperature, dim=-1)
+                next_tok = torch.multinomial(probs, 1, generator=generator)[:, 0]
+            # Only the chosen token's logprob is needed: gather + row logsumexp.
+            f32 = filtered.float()
+            m32 = f32.amax(-1)
+            lse = m32 + torch.log(torch.exp(f32 - m32[:, None]).sum(-1))
+            cur_lp = f32.gather(1, next_tok[:, None])[:, 0] - lse
+            commit = ~finished
+            sum_logprobs = sum_logprobs + cur_lp * commit
+            next_tok = torch.where(commit, next_tok, torch.full_like(next_tok, eot))
+            buf[:, cur_len] = next_tok
+            finished = finished | (next_tok == eot)
+            prev, last = last, next_tok
+            max_ts = torch.where(next_tok >= cfg.timestamp_begin,
+                                 torch.maximum(max_ts, next_tok), max_ts)
+            cur_len += 1
+            if i + 1 < cfg.sample_len and cur_len <= n_ctx:
+                count("decode.token_steps")
+                step_logits, cache = step_fn(
+                    decoder, next_tok[:, None], cache, cfg.dims, cfg.compute_dtype
+                )
+                logits = step_logits[:, 0]
 
     reach = min(cfg.sample_begin + cfg.sample_len + 1, n_ctx + 1)
     return buf[:, :reach], cur_len, sum_logprobs, no_speech_probs
@@ -399,43 +404,46 @@ def beam_decode(
     eot = cfg.eot
     dev = audio_features.device
 
-    cache, logits, no_speech_all = _prompt_pass(
-        decoder, cfg, audio_features, initial_tokens, cross_decoder
-    )
-    buf = torch.full((BK, n_ctx + 1), eot, dtype=torch.long, device=dev)
-    buf[:, : cfg.sample_begin] = initial_tokens
-    # Only beam 0 of each audio starts live; duplicates would dominate topk.
-    start = torch.full((K,), float("-inf"), device=dev)
-    start[0] = 0.0
-    W = n_ctx + 1
-    st = BeamState(
-        buf=buf,
-        sum_logprobs=start.repeat(B),
-        fin_toks=torch.full((B, C, W), eot, dtype=torch.long, device=dev),
-        fin_scores=torch.full((B, C), float("-inf"), device=dev),
-        fin_count=torch.zeros(B, dtype=torch.long, device=dev),
-        last=torch.full((BK,), -1, dtype=torch.long, device=dev),
-        prev=torch.full((BK,), -1, dtype=torch.long, device=dev),
-        max_ts=torch.zeros(BK, dtype=torch.long, device=dev),
-    )
-    cur_len = cfg.sample_begin
-    for i in range(cfg.sample_len):
-        if cur_len > n_ctx:
-            break
-        if i and i % cfg.unroll == 0 and bool((st.fin_count >= C).all()):
-            break
-        live = ~(st.fin_count >= C).all()
-        new, flat_src, new_tok = beam_transition(cfg, K, C, logits, cur_len, st)
-        st = BeamState(*(torch.where(live, a, b) for a, b in zip(new, st)))
-        cur_len += 1
-        if i + 1 < cfg.sample_len and cur_len <= n_ctx:
-            cache = {**cache,
-                     "self_k": [k.index_select(0, flat_src) for k in cache["self_k"]],
-                     "self_v": [v.index_select(0, flat_src) for v in cache["self_v"]]}
-            step_logits, cache = model.decoder_step(
-                decoder, new_tok[:, None], cache, cfg.dims, cfg.compute_dtype
-            )
-            logits = step_logits[:, 0]
+    with span("decode.prompt"):
+        cache, logits, no_speech_all = _prompt_pass(
+            decoder, cfg, audio_features, initial_tokens, cross_decoder
+        )
+    with span("decode.loop"):
+        buf = torch.full((BK, n_ctx + 1), eot, dtype=torch.long, device=dev)
+        buf[:, : cfg.sample_begin] = initial_tokens
+        # Only beam 0 of each audio starts live; duplicates would dominate topk.
+        start = torch.full((K,), float("-inf"), device=dev)
+        start[0] = 0.0
+        W = n_ctx + 1
+        st = BeamState(
+            buf=buf,
+            sum_logprobs=start.repeat(B),
+            fin_toks=torch.full((B, C, W), eot, dtype=torch.long, device=dev),
+            fin_scores=torch.full((B, C), float("-inf"), device=dev),
+            fin_count=torch.zeros(B, dtype=torch.long, device=dev),
+            last=torch.full((BK,), -1, dtype=torch.long, device=dev),
+            prev=torch.full((BK,), -1, dtype=torch.long, device=dev),
+            max_ts=torch.zeros(BK, dtype=torch.long, device=dev),
+        )
+        cur_len = cfg.sample_begin
+        for i in range(cfg.sample_len):
+            if cur_len > n_ctx:
+                break
+            if i and i % cfg.unroll == 0 and bool((st.fin_count >= C).all()):
+                break
+            live = ~(st.fin_count >= C).all()
+            new, flat_src, new_tok = beam_transition(cfg, K, C, logits, cur_len, st)
+            st = BeamState(*(torch.where(live, a, b) for a, b in zip(new, st)))
+            cur_len += 1
+            if i + 1 < cfg.sample_len and cur_len <= n_ctx:
+                cache = {**cache,
+                         "self_k": [k.index_select(0, flat_src) for k in cache["self_k"]],
+                         "self_v": [v.index_select(0, flat_src) for v in cache["self_v"]]}
+                count("decode.token_steps")
+                step_logits, cache = model.decoder_step(
+                    decoder, new_tok[:, None], cache, cfg.dims, cfg.compute_dtype
+                )
+                logits = step_logits[:, 0]
 
     reach = min(cfg.sample_begin + cfg.sample_len + 1, n_ctx + 1)
     return (st.buf.reshape(B, K, W)[:, :, :reach], st.sum_logprobs.reshape(B, K),

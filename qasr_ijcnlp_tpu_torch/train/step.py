@@ -59,6 +59,7 @@ from torch import nn
 from .. import parallel
 from ..models import whisper as model
 from ..models.dims import ModelDimensions
+from ..profiling import span
 from .loss import shifted_token_loss, shifted_token_loss_sum
 
 
@@ -357,10 +358,15 @@ def make_train_step(loss_fn: Callable, tx: AdamW, skip_nonfinite: bool = True) -
     scalar; batch tensors lie on the parameters' device."""
 
     def train_step(state: TrainState, *batch):
-        ps = _trainable_tensors(tx, state.params)
-        loss = loss_fn(state.params, *batch)
-        grads = torch.autograd.grad(loss, ps, allow_unused=True, materialize_grads=True)
-        return _finish(state, tx, ps, grads, loss.detach(), skip_nonfinite)
+        with span("train.step"):
+            ps = _trainable_tensors(tx, state.params)
+            with span("train.forward"):
+                loss = loss_fn(state.params, *batch)
+            with span("train.backward"):
+                grads = torch.autograd.grad(loss, ps, allow_unused=True,
+                                            materialize_grads=True)
+            with span("train.update"):
+                return _finish(state, tx, ps, grads, loss.detach(), skip_nonfinite)
 
     return train_step
 
@@ -379,20 +385,24 @@ def make_accum_train_step(sum_loss_fn: Callable, tx: AdamW, accum: int,
         if any(x.shape[0] % accum for x in batch):
             raise ValueError(f"batch of {batch[0].shape[0]} does not split into {accum} "
                              f"micro-batches")
-        ps = _trainable_tensors(tx, state.params)
-        micro = [x.reshape(accum, x.shape[0] // accum, *x.shape[1:]) for x in batch]
-        gsum, ssum, csum = None, 0.0, 0.0
-        for i in range(accum):
-            s, c = sum_loss_fn(state.params, *(m[i] for m in micro))
-            g = torch.autograd.grad(s, ps, allow_unused=True, materialize_grads=True)
-            gsum = list(g) if gsum is None else torch._foreach_add(gsum, g)
-            ssum, csum = ssum + s.detach(), csum + c.detach()
-        mesh = _active_mesh()
-        if mesh is not None:  # the counts and sums of every data rank
-            csum = parallel.psum(csum, mesh, parallel.DATA_AXIS)
-            ssum = parallel.psum(ssum, mesh, parallel.DATA_AXIS)
-        csum = torch.clamp(csum, min=1.0)
-        grads = torch._foreach_div(gsum, csum)
-        return _finish(state, tx, ps, grads, ssum / csum, skip_nonfinite)
+        with span("train.step"):
+            ps = _trainable_tensors(tx, state.params)
+            micro = [x.reshape(accum, x.shape[0] // accum, *x.shape[1:]) for x in batch]
+            gsum, ssum, csum = None, 0.0, 0.0
+            for i in range(accum):
+                with span("train.forward"):
+                    s, c = sum_loss_fn(state.params, *(m[i] for m in micro))
+                with span("train.backward"):
+                    g = torch.autograd.grad(s, ps, allow_unused=True, materialize_grads=True)
+                    gsum = list(g) if gsum is None else torch._foreach_add(gsum, g)
+                ssum, csum = ssum + s.detach(), csum + c.detach()
+            with span("train.update"):
+                mesh = _active_mesh()
+                if mesh is not None:  # the counts and sums of every data rank
+                    csum = parallel.psum(csum, mesh, parallel.DATA_AXIS)
+                    ssum = parallel.psum(ssum, mesh, parallel.DATA_AXIS)
+                csum = torch.clamp(csum, min=1.0)
+                grads = torch._foreach_div(gsum, csum)
+                return _finish(state, tx, ps, grads, ssum / csum, skip_nonfinite)
 
     return train_step
