@@ -20,10 +20,22 @@ Two options change the kernels the loop runs, as in the reference:
 kernel K9 in every step), and the opt-in fused step
 (``ops.decoder_step.set_fused_decoder_step(True)``) replaces every
 single-token step by one fused kernel launch per decoder layer (K10) where
-``fused_cache_applicable`` admits the cache and no mesh is pinned
-(``LoopConfig.mesh``, the reference's rule); the prompt pass stays on the
-unfused ``decoder_step``.  That gate refuses a grouped cache, so beam and
-best-of decode never run K10.
+``fused_step_applicable`` admits an fp cross cache of the batch's rows and
+no mesh is pinned (``LoopConfig.mesh``, the reference's rule); the prompt
+pass stays on the unfused ``decoder_step``.  That gate refuses a grouped
+cache, so beam and best-of decode never run K10.
+
+On the card the greedy loop replays each token step as one CUDA graph
+(:class:`_StaticLoop`): the filters, the argmax, the chosen token's log
+probability, the loop's bookkeeping and ``decoder_step`` over every layer,
+with the position a 0-d device tensor.  The graph reads buffers at fixed
+addresses (the self and cross caches, the logits, the loop state), kept per
+decoder copy and compute dtype and made anew, with a new capture, when the
+shape, the filters or the weights' storage change; the prompt pass writes
+each batch's cross K/V and prompt K/V into them.  The host keeps the exit
+check every ``unroll`` steps.  It engages only where it gives the plain
+loop's values bit for bit: greedy (sampling draws from the caller's
+generator), the unfused step (not K10), not inside another capture.
 
 :func:`greedy_decode_program` is the JAX package's ``_greedy_decode_jit``
 (``sample=False, encode=True``) as one traceable function, for
@@ -34,6 +46,9 @@ read.  It never takes the fused step, as JAX's export never does.
 
 from __future__ import annotations
 
+import itertools
+import threading
+import weakref
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -41,9 +56,9 @@ from torch._higher_order_ops import while_loop
 
 from ..models import whisper as model
 from ..models.dims import ModelDimensions
-from ..ops import round_up
+from ..ops import decode_attn, round_up
 from ..ops.decoder_step import (
-    fused_cache_applicable, fused_decoder_step, fused_step_enabled, to_fused_cache,
+    fused_decoder_step, fused_step_applicable, fused_step_enabled, to_fused_cache,
 )
 from ..profiling import count, span
 from .filters import FilterConfig, _log_softmax, _masks, apply_filters
@@ -69,27 +84,36 @@ class LoopConfig(NamedTuple):
     mesh: Optional[object] = None
 
 
+def _self_ctx(cfg: LoopConfig) -> int:
+    """The self cache's length: the reachable length (prompt + samples +
+    the unroll overshoot of the JAX loop), rounded up to 16, as in the
+    reference (every step reads the whole buffer)."""
+    reach = cfg.sample_begin + cfg.sample_len + cfg.unroll + 1
+    return min(cfg.dims.n_text_ctx, round_up(reach, 16))
+
+
 def _prompt_pass(decoder, cfg: LoopConfig, audio_features, initial_tokens,
-                 cross_decoder=None, ctx: Optional[int] = None):
+                 cross_decoder=None, ctx: Optional[int] = None, cache=None):
     """Encoder features -> cross K/V + prompt logits + no-speech probs.
 
-    The self cache is bounded to the reachable length (prompt + samples +
-    the unroll overshoot of the JAX loop), rounded up to 16, as in the
-    reference: every step reads the whole buffer; ``ctx`` overrides it (the
-    decode engine sizes its pool once).  The cross K/V are projected with
-    ``cross_decoder`` (default ``decoder``), which must hold fp32 weights
-    when ``cfg.kv_int8``."""
+    The self cache is :func:`_self_ctx` long; ``ctx`` overrides it (the
+    decode engine sizes its pool once).  ``cache`` (the greedy loop's
+    static buffers) is written in place instead of a new one.  The cross
+    K/V are projected with ``cross_decoder`` (default ``decoder``), which
+    must hold fp32 weights when ``cfg.kv_int8``."""
     B = initial_tokens.shape[0]
-    if ctx is None:
-        reach = cfg.sample_begin + cfg.sample_len + cfg.unroll + 1
-        ctx = min(cfg.dims.n_text_ctx, round_up(reach, 16))
-    cache = model.init_kv_cache(
-        cfg.dims, B, cfg.compute_dtype, audio_features.device,
-        cross_batch=audio_features.shape[0], ctx=ctx, cross_int8=cfg.kv_int8,
-    )
+    if cache is None:
+        cache = model.init_kv_cache(
+            cfg.dims, B, cfg.compute_dtype, audio_features.device,
+            cross_batch=audio_features.shape[0], ctx=ctx or _self_ctx(cfg),
+            cross_int8=cfg.kv_int8,
+        )
+        in_place = False
+    else:
+        cache, in_place = {**cache, "idx": 0}, True
     cache = model.precompute_cross_kv(
         cross_decoder if cross_decoder is not None else decoder, audio_features,
-        cache, n_head=cfg.dims.n_text_head,
+        cache, n_head=cfg.dims.n_text_head, in_place=in_place,
     )
     logits_all, cache = model.decoder_step(
         decoder, initial_tokens, cache, cfg.dims, cfg.compute_dtype
@@ -102,6 +126,194 @@ def _prompt_pass(decoder, cfg: LoopConfig, audio_features, initial_tokens,
     return cache, logits_all[:, -1], no_speech_probs
 
 
+class _LoopState(NamedTuple):
+    buf: torch.Tensor  # (B, n_ctx + 1) tokens
+    sum_logprobs: torch.Tensor  # (B,)
+    finished: torch.Tensor  # (B,) bool
+    last: torch.Tensor  # (B,) filter state
+    prev: torch.Tensor
+    max_ts: torch.Tensor
+
+
+def _loop_state(cfg: LoopConfig, initial_tokens, st: Optional[_LoopState] = None):
+    """The greedy loop's state at its start: new tensors, or ``st`` reset
+    in place."""
+    if st is None:
+        B, dev = initial_tokens.shape[0], initial_tokens.device
+        rows = lambda dtype: torch.empty(B, dtype=dtype, device=dev)
+        st = _LoopState(
+            torch.empty((B, cfg.dims.n_text_ctx + 1), dtype=torch.long, device=dev),
+            rows(torch.float32), rows(torch.bool), rows(torch.long), rows(torch.long),
+            rows(torch.long))
+    st.buf.fill_(cfg.eot)
+    st.buf[:, : cfg.sample_begin] = initial_tokens
+    st.sum_logprobs.zero_()
+    st.finished.zero_()
+    st.last.fill_(-1)
+    st.prev.fill_(-1)
+    st.max_ts.zero_()
+    return st
+
+
+def _commit(cfg: LoopConfig, st: _LoopState, logits, cur_len, temperature: float = 0.0,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Choose each row's token at ``cur_len`` (a host int, or a 0-d device
+    tensor) from ``logits`` (B, V) and commit it into ``st`` in place: the
+    buffer, the chosen token's log probability, the finished flags and the
+    filter state.  Returns the (B,) tokens (eot for rows already
+    finished)."""
+    on_device = isinstance(cur_len, torch.Tensor)
+    rows = cur_len.expand(logits.shape[0]) if on_device else cur_len
+    filtered = apply_filters(cfg.filters, logits, rows, st.last, st.prev, st.max_ts)
+    if temperature == 0:
+        next_tok = filtered.argmax(-1)
+    else:
+        probs = torch.softmax(filtered.float() / temperature, dim=-1)
+        next_tok = torch.multinomial(probs, 1, generator=generator)[:, 0]
+    # Only the chosen token's logprob is needed: gather + row logsumexp.
+    f32 = filtered.float()
+    m32 = f32.amax(-1)
+    lse = m32 + torch.log(torch.exp(f32 - m32[:, None]).sum(-1))
+    cur_lp = f32.gather(1, next_tok[:, None])[:, 0] - lse
+    commit = ~st.finished
+    st.sum_logprobs.add_(cur_lp * commit)
+    next_tok = torch.where(commit, next_tok, torch.full_like(next_tok, cfg.eot))
+    if on_device:
+        st.buf.index_copy_(1, cur_len.view(1), next_tok[:, None])
+    else:
+        st.buf[:, cur_len] = next_tok
+    st.finished.logical_or_(next_tok == cfg.eot)
+    st.prev.copy_(st.last)
+    st.last.copy_(next_tok)
+    st.max_ts.copy_(torch.where(next_tok >= cfg.timestamp_begin,
+                                torch.maximum(st.max_ts, next_tok), st.max_ts))
+    return next_tok
+
+
+# Per decoder copy (held weakly) and compute dtype: the one _StaticLoop kept.
+# The lock keeps two threads' decodes out of the same buffers.
+_STATIC: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+_STATIC_LOCK = threading.Lock()
+_CAPTURE_STREAMS = {}
+
+
+class _StaticLoop:
+    """The greedy loop's buffers at fixed addresses and its token step as
+    one CUDA graph, for one key: the shapes, the filters, the cross
+    layout, the device and the storage of the decoder's weights (the graph
+    reads them by address)."""
+
+    def __init__(self, key, decoder, cfg: LoopConfig, audio_features, initial_tokens):
+        B, dev = initial_tokens.shape[0], audio_features.device
+        Bc, Ta = audio_features.shape[:2]
+        L, H = cfg.dims.n_text_layer, cfg.dims.n_text_head
+        self.key = key
+        self.cache = model.init_kv_cache(cfg.dims, B, cfg.compute_dtype, dev, cross_batch=Bc,
+                                         ctx=_self_ctx(cfg), cross_int8=cfg.kv_int8)
+        if not cfg.kv_int8:
+            cross = lambda: torch.empty(Bc, H, Ta, cfg.dims.n_text_state // H,
+                                        dtype=cfg.compute_dtype, device=dev)
+            self.cache["cross_k"] = [cross() for _ in range(L)]
+            self.cache["cross_v"] = [cross() for _ in range(L)]
+        self.state = _loop_state(cfg, initial_tokens)
+        self.logits = torch.empty(B, decoder.token_embedding.weight.shape[0], device=dev)
+        self.cur = torch.zeros((), dtype=torch.long, device=dev)
+        self.graph = None
+        self.k9 = 0  # K9 launches in one replay
+
+    def _step(self, decoder, cfg: LoopConfig):
+        """One token step on the buffers: commit at ``cur``, the decoder
+        over the token at ``cur``, the next logits, ``cur`` + 1."""
+        tok = _commit(cfg, self.state, self.logits, self.cur)
+        logits, _ = model.decoder_step(decoder, tok[:, None], {**self.cache, "idx": self.cur},
+                                       cfg.dims, cfg.compute_dtype)
+        self.logits.copy_(logits[:, 0])
+        self.cur.add_(1)
+
+    def step(self, decoder, cfg: LoopConfig, graphed: bool):
+        """A token step: a replay; eagerly where ``graphed`` is False; and
+        where the graph is yet to be made, eagerly on a side stream (a real
+        step, which warms that stream up), then the capture."""
+        if not graphed:
+            self._step(decoder, cfg)
+            return
+        if self.graph is not None:
+            self.graph.replay()
+            decode_attn.launches += self.k9
+            count("decode.graph_steps")
+            return
+        dev = self.cur.device
+        side = _CAPTURE_STREAMS.get(dev)
+        if side is None:
+            side = _CAPTURE_STREAMS[dev] = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._step(decoder, cfg)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        before = decode_attn.launches
+        graph = torch.cuda.CUDAGraph()
+        # capture_begin directly: torch.cuda.graph would also synchronize and
+        # empty the allocator's cache, which the next batch then refills
+        with torch.cuda.stream(side):
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                self._step(decoder, cfg)
+            finally:
+                graph.capture_end()
+        # a capture launches nothing; each replay launches what it recorded
+        self.k9, decode_attn.launches = decode_attn.launches - before, before
+        self.graph = graph
+        count("decode.graph_captures")
+
+
+def _static_loop(decoder, cfg: LoopConfig, audio_features, initial_tokens) -> _StaticLoop:
+    """The kept :class:`_StaticLoop` of ``decoder`` and the compute dtype,
+    made anew (the old one freed first) where its key changed."""
+    B = initial_tokens.shape[0]
+    weights = tuple(t.data_ptr() for t in itertools.chain(decoder.parameters(),
+                                                           decoder.buffers()))
+    key = (cfg.dims, cfg.filters, cfg.sample_begin, cfg.eot, cfg.timestamp_begin,
+           cfg.kv_int8, _self_ctx(cfg), B, tuple(audio_features.shape[:2]),
+           audio_features.device, weights)
+    kept = _STATIC.setdefault(decoder, {})
+    entry = kept.get(cfg.compute_dtype)
+    if entry is None or entry.key != key:
+        kept.pop(cfg.compute_dtype, None)
+        del entry
+        entry = kept[cfg.compute_dtype] = _StaticLoop(key, decoder, cfg, audio_features,
+                                                      initial_tokens)
+    return entry
+
+
+def _static_greedy(decoder, cfg: LoopConfig, audio_features, initial_tokens, cross_decoder,
+                   graphed: bool):
+    """:func:`greedy_decode` at temperature 0 on the kept buffers, each
+    token step a graph replay where ``graphed``."""
+    n_ctx = cfg.dims.n_text_ctx
+    e = _static_loop(decoder, cfg, audio_features, initial_tokens)
+    with span("decode.prompt"):
+        _, logits, no_speech_probs = _prompt_pass(
+            decoder, cfg, audio_features, initial_tokens, cross_decoder, cache=e.cache)
+    with span("decode.loop"):
+        e.logits.copy_(logits)
+        _loop_state(cfg, initial_tokens, e.state)
+        e.cur.fill_(cfg.sample_begin)
+        cur_len = cfg.sample_begin
+        for i in range(cfg.sample_len):
+            if cur_len > n_ctx:
+                break
+            if i and i % cfg.unroll == 0 and bool(e.state.finished.all()):
+                break
+            cur_len += 1
+            if i + 1 < cfg.sample_len and cur_len <= n_ctx:
+                count("decode.token_steps")
+                e.step(decoder, cfg, graphed)
+            else:
+                _commit(cfg, e.state, e.logits, e.cur)
+    reach = min(cfg.sample_begin + cfg.sample_len + 1, n_ctx + 1)
+    return e.state.buf[:, :reach], cur_len, e.state.sum_logprobs, no_speech_probs
+
+
 def greedy_decode(
     decoder,
     cfg: LoopConfig,
@@ -110,62 +322,56 @@ def greedy_decode(
     temperature: float = 0.0,
     generator: Optional[torch.Generator] = None,
     cross_decoder=None,
+    _loop: str = "auto",
 ) -> Tuple[torch.Tensor, int, torch.Tensor, torch.Tensor]:
     """Returns (tokens_buf (B, reach), final_len, sum_logprobs (B,),
     no_speech_probs (B,)), all on the decode device.  ``cross_decoder``
     holds the fp32 weights the int8 cross K/V are projected with
-    (``cfg.kv_int8``; default ``decoder``)."""
+    (``cfg.kv_int8``; default ``decoder``).
+
+    ``_loop`` (for tests): ``"auto"`` replays each token step as a CUDA
+    graph where the module's gate admits it, else runs the plain loop;
+    ``"plain"`` the plain loop; ``"static"`` the graph's buffers with every
+    step run eagerly (the form a CPU runs), where the gate but for the
+    device admits it."""
     B = initial_tokens.shape[0]
     n_ctx = cfg.dims.n_text_ctx
-    eot = cfg.eot
-    dev = audio_features.device
+    # The opt-in fused step (the reference's decode/loop.py gate), read when
+    # the loop starts, for an fp cross cache of B rows at a geometry it takes.
+    fused = (fused_step_enabled() and cfg.mesh is None and not cfg.kv_int8
+             and audio_features.shape[0] == B
+             and fused_step_applicable(cfg.dims.n_text_head, cfg.dims.n_text_state, B))
+    exact = temperature == 0 and not fused
+    graphed = (_loop == "auto" and exact and audio_features.is_cuda
+               and not torch.cuda.is_current_stream_capturing())
+    if graphed or (_loop == "static" and exact):
+        with _STATIC_LOCK:
+            with torch.inference_mode():
+                buf, cur_len, sum_logprobs, no_speech_probs = _static_greedy(
+                    decoder, cfg, audio_features, initial_tokens, cross_decoder, graphed)
+            # the buffers are the next call's: the caller gets copies
+            return buf.clone(), cur_len, sum_logprobs.clone(), no_speech_probs.clone()
 
     with span("decode.prompt"):
         cache, logits, no_speech_probs = _prompt_pass(
             decoder, cfg, audio_features, initial_tokens, cross_decoder
         )
     with span("decode.loop"):
-        # The opt-in fused step (the reference's decode/loop.py gate): read when
-        # the loop starts, and only for a cache the kernel takes.
-        if (fused_step_enabled() and cfg.mesh is None
-                and fused_cache_applicable(cache, cfg.dims, B)):
+        if fused:
             cache = to_fused_cache(cache, cfg.dims)
             step_fn = fused_decoder_step
         else:
             step_fn = model.decoder_step
-        buf = torch.full((B, n_ctx + 1), eot, dtype=torch.long, device=dev)
-        buf[:, : cfg.sample_begin] = initial_tokens
+        st = _loop_state(cfg, initial_tokens)
+        # the filters read contiguous rows, as the graph's logits buffer holds them
+        logits = logits.contiguous()
         cur_len = cfg.sample_begin
-        sum_logprobs = torch.zeros(B, device=dev)
-        finished = torch.zeros(B, dtype=torch.bool, device=dev)
-        last = torch.full((B,), -1, dtype=torch.long, device=dev)
-        prev = torch.full((B,), -1, dtype=torch.long, device=dev)
-        max_ts = torch.zeros(B, dtype=torch.long, device=dev)
-
         for i in range(cfg.sample_len):
             if cur_len > n_ctx:
                 break
-            if i and i % cfg.unroll == 0 and bool(finished.all()):
+            if i and i % cfg.unroll == 0 and bool(st.finished.all()):
                 break
-            filtered = apply_filters(cfg.filters, logits, cur_len, last, prev, max_ts)
-            if temperature == 0:
-                next_tok = filtered.argmax(-1)
-            else:
-                probs = torch.softmax(filtered.float() / temperature, dim=-1)
-                next_tok = torch.multinomial(probs, 1, generator=generator)[:, 0]
-            # Only the chosen token's logprob is needed: gather + row logsumexp.
-            f32 = filtered.float()
-            m32 = f32.amax(-1)
-            lse = m32 + torch.log(torch.exp(f32 - m32[:, None]).sum(-1))
-            cur_lp = f32.gather(1, next_tok[:, None])[:, 0] - lse
-            commit = ~finished
-            sum_logprobs = sum_logprobs + cur_lp * commit
-            next_tok = torch.where(commit, next_tok, torch.full_like(next_tok, eot))
-            buf[:, cur_len] = next_tok
-            finished = finished | (next_tok == eot)
-            prev, last = last, next_tok
-            max_ts = torch.where(next_tok >= cfg.timestamp_begin,
-                                 torch.maximum(max_ts, next_tok), max_ts)
+            next_tok = _commit(cfg, st, logits, cur_len, temperature, generator)
             cur_len += 1
             if i + 1 < cfg.sample_len and cur_len <= n_ctx:
                 count("decode.token_steps")
@@ -175,7 +381,7 @@ def greedy_decode(
                 logits = step_logits[:, 0]
 
     reach = min(cfg.sample_begin + cfg.sample_len + 1, n_ctx + 1)
-    return buf[:, :reach], cur_len, sum_logprobs, no_speech_probs
+    return st.buf[:, :reach], cur_len, st.sum_logprobs, no_speech_probs
 
 
 def _encode_audio(encoder, mel, cfg: LoopConfig):

@@ -522,7 +522,8 @@ def init_kv_cache(
     reachable length; ``decoder_step`` writes them in place (the JAX cache is
     immutable and returned anew).  Cross K/V are filled once per audio by
     :func:`precompute_cross_kv`, stored head-split and the key pre-scaled, so
-    no decode step re-lays them out.  ``idx`` is the host-side write offset.
+    no decode step re-lays them out.  ``idx`` is the write offset: a host int
+    (or a 0-d device tensor, see :func:`decoder_step`).
 
     ``cross_int8`` stores the cross K/V instead as int8 codes (B, H, Tp, Dh)
     with fp32 scales (B, H, Tp), Tp = round_up(n_audio_ctx, 128), the layout
@@ -561,18 +562,30 @@ def init_kv_cache(
 
 
 def precompute_cross_kv(decoder: TextDecoder, xa, cache: Dict,
-                        n_head: Optional[int] = None) -> Dict:
+                        n_head: Optional[int] = None, in_place: bool = False) -> Dict:
     """Project the encoder output to every layer's cross K/V once.
 
     With an int8 cache the projections are quantized here, once per audio:
     the fp32 projections of the fp32 encoder output, unscaled, as the
     reference quantizes them.  ``decoder`` must then hold fp32 cross
-    weights (the model's own decoder, not ``decoder_for(bfloat16)``)."""
+    weights (the model's own decoder, not ``decoder_for(bfloat16)``).
+
+    ``in_place`` copies each layer's projections into the cache's own
+    cross buffers, which must be allocated, and keeps their addresses (the
+    greedy loop's CUDA graph reads them); otherwise they are new tensors."""
     H = n_head if n_head is not None else cache["self_k"][0].shape[1]
+
+    def put(out, name, l, value):
+        if in_place:
+            out[name][l].copy_(value)
+        else:
+            out[name].append(value.contiguous())
+
     if "cross_k8" in cache:
-        out = {**cache, "cross_k8": [], "cross_sk": [], "cross_v8": [], "cross_sv": []}
+        names = ("cross_k8", "cross_sk", "cross_v8", "cross_sv")
+        out = {**cache, **{n: list(cache[n]) if in_place else [] for n in names}}
         xa = xa.float()
-        for bp in decoder.blocks:
+        for l, bp in enumerate(decoder.blocks):
             ca = bp.cross_attn
             if ca.key.weight.dtype != torch.float32:
                 raise ValueError(
@@ -580,25 +593,32 @@ def precompute_cross_kv(decoder: TextDecoder, xa, cache: Dict,
                     f"with fp32 weights, not {ca.key.weight.dtype}")
             for name, lin in (("k", ca.key), ("v", ca.value)):
                 codes, scales = quantize_kv(linear(xa, lin), H)
-                out[f"cross_{name}8"].append(codes)
-                out[f"cross_s{name}"].append(scales)
+                put(out, f"cross_{name}8", l, codes)
+                put(out, f"cross_s{name}", l, scales)
         return out
     dtype = cache["self_k"][0].dtype
     xa = xa.to(dtype)
-    ks, vs = [], []
-    for bp in decoder.blocks:
-        ks.append(scaled_heads(linear(xa, bp.cross_attn.key), H).contiguous())
-        vs.append(_split_heads(linear(xa, bp.cross_attn.value), H).contiguous())
-    return {**cache, "cross_k": ks, "cross_v": vs}
+    out = {**cache, **{n: list(cache[n]) if in_place else [] for n in ("cross_k", "cross_v")}}
+    for l, bp in enumerate(decoder.blocks):
+        put(out, "cross_k", l, scaled_heads(linear(xa, bp.cross_attn.key), H))
+        put(out, "cross_v", l, _split_heads(linear(xa, bp.cross_attn.value), H))
+    return out
 
 
 def _write_self_kv(buf, new, offset):
     """Write ``new`` (B, H, T_new, Dh) into the self cache ``buf`` (B, H,
     Tmax, Dh) in place at ``offset``: a host int (every row at one
-    position), or a (B,) tensor of per-row starts already clamped to
-    [0, Tmax - T_new], written by one scatter on the time axis."""
+    position), a 0-d device tensor (every row at one position the host
+    does not read, written by one ``index_copy_`` on the time axis), or a
+    (B,) tensor of per-row starts already clamped to [0, Tmax - T_new],
+    written by one scatter on the time axis."""
     if isinstance(offset, int):
         buf[:, :, offset:offset + new.shape[2]] = new
+        return
+    if offset.dim() == 0:  # a one-token step indexes by a view: no launch
+        T_new = new.shape[2]
+        at = offset.view(1) if T_new == 1 else offset + torch.arange(T_new, device=buf.device)
+        buf.index_copy_(2, at, new)
         return
     B, H, T_new, Dh = new.shape
     t = offset[:, None] + torch.arange(T_new, device=buf.device)
@@ -608,11 +628,11 @@ def _write_self_kv(buf, new, offset):
 def decoder_layer(bp: ResidualAttentionBlock, x, cache: Dict, l: int, offset,
                   mask, n_head: int, t_real_cross: int):
     """Layer ``l`` of :func:`decoder_step` on x (B, T_new, D) at cache
-    position ``offset`` (a host int, or a (B,) tensor of per-row write
-    starts), writing its self K/V into the cache in place (the JAX step
-    returns a new buffer); ``mask`` (T_new, ctx), or (B, 1, T_new, ctx)
-    per row, is additive.  A cross cache of B rows serves x's B G rows in
-    groups of G, group-major
+    position ``offset`` (a host int, a 0-d device tensor, or a (B,)
+    tensor of per-row write starts), writing its self K/V into the cache
+    in place (the JAX step returns a new buffer); ``mask`` (T_new, ctx), or
+    (B, 1, T_new, ctx) per row, is additive.  A cross cache of B rows
+    serves x's B G rows in groups of G, group-major
     (beam, best-of): K9 takes the groups itself; on the fp cache each
     audio's G T queries attend as one (B, H, G T, dh) block, the JAX
     package's ``_grouped_cross_attention``, so the cache is read once per
@@ -662,20 +682,32 @@ def decoder_step(
     ``cache['idx']`` is neither read nor advanced.  The batch loops keep
     the host-int position: on the card the per-row form with equal
     offsets costs 8-20% more a greedy step (``chip_smoke.py``
-    ``loop_forms_ab``)."""
+    ``loop_forms_ab``).
+
+    ``cache['idx']`` may also be a 0-d device tensor (the greedy loop's
+    CUDA graph, ``decode/loop.py``): every row at that position, the host
+    int's values bit for bit, without a host read: the self K/V are
+    written by one ``index_copy_`` a layer and the positional row is read
+    by ``index_select``; the returned ``idx`` is a new tensor."""
     B, T_new = tokens.shape
     H = dims.n_text_head
     Tmax = cache["self_k"][0].shape[2]
     dev = tokens.device
     k_pos = torch.arange(Tmax, device=dev)
     if offsets is None:
-        offset = int(cache["idx"])
-        if offset + T_new > Tmax:
-            raise ValueError(f"kv cache of {Tmax} positions is full")
+        offset = cache["idx"]
+        on_device = isinstance(offset, torch.Tensor)
+        if not on_device:
+            offset = int(offset)
+            if offset + T_new > Tmax:
+                raise ValueError(f"kv cache of {Tmax} positions is full")
         q_pos = offset + torch.arange(T_new, device=dev)
         mask = torch.zeros(T_new, Tmax, device=dev).masked_fill(
             k_pos[None, :] > q_pos[:, None], float("-inf"))
-        pos = decoder.positional_embedding[offset:offset + T_new]
+        if on_device:
+            pos = decoder.positional_embedding.index_select(0, q_pos)
+        else:
+            pos = decoder.positional_embedding[offset:offset + T_new]
         write_at = offset
     else:
         if T_new > Tmax:

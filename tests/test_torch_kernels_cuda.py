@@ -940,6 +940,105 @@ def test_engine_pool_on_card_matches_cpu_decode(model, kind):
     assert [o["tokens"] for o in out] == [r.tokens for r in ref]
 
 
+# -- the greedy loop's token step as one CUDA graph -----------------------------------------
+
+# large-v3's decoder widths (D 1280, 20 heads, 51,866 tokens, 1,500 audio
+# positions) at two decoder layers: the loop's products at B = 128.
+LARGE_DEC = ModelDimensions(128, 1500, 1280, 20, 1, 51866, 448, 1280, 20, 2)
+
+
+def _graph_vs_eager(m, batches, dtype, **opts):
+    """Greedy decode of each (features seed, B) in ``batches`` in turn, by
+    the graph (``auto``) and by the plain loop: asserts tokens, final
+    length, sums and no-speech probabilities equal bit for bit, and K9's
+    launch count equal; returns the counters of the graph runs."""
+    import qasr_ijcnlp_tpu_torch as port
+    from qasr_ijcnlp_tpu_torch import profiling
+    from qasr_ijcnlp_tpu_torch.decode import DecodingTask
+    from qasr_ijcnlp_tpu_torch.decode import loop as tloop
+
+    task = DecodingTask(m, port.DecodingOptions(
+        language="en", fp16=dtype == torch.bfloat16, **{"sample_len": 12, **opts}))
+    cfg = task.loop_cfg
+    dec = m.decoder_for(cfg.compute_dtype)
+    cross = m.module.decoder if cfg.kv_int8 else None
+    dims = m.dims
+    counters = {}
+    for seed, B in batches:
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        feats = (torch.randn(B, dims.n_audio_ctx, dims.n_audio_state, generator=g,
+                             device="cuda") * 2).to(cfg.compute_dtype)
+        init = torch.tensor([task.initial_tokens] * B, device="cuda")
+        k9 = decode_attn.launches
+        with profiling.recording() as rec:
+            got = tloop.greedy_decode(dec, cfg, feats, init, cross_decoder=cross)
+        k9_graph, k9 = decode_attn.launches - k9, decode_attn.launches
+        want = tloop.greedy_decode(dec, cfg, feats, init, cross_decoder=cross, _loop="plain")
+        assert decode_attn.launches - k9 == k9_graph
+        assert torch.equal(got[0], want[0]) and got[1] == want[1]
+        assert torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
+        for k, v in rec.counters.items():
+            counters[k] = counters.get(k, 0) + v
+    return counters
+
+
+@pytest.mark.parametrize("kv", ["fp", "int8"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_greedy_graph_equals_eager_loop(model, dtype, kv):
+    """The greedy loop by graph replay against the plain loop, bit for bit:
+    batch A (the capture), batch B of other audio (replays only: a replay
+    that read A's cross K/V would differ), then a new batch size (a second
+    capture); with the int8 cross cache K9 runs in the graph, and its
+    launches count as the plain loop's."""
+    c = _graph_vs_eager(model, [(1, 8), (2, 8), (3, 16)], dtype, kv_int8=kv == "int8")
+    steps = 3 * 11  # sample_len 12: a decoder step after every token but the last
+    assert c["decode.token_steps"] == steps
+    assert c["decode.graph_captures"] == 2
+    assert c["decode.graph_steps"] == steps - 2  # each capture's warm-up step is eager
+
+
+def test_greedy_graph_equals_eager_loop_without_timestamps(model):
+    c = _graph_vs_eager(model, [(4, 8), (5, 8)], torch.bfloat16, without_timestamps=True)
+    assert c["decode.graph_captures"] == 1 and c["decode.graph_steps"] == 2 * 11 - 1
+
+
+def test_greedy_graph_equals_eager_loop_large_v3_widths(cuda_dev):
+    """large-v3's decoder widths at B = 128 in bf16 (the benchmark's batch
+    shapes, two layers): two batches, then B = 64."""
+    sd = init_params(torch.Generator().manual_seed(9), LARGE_DEC)
+    m = WhisperModel.from_state_dict(sd, LARGE_DEC, cuda_dev)
+    c = _graph_vs_eager(m, [(6, 128), (7, 128), (8, 64)], torch.bfloat16, sample_len=16)
+    assert c["decode.graph_captures"] == 2 and c["decode.graph_steps"] == 3 * 15 - 2
+
+
+def test_greedy_graph_stays_off_for_sampling_and_k10(cuda_dev):
+    """Sampling (the caller's generator) and the opt-in fused step K10 keep
+    the plain loop: no capture, no replay."""
+    import qasr_ijcnlp_tpu_torch as port
+    from qasr_ijcnlp_tpu_torch import profiling
+    from qasr_ijcnlp_tpu_torch.decode import DecodingTask
+    from qasr_ijcnlp_tpu_torch.decode import loop as tloop
+
+    dims = tiny_dims()
+    m = WhisperModel.from_state_dict(init_params(torch.Generator().manual_seed(1), dims),
+                                     dims, cuda_dev)
+    task = DecodingTask(m, port.DecodingOptions(language="en", sample_len=6, fp16=False))
+    cfg, dec = task.loop_cfg, m.decoder_for(torch.float32)
+    feats = torch.randn(16, dims.n_audio_ctx, dims.n_audio_state, device="cuda")
+    init = torch.tensor([task.initial_tokens] * 16, device="cuda")
+    before = decoder_step.launches
+    with profiling.recording() as rec:
+        tloop.greedy_decode(dec, cfg, feats, init, 0.7,
+                            torch.Generator(device="cuda").manual_seed(3))
+        decoder_step.set_fused_decoder_step(True)
+        try:
+            tloop.greedy_decode(dec, cfg, feats, init)
+        finally:
+            decoder_step.set_fused_decoder_step(None)
+    assert decoder_step.launches - before == dims.n_text_layer * (cfg.sample_len - 1)
+    assert rec.counters == {"decode.token_steps": 2 * (cfg.sample_len - 1)}
+
+
 # -- the quantum encoder, the char heads and the data views on the card -------------------
 
 def _quantum_pair(dims, dev, seed=2):
